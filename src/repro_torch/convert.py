@@ -1,0 +1,77 @@
+"""State carried across from the JAX package, as numpy arrays.
+
+This system has no weights. What the sequential slice carries is the
+result of each stage: the GMM clustering (``repro.core.gmm.GMMResult``),
+a coreset buffer (``repro.core.coreset.Coreset``) and an end-to-end
+solution (``repro.core.solve.DMMCSolution``). Each ``*_from_arrays`` takes
+a mapping of field name -> array (e.g. ``{f: np.asarray(v) for f, v in
+res._asdict().items()}`` on the JAX side) and builds the port's object;
+``to_arrays`` goes back. The streaming state's ``state_from_arrays`` comes
+with the streaming slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .core.coreset import Coreset
+from .core.gmm import GMMResult
+from .core.solve import DMMCSolution
+from .device import CUDA, DeviceLike, resolve_device
+
+
+def _t(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), device=dev).to(dtype)
+
+
+def gmm_result_from_arrays(
+    arrays: Mapping[str, Any], *, device: DeviceLike = CUDA
+) -> GMMResult:
+    dev = resolve_device(device)
+    return GMMResult(
+        centers=_t(arrays["centers"], torch.int32, dev),
+        num_centers=int(arrays["num_centers"]),
+        assign=_t(arrays["assign"], torch.int32, dev),
+        min_dist=_t(arrays["min_dist"], torch.float32, dev),
+        radius=_t(arrays["radius"], torch.float32, dev),
+        delta=_t(arrays["delta"], torch.float32, dev),
+    )
+
+
+def coreset_from_arrays(
+    arrays: Mapping[str, Any], *, device: DeviceLike = CUDA
+) -> Coreset:
+    dev = resolve_device(device)
+    return Coreset(
+        points=_t(arrays["points"], torch.float32, dev),
+        cats=_t(arrays["cats"], torch.int32, dev),
+        valid=_t(arrays["valid"], torch.bool, dev),
+        src_idx=_t(arrays["src_idx"], torch.int32, dev),
+    )
+
+
+def solution_from_arrays(arrays: Mapping[str, Any]) -> DMMCSolution:
+    """A solution is host data (numpy and floats); no device is involved."""
+    return DMMCSolution(
+        indices=np.asarray(arrays["indices"], np.int64),
+        diversity=float(arrays["diversity"]),
+        coreset_indices=np.asarray(arrays["coreset_indices"], np.int64),
+        coreset_size=int(arrays["coreset_size"]),
+        timings=dict(arrays.get("timings", {})),
+        info=dict(arrays.get("info", {})),
+    )
+
+
+def to_arrays(obj) -> dict[str, Any]:
+    """Field name -> numpy array (or plain value) of a port object."""
+    fields = (
+        dataclasses.asdict(obj) if dataclasses.is_dataclass(obj)
+        else obj._asdict()
+    )
+    return {
+        name: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+        for name, v in fields.items()
+    }

@@ -1,0 +1,144 @@
+"""End-to-end DMMC driver: coreset construction + final-stage solver.
+
+Reference: ``repro/core/solve.py`` (``solve_dmmc`` :78), sequential
+setting (the paper's Alg. 1 followed by the §4.4 final stage):
+
+1. build a (1-eps)-coreset with GMM on the device and the host EXTRACT;
+2. run the final solver on the coreset only:
+   - sum       -> AMT local search (gamma=0), the paper's choice;
+   - others    -> exhaustive search (exact on the coreset).
+
+The reference round-trips the whole normalised matrix to the host; here
+the points stay on the device. Only the cluster assignment (n int32)
+crosses to the host for EXTRACT, the coreset rows are gathered on the
+device, and only the coreset's (m, m) distance matrix comes back.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import CUDA, DeviceLike, disable_tf32, resolve_device
+from . import geometry
+from .coreset import seq_coreset_host
+from .diversity import Variant
+from .final_solve import SubsetMatroidView, coreset_distance_matrix, final_solve
+from .matroid import MatroidSpec, make_host_matroid
+
+_NOT_PORTED = {
+    "streaming": "ROADMAP.md 'Modules to port', step 5 (streaming setting)",
+    "mapreduce": "ROADMAP.md 'Modules to port', step 11 (MapReduce)",
+}
+
+
+@dataclasses.dataclass
+class DMMCSolution:
+    indices: np.ndarray  # selected point indices into S
+    diversity: float
+    coreset_indices: np.ndarray
+    coreset_size: int
+    timings: dict
+    info: dict
+
+
+def _final_solve(
+    pts_norm: torch.Tensor,
+    cats: Optional[np.ndarray],
+    spec: MatroidSpec,
+    caps: Optional[np.ndarray],
+    k: int,
+    coreset_idx: np.ndarray,
+    variant: Variant,
+    oracle=None,
+    gamma: float = 0.0,
+    engine: str = "host",
+    force: Optional[str] = None,
+) -> tuple[list[int], float]:
+    n = pts_norm.shape[0]
+    matroid = make_host_matroid(spec, cats, caps, n, k, oracle)
+    sub = np.asarray(coreset_idx, np.int64)
+    # distance matrix over coreset only (never over S); rows gathered on
+    # the device
+    rows = pts_norm.index_select(
+        0, torch.as_tensor(sub, device=pts_norm.device)
+    )
+    Dsub = coreset_distance_matrix(rows, force=force, device=pts_norm.device)
+    view = SubsetMatroidView(matroid, sub)
+    X, val = final_solve(
+        Dsub, view, k, variant, gamma=gamma, engine=engine,
+        cats=None if cats is None else np.asarray(cats)[sub], caps=caps,
+    )
+    return [int(sub[i]) for i in X], val
+
+
+def solve_dmmc(
+    points,
+    k: int,
+    spec: MatroidSpec,
+    *,
+    cats: Optional[np.ndarray] = None,
+    caps: Optional[np.ndarray] = None,
+    variant: Variant = "sum",
+    eps: Optional[float] = None,
+    tau: Optional[int] = None,
+    setting: str = "sequential",
+    metric: geometry.Metric = "euclidean",
+    oracle=None,
+    gamma: float = 0.0,
+    engine: str = "host",
+    force: Optional[str] = None,
+    device: DeviceLike = CUDA,
+) -> DMMCSolution:
+    """Solve a DMMC instance end to end. Exactly one of eps/tau.
+
+    ``points`` may be a numpy array or a tensor; it is moved to ``device``
+    (no copy if it is already there). ``engine`` names a ``core.solvers``
+    registry engine for the final stage ("host" = the paper's dispatch).
+    ``force="ref"`` runs the plain PyTorch versions of the kernels.
+    """
+    if setting in _NOT_PORTED:
+        raise NotImplementedError(
+            f"setting={setting!r} is not ported yet: {_NOT_PORTED[setting]}"
+        )
+    if setting != "sequential":
+        raise ValueError(setting)
+    if (eps is None) == (tau is None):
+        raise ValueError("give exactly one of eps / tau")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        disable_tf32()
+    t0 = time.perf_counter()
+    pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    n = pts.shape[0]
+    cats_arr = (
+        np.zeros((n, 1), np.int32)
+        if cats is None
+        else np.asarray(cats, np.int32).reshape(n, -1)
+    )
+    pts_norm = geometry.normalize_for_metric(pts, metric)
+
+    idx, info = seq_coreset_host(
+        pts_norm, cats_arr, spec, caps, k, eps=eps, tau=tau,
+        metric="euclidean",  # already normalized
+        oracle=oracle, force=force, device=dev,
+    )
+
+    t1 = time.perf_counter()
+    sol_idx, val = _final_solve(
+        pts_norm, cats_arr, spec, caps, k, idx, variant, oracle, gamma,
+        engine, force,
+    )
+    t2 = time.perf_counter()
+
+    return DMMCSolution(
+        indices=np.asarray(sol_idx, np.int64),
+        diversity=val,
+        coreset_indices=np.asarray(idx, np.int64),
+        coreset_size=int(idx.size),
+        timings=dict(coreset_s=t1 - t0, solver_s=t2 - t1, total_s=t2 - t0),
+        info=info,
+    )

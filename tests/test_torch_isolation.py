@@ -1,0 +1,51 @@
+"""The port stands alone: no JAX, no reference package, no silent CPU run."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import MatroidSpec, solve_dmmc
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert "chip_smoke.py" in names
+    assert "src/repro_torch/core/solve.py" in names
+    assert "src/repro_torch/kernels/gmm_step.py" in names
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_solve_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default runs there")
+    rng = np.random.default_rng(0)
+    P = rng.normal(size=(50, 4)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve_dmmc(P, 3, MatroidSpec("uniform"), tau=4)
