@@ -7,13 +7,16 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
 1. ``device``  the card's name and power limit (``nvidia-smi``).
-2. ``build``   nvcc builds the CUDA kernels from ``src/repro_torch/kernels/
-               csrc`` and Triton compiles the GMM step, with their seconds.
+2. ``build``   nvcc builds each CUDA source in ``src/repro_torch/kernels/
+               csrc`` (one process per source, all at once) and Triton
+               compiles the GMM step, with their seconds and ptxas lines.
 3. ``data``    songs-sim at the paper's Songs widths (n = 237,698,
                dim = 5000, 16 genres, rank ~89), generated on the card.
 4. ``kernels`` every kernel against its plain PyTorch version on the card,
-               at test shapes and at the main path's shapes.
-5. ``solve``   the main path: ``solve_dmmc(setting="sequential",
+               at test shapes and at the main path's shapes; K3 also
+               against its exact oracle, under the blocked scan's index
+               contract.
+5. ``solve``   the sequential path: ``solve_dmmc(setting="sequential",
                metric="cosine", variant="sum", engine="host")`` with launch
                counts set to 0 before and read after. K1 is held to its
                plain version at the solve's coreset rows, and the final
@@ -21,7 +24,16 @@ exits non-zero:
                the same solve on the plain versions (``force="ref"``) must
                give the same centres, coreset and selection (or a GMM tie,
                printed), and the same value with the diagonal out.
-6. ``timing``  each kernel, its plain version and (K1) a library call, at
+6. ``stream``  the streaming path (Alg. 2 blocked scan, radius variant,
+               ``block_size=128``): ``stream_coreset`` on the kernel path;
+               the same stream through ``ingest_batch(force="ref")`` in
+               batches of 16,384 rows must give the same state bit for bit;
+               blocked must equal per-point on a 2,048-point prefix; K3 at
+               the main path's shape against the final centers; then
+               ``solve_dmmc(setting="streaming")`` with launch counts set
+               to 0 before and read after, whose coreset must be the
+               scan's snapshot.
+7. ``timing``  each kernel, its plain version and (K1) a library call, at
                the inputs the main path gave it, with the least time the
                card could take for the same work; the GMM loop alone.
 
@@ -47,6 +59,12 @@ FP32_FLOPS_PER_S = 67e12
 PDIST_SHAPES = [(8, 8, 4), (33, 17, 7), (128, 64, 32), (200, 300, 25),
                 (5, 1000, 3)]
 GMM_SHAPES = [(16, 4), (100, 25), (1025, 7), (64, 128)]
+PRECHECK_SHAPES = [(8, 5, 4), (37, 17, 7), (128, 33, 100), (200, 129, 25),
+                   (128, 257, 100)]
+CUDA_SOURCES = ("pdist", "precheck")
+BLOCK = 128  # the streaming scan's block size on the main path
+INGEST_BATCH = 16_384
+PREFIX = 2048
 TIE_RTOL = 1e-5
 
 
@@ -84,6 +102,43 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_profile(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and read the card's kernel
+    events: their summed time, the span from the first kernel's start to
+    the last one's end, the host wall time of the window (the profiler
+    adds host overhead to it), the busy share of the span, and the
+    kernels with the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return dict(wall_ms=wall * 1e3, device_ms=None,
+                    note="the profiler showed no device events")
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += e.time_range.elapsed_us() / 1e3
+        entry[1] += 1
+    busy = sum(v[0] for v in by_name.values())
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(wall_ms=wall * 1e3, device_ms=busy, span_ms=span,
+                busy_share_of_span=busy / span if span else None,
+                busy_share_of_wall=busy / (wall * 1e3),
+                kernels=len(kernels),
+                top=[dict(name=n[:80], ms=v[0], count=v[1]) for n, v in top])
+
+
 def phase_device() -> dict:
     import torch
 
@@ -103,22 +158,32 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     from repro_torch.kernels import _build, ops
 
+    def build(name: str) -> float:
+        t0 = time.perf_counter()
+        _build.library(name)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _build.library("pdist")
-    nvcc_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        nvcc_s = dict(zip(CUDA_SOURCES, pool.map(build, CUDA_SOURCES)))
+    nvcc_wall_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     x = torch.randn(100, 25, device="cuda")
     ops.gmm_update(x, x[0], torch.full((100,), torch.inf, device="cuda"),
                    torch.ones(100, dtype=torch.bool, device="cuda"))
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for log in _build.BUILD_LOG.values()
-             for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    emit(dict(phase="build", nvcc_s=nvcc_s, triton_first_compile_s=triton_s,
-              ptxas=ptxas))
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]
+             for name, log in _build.BUILD_LOG.items()}
+    emit(dict(phase="build", nvcc_s=nvcc_s, nvcc_wall_s=nvcc_wall_s,
+              triton_first_compile_s=triton_s, ptxas=ptxas))
 
 
 def phase_data(seed: int):
@@ -141,6 +206,94 @@ def _first_max_is_tie(md_plain, i: int, j: int) -> bool:
     return abs(a - b) <= TIE_RTOL * max(abs(a), abs(b))
 
 
+def _check_precheck(x, c, cv, what: str, *, exact_ties: bool = False) -> dict:
+    """K3 against its plain version (``force="ref"``) and its exact oracle
+    (``force="exact"``): distances within 1e-4 (1e30 and above compared
+    as float32 max), ``z`` equal wherever second - dmin > 2 margin, the
+    pair {z, z2} equal wherever third - dmin > 2 margin, and every index
+    below T. Where the exact distance is 0 (a stream point that is itself
+    a center), the plain matmul form keeps ~sqrt(1e-7 |x|^2) of
+    cancellation noise, more than 1e-4: there the kernel is held to the
+    plain version within 2 margins instead. ``exact_ties``: the indices
+    must equal the exact oracle's on every row (duplicated centers)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    got = ops.center_precheck(x, c, cv)
+    plain = ops.center_precheck(x, c, cv, force="ref")
+    exact = ops.center_precheck(x, c, cv, force="exact")
+    torch.cuda.synchronize()
+    margin = got[5]
+    err_plain = err_exact = over_margin = 0.0
+    for i in (0, 2, 4):
+        zero = exact[i] == 0
+        check(bool(torch.all((got[i] - plain[i]).abs()[zero]
+                             <= 2 * margin[zero])),
+              f"precheck {what}: output {i} at distance 0 off by > 2 margin")
+        for want, name in ((plain[i], "plain"), (exact[i], "exact")):
+            check(bool(torch.equal(got[i] < 1e30, want < 1e30)),
+                  f"precheck {what}: output {i} masks differently from "
+                  f"the {name} version")
+            fin = (want < 1e30) & ~zero if name == "plain" else want < 1e30
+            err = float((got[i] - want)[fin].abs().max()) if fin.any() else 0.0
+            check(bool(torch.allclose(got[i][fin], want[fin], rtol=1e-4,
+                                      atol=1e-4)),
+                  f"precheck {what}: output {i} max abs err {err} vs {name}")
+            if name == "plain":
+                err_plain = max(err_plain, err)
+            else:
+                err_exact = max(err_exact, err)
+                if fin.any():
+                    over_margin = max(over_margin, float(
+                        ((got[i] - want).abs() / margin)[fin].max()))
+    T = c.shape[0]
+    for z in (got[1], got[3]):
+        check(bool(torch.all((z >= 0) & (z < T))),
+              f"precheck {what}: index outside [0, T)")
+    dmin_r, z_r, sec_r, z2_r, third_r, _ = exact
+    safe_z = (sec_r - dmin_r) > 2 * margin
+    check(bool(torch.equal(got[1][safe_z], z_r[safe_z])),
+          f"precheck {what}: z differs where the gap clears the margin")
+    safe_pair = (third_r - dmin_r) > 2 * margin
+    pair = torch.sort(torch.stack([got[1], got[3]]), dim=0).values
+    pair_r = torch.sort(torch.stack([z_r, z2_r]), dim=0).values
+    check(bool(torch.equal(pair[:, safe_pair], pair_r[:, safe_pair])),
+          f"precheck {what}: {{z, z2}} differs where the gap clears the "
+          f"margin")
+    if exact_ties:
+        check(bool(torch.equal(got[1], z_r) and torch.equal(got[3], z2_r)),
+              f"precheck {what}: first-index ties differ from the oracle")
+    return dict(kernel="center_precheck", shape=[x.shape[0], T, x.shape[1]],
+                what=what, max_abs_err=err_plain,
+                max_abs_err_vs_exact=err_exact,
+                max_err_over_margin=over_margin,
+                z_checked=int(safe_z.sum()), pair_checked=int(safe_pair.sum()),
+                tol=1e-4, ok=True)
+
+
+def _precheck_cases(g):
+    """K3's test shapes, all-invalid centers, and duplicated centers."""
+    import torch
+
+    for B, T, d in PRECHECK_SHAPES:
+        x = torch.randn(B, d, generator=g, device="cuda") * 3
+        c = torch.randn(T, d, generator=g, device="cuda") * 3
+        cv = torch.rand(T, generator=g, device="cuda") > 0.2
+        yield x, c, cv, "random", False
+    x = torch.ones(8, 4, device="cuda")
+    yield x, torch.zeros(5, 4, device="cuda"), torch.zeros(
+        5, dtype=torch.bool, device="cuda"), "all invalid", False
+    base = torch.randn(3, 64, generator=g, device="cuda")
+    c = base[torch.tensor([2, 0, 1, 0, 2, 1, 0] * 10, device="cuda")]
+    cv = torch.ones(70, dtype=torch.bool, device="cuda")
+    cv[1] = False
+    # points near (not on) a base vector: the plain matmul form leaves
+    # ~1e-3 of cancellation noise on a zero distance
+    x = base[torch.tensor([0, 1, 2] * 40, device="cuda")] + 0.5 * torch.randn(
+        120, 64, generator=g, device="cuda")
+    yield x, c.contiguous(), cv, "duplicated centers", True
+
+
 def phase_kernels(x_norm, m_slice: int, seed: int) -> float:
     """Each kernel against its plain version; returns K2's max abs error at
     the main path's shape."""
@@ -149,6 +302,8 @@ def phase_kernels(x_norm, m_slice: int, seed: int) -> float:
 
     g = torch.Generator(device="cuda").manual_seed(seed + 7)
     lines, k2_err = [], None
+    for x, c, cv, what, ties in _precheck_cases(g):
+        lines.append(_check_precheck(x, c, cv, what, exact_ties=ties))
     rows = x_norm[:m_slice].contiguous()
     cases = [(n, m, d, None) for n, m, d in PDIST_SHAPES]
     cases.append((m_slice, m_slice, x_norm.shape[1], rows))
@@ -347,6 +502,171 @@ def phase_solve(points, x_norm, cats, caps, spec, k: int, tau: int):
     return sol, launches
 
 
+def _assert_states_equal(a, b, what: str) -> None:
+    import torch
+    from repro_torch.core import StreamState
+
+    for f in StreamState._fields:
+        check(bool(torch.equal(getattr(a, f), getattr(b, f))),
+              f"{what}: field {f} differs")
+
+
+def phase_stream(points, x_norm, cats, caps, spec, k: int, tau: int) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import (
+        PartitionMatroid,
+        epoch_fingerprint,
+        ingest_batch,
+        init_stream_state,
+        snapshot_coreset,
+        solve_dmmc,
+        stream_coreset,
+    )
+    from repro_torch.core import streaming
+    from repro_torch.core.solve import _final_solve
+    from repro_torch.kernels import ops
+
+    n, d = x_norm.shape
+    valid = np.ones(n, bool)
+    blocks = -(-n // BLOCK)
+
+    # A: one pass on the kernel path
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    streaming.reset_scan_counts()
+    t0 = time.perf_counter()
+    cs_a, st_a = stream_coreset(x_norm, cats, valid, spec, caps, k, tau,
+                                block_size=BLOCK, device="cuda")
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches_a = ops.launch_counts()
+    counts_a = streaming.scan_counts()
+    check(launches_a["center_precheck"] >= blocks,
+          f"K3 launched {launches_a['center_precheck']} < {blocks} times")
+    check(launches_a["gmm_update"] == 0, "K2 launched on the streaming path")
+    fp_a = epoch_fingerprint(st_a)
+
+    # B: the plain path, resumed batch by batch as the serving runtime does
+    t0 = time.perf_counter()
+    st_b = init_stream_state(d, cats.shape[1], spec, k, tau, device="cuda")
+    for off in range(0, n, INGEST_BATCH):
+        end = min(n, off + INGEST_BATCH)
+        st_b = ingest_batch(st_b, x_norm[off:end], cats[off:end],
+                            valid[off:end], spec, caps, k, tau,
+                            base_index=off, block_size=BLOCK, force="ref")
+        fp_b = epoch_fingerprint(st_b)
+    torch.cuda.synchronize()
+    plain_stream_s = time.perf_counter() - t0
+    _assert_states_equal(st_a, st_b, "kernel pass vs plain batched resume")
+    check(fp_a == fp_b, "epoch fingerprints differ")
+
+    # blocked == per-point on a prefix (a per-point pass syncs per point)
+    t0 = time.perf_counter()
+    _, st_pp = stream_coreset(x_norm[:PREFIX], cats[:PREFIX], valid[:PREFIX],
+                              spec, caps, k, tau, block_size=1,
+                              device="cuda")
+    torch.cuda.synchronize()
+    per_point_s = time.perf_counter() - t0
+    _, st_bl = stream_coreset(x_norm[:PREFIX], cats[:PREFIX], valid[:PREFIX],
+                              spec, caps, k, tau, block_size=BLOCK,
+                              device="cuda")
+    _assert_states_equal(st_pp, st_bl, f"blocked vs per-point, {PREFIX} pts")
+
+    # a steady-state window on the card: 64 blocks resumed into a copy of
+    # the final state, under the profiler
+    off = (n // 2) // BLOCK * BLOCK
+    window = device_profile(lambda: ingest_batch(
+        st_a, x_norm[off:off + 64 * BLOCK], cats[off:off + 64 * BLOCK],
+        valid[off:off + 64 * BLOCK], spec, caps, k, tau, base_index=off,
+        block_size=BLOCK))
+
+    # K3 at the main path's shape: stream blocks against the final centers
+    k3_lines = [
+        _check_precheck(x_norm[b * BLOCK:(b + 1) * BLOCK], st_a.centers,
+                        st_a.cvalid, f"songs-sim block {b}, final centers")
+        for b in np.linspace(0, blocks - 2, 8).astype(int)
+    ]
+
+    # the streaming solve, with launch counts read around it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    sol = solve_dmmc(points, k, spec, cats=cats, caps=caps, tau=tau,
+                     setting="streaming", metric="cosine", variant="sum",
+                     engine="host", device="cuda")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    solve_peak = (points.numel() * points.element_size()
+                  + torch.cuda.max_memory_allocated() - before)
+    snap = snapshot_coreset(st_a)
+    check(np.array_equal(sol.coreset_indices,
+                         snap.src_idx[snap.valid].cpu().numpy()),
+          "streaming solve's coreset is not the scan's snapshot")
+    check(launches["center_precheck"] >= blocks,
+          f"K3 launched {launches['center_precheck']} < {blocks} times")
+    check(launches["pairwise_sqdist"] >= 1, "K1 was not launched")
+    check(launches["gmm_update"] == 0, "K2 launched on the streaming path")
+    check(len(sol.indices) == k, f"{len(sol.indices)} points selected, k={k}")
+    check(PartitionMatroid(cats[:, 0], caps).is_independent(
+        list(sol.indices)), "solution violates the partition matroid")
+    check(np.isfinite(sol.diversity) and sol.diversity > 0,
+          f"diversity {sol.diversity}")
+    rows = x_norm.index_select(
+        0, torch.as_tensor(sol.coreset_indices, device="cuda"))
+    k1_err = _check_pdist_at(rows, "the streaming coreset")
+    fs_idx, _ = _final_solve(x_norm, cats, spec, caps, k,
+                             sol.coreset_indices, "sum", force="ref")
+    check(np.array_equal(np.sort(fs_idx), np.sort(sol.indices)),
+          "final stage on the plain pdist selects other indices")
+    emit(dict(
+        phase="stream", n=n, dim=d, k=k, tau=tau, block_size=BLOCK,
+        variant="radius", stream_s=stream_s, points_per_s=n / stream_s,
+        plain_batched_stream_s=plain_stream_s,
+        per_point_prefix_s=per_point_s, prefix=PREFIX,
+        scan_counts=counts_a, pass_launches=launches_a,
+        centers=int(st_a.cvalid.sum()), R=float(st_a.R),
+        coreset_s=sol.timings["coreset_s"], solver_s=sol.timings["solver_s"],
+        total_s=sol.timings["total_s"], coreset_size=sol.coreset_size,
+        diversity=sol.diversity, solve_peak_device_bytes=solve_peak,
+        launches=launches, pdist_max_abs_err_at_coreset=k1_err,
+        profiled_window_64_blocks=window, k3_main_path=k3_lines,
+    ))
+    return dict(st=st_a, launches=launches,
+                k3_err=max(line["max_abs_err"] for line in k3_lines))
+
+
+def _time_precheck(x_norm, st) -> dict:
+    """K3 and its plain version on a block of the stream against the scan's
+    final center buffer, (128, 65, 5000) on the main path."""
+    from repro_torch.kernels import ops, precheck, ref
+
+    xb = x_norm[:BLOCK]
+    c, cv = st.centers, st.cvalid
+    B, d = xb.shape
+    T = c.shape[0]
+    b, by = bound_ms((B * d + T * d) * 4 + T + 5 * B * 4,
+                     2 * B * T * d + 2 * (B + T) * d + 6 * B * T)
+    def kernel():
+        return precheck.center_precheck_stats(xb, c, cv)
+
+    def launches20():
+        for _ in range(20):
+            kernel()
+
+    prof = device_profile(launches20)
+    return dict(
+        kernel_ms=time_ms(kernel),
+        plain_ms=time_ms(lambda: ref.center_precheck_matmul(xb, c, cv)),
+        op_with_margin_ms=time_ms(lambda: ops.center_precheck(xb, c, cv)),
+        device_ms_per_launch=(None if prof["device_ms"] is None
+                              else prof["device_ms"] / 20),
+        profile_20_launches=prof,
+        library_ms=None, bound_ms=b, bound_by=by, shape=[B, T, d],
+    )
+
+
 def _time_pdist(rows, what: str) -> dict:
     """K1, its plain version and the library call on (m, d) rows against
     themselves, as ``coreset_distance_matrix`` calls it."""
@@ -372,7 +692,7 @@ def _time_pdist(rows, what: str) -> dict:
     )
 
 
-def phase_timing(x_norm, sol, m_slice: int) -> dict:
+def phase_timing(x_norm, sol, m_slice: int, st) -> dict:
     import torch
     from repro_torch.core import geometry
     from repro_torch.core.gmm import gmm
@@ -408,9 +728,11 @@ def phase_timing(x_norm, sol, m_slice: int) -> dict:
             warmup=1, reps=5),
         tau=tau,
     )
+    # K3 on a block of the stream against the scan's final centers
+    k3 = _time_precheck(x_norm, st)
     emit(dict(phase="timing", pdist=k1, pdist_k_tau=k1_k_tau, gmm_step=k2,
-              gmm=loop))
-    return dict(pdist=k1, gmm_step=k2)
+              gmm=loop, center_precheck=k3))
+    return dict(pdist=k1, gmm_step=k2, center_precheck=k3)
 
 
 def main() -> int:
@@ -436,14 +758,25 @@ def main() -> int:
     k2_err = phase_kernels(x_norm, args.k * args.tau, args.seed)
     sol, launches = phase_solve(points, x_norm, cats, caps, spec, args.k,
                                 args.tau)
-    times = phase_timing(x_norm, sol, args.k * args.tau)
+    stream = phase_stream(points, x_norm, cats, caps, spec, args.k, args.tau)
+    times = phase_timing(x_norm, sol, args.k * args.tau, stream["st"])
 
+    # launches: the sum over the two main paths, each read around its own
+    # solve (per path beside it)
+    per_path = {name: dict(sequential=launches[name],
+                           streaming=stream["launches"][name])
+                for name in launches}
+    total = {name: sum(v.values()) for name, v in per_path.items()}
+    for name, n in total.items():
+        check(n >= 1, f"{name} was launched on no main path")
     csrc = "src/repro_torch/kernels"
+    k3 = times["center_precheck"]
     table = [
         dict(name="pairwise_sqdist", route="cuda",
              source=f"{csrc}/csrc/pdist.cu",
              replaces="src/repro/kernels/pdist.py:50",
-             launches=launches["pairwise_sqdist"],
+             launches=total["pairwise_sqdist"],
+             launches_per_path=per_path["pairwise_sqdist"],
              max_abs_err=times["pdist"]["max_abs_err"],
              ms=times["pdist"]["kernel_ms"],
              plain_ms=times["pdist"]["plain_ms"],
@@ -452,12 +785,21 @@ def main() -> int:
              library_ms=times["pdist"]["library_ms"]),
         dict(name="gmm_update", route="triton", source=f"{csrc}/gmm_step.py",
              replaces="src/repro/kernels/gmm_step.py:44",
-             launches=launches["gmm_update"],
+             launches=total["gmm_update"],
+             launches_per_path=per_path["gmm_update"],
              max_abs_err=k2_err,
              ms=times["gmm_step"]["kernel_ms"],
              plain_ms=times["gmm_step"]["plain_ms"],
              bound_ms=times["gmm_step"]["bound_ms"],
              bound_by=times["gmm_step"]["bound_by"], library_ms=None),
+        dict(name="center_precheck", route="cuda",
+             source=f"{csrc}/csrc/precheck.cu",
+             replaces="src/repro/kernels/precheck.py:92",
+             launches=total["center_precheck"],
+             launches_per_path=per_path["center_precheck"],
+             max_abs_err=stream["k3_err"], ms=k3["kernel_ms"],
+             plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+             bound_by=k3["bound_by"], library_ms=None),
     ]
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": table})

@@ -6,8 +6,9 @@ a coreset buffer (``repro.core.coreset.Coreset``) and an end-to-end
 solution (``repro.core.solve.DMMCSolution``). Each ``*_from_arrays`` takes
 a mapping of field name -> array (e.g. ``{f: np.asarray(v) for f, v in
 res._asdict().items()}`` on the JAX side) and builds the port's object;
-``to_arrays`` goes back. The streaming state's ``state_from_arrays`` comes
-with the streaming slice.
+``to_arrays`` goes back. A scan state of the streaming setting
+(``repro.core.streaming.state_to_arrays``) is carried across by
+``stream_state_from_arrays``, and the port can resume ingesting it.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .core import streaming
 from .core.coreset import Coreset
 from .core.gmm import GMMResult
 from .core.solve import DMMCSolution
@@ -63,6 +65,13 @@ def solution_from_arrays(arrays: Mapping[str, Any]) -> DMMCSolution:
         timings=dict(arrays.get("timings", {})),
         info=dict(arrays.get("info", {})),
     )
+
+
+def stream_state_from_arrays(
+    arrays: Mapping[str, Any], *, device: DeviceLike = CUDA
+) -> streaming.StreamState:
+    """A scan state from the reference's ``state_to_arrays`` dict."""
+    return streaming.state_from_arrays(arrays, device=device)
 
 
 def to_arrays(obj) -> dict[str, Any]:

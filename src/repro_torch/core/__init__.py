@@ -1,4 +1,4 @@
-"""Core library of the PyTorch port: the sequential setting end to end.
+"""Core library of the PyTorch port: the sequential and streaming settings.
 
 Reference: ``repro/core/__init__.py``. Ported so far:
     MatroidSpec, make_host_matroid          -- matroid representations
@@ -7,7 +7,9 @@ Reference: ``repro/core/__init__.py``. Ported so far:
     coreset_distance_matrix, final_solve    -- final stage (K1 + host solvers)
     local_search_sum, exhaustive_best       -- final-stage solvers (4.4)
     SolverEngine, register_engine, ...      -- solver-engine registry
-    solve_dmmc                              -- end-to-end driver (sequential)
+    init_stream_state, ingest_batch, ...    -- streaming scan (Alg. 2, K3)
+    solve_dmmc                              -- end-to-end entry point
+                                               (sequential, streaming)
     diversity, VARIANTS                     -- Table-1 objectives (host)
 """
 from .coreset import Coreset, default_capacity, extract_host, seq_coreset_host
@@ -31,6 +33,21 @@ from .matroid import (
     make_host_matroid,
 )
 from .solve import DMMCSolution, solve_dmmc
+from .streaming import (
+    STEP_IMPLS,
+    StreamState,
+    default_slot_cap,
+    epoch_fingerprint,
+    epoch_stats,
+    ingest_batch,
+    ingest_batch_donated,
+    init_stream_state,
+    snapshot_coreset,
+    state_from_arrays,
+    state_to_arrays,
+    stream_coreset,
+    stream_coreset_host,
+)
 from .solvers import (
     SolveContext,
     SolveSpec,
@@ -53,7 +70,11 @@ __all__ = [
     "final_solve", "GMMResult", "gmm", "gmm_fixed", "gmm_radius",
     "GeneralMatroid", "Matroid", "MatroidSpec", "PartitionMatroid",
     "TransversalMatroid", "UniformMatroid", "make_host_matroid",
-    "DMMCSolution", "solve_dmmc", "SolveContext", "SolveSpec",
+    "DMMCSolution", "solve_dmmc", "STEP_IMPLS", "StreamState",
+    "default_slot_cap", "epoch_fingerprint", "epoch_stats", "ingest_batch",
+    "ingest_batch_donated", "init_stream_state", "snapshot_coreset",
+    "state_from_arrays", "state_to_arrays", "stream_coreset",
+    "stream_coreset_host", "SolveContext", "SolveSpec",
     "SolverEngine", "coverage_matrix", "exhaustive_best", "get_engine",
     "greedy_init", "local_search_sum", "register_engine",
     "registered_engines", "select_engine", "selection_value",

@@ -1,17 +1,20 @@
 """End-to-end DMMC driver: coreset construction + final-stage solver.
 
-Reference: ``repro/core/solve.py`` (``solve_dmmc`` :78), sequential
-setting (the paper's Alg. 1 followed by the §4.4 final stage):
+Reference: ``repro/core/solve.py`` (``solve_dmmc`` :78), in its
+``sequential`` and ``streaming`` settings:
 
-1. build a (1-eps)-coreset with GMM on the device and the host EXTRACT;
+1. build a coreset: sequential = GMM on the device and the host EXTRACT
+   (Alg. 1, eps- or tau-driven); streaming = the Alg.-2 blocked scan of
+   ``core.streaming`` (tau-driven), whose coreset indices stay in buffer
+   order, as in the reference;
 2. run the final solver on the coreset only:
    - sum       -> AMT local search (gamma=0), the paper's choice;
    - others    -> exhaustive search (exact on the coreset).
 
 The reference round-trips the whole normalised matrix to the host; here
-the points stay on the device. Only the cluster assignment (n int32)
-crosses to the host for EXTRACT, the coreset rows are gathered on the
-device, and only the coreset's (m, m) distance matrix comes back.
+the points stay on the device. Only the cluster assignment (n int32) or
+the scan's decisions cross to the host, the coreset rows are gathered on
+the device, and only the coreset's (m, m) distance matrix comes back.
 """
 from __future__ import annotations
 
@@ -28,9 +31,9 @@ from .coreset import seq_coreset_host
 from .diversity import Variant
 from .final_solve import SubsetMatroidView, coreset_distance_matrix, final_solve
 from .matroid import MatroidSpec, make_host_matroid
+from .streaming import stream_coreset
 
 _NOT_PORTED = {
-    "streaming": "ROADMAP.md 'Modules to port', step 5 (streaming setting)",
     "mapreduce": "ROADMAP.md 'Modules to port', step 11 (MapReduce)",
 }
 
@@ -99,12 +102,14 @@ def solve_dmmc(
     (no copy if it is already there). ``engine`` names a ``core.solvers``
     registry engine for the final stage ("host" = the paper's dispatch).
     ``force="ref"`` runs the plain PyTorch versions of the kernels.
+    ``setting="streaming"`` takes ``tau`` and the uniform, partition and
+    transversal matroids.
     """
     if setting in _NOT_PORTED:
         raise NotImplementedError(
             f"setting={setting!r} is not ported yet: {_NOT_PORTED[setting]}"
         )
-    if setting != "sequential":
+    if setting not in ("sequential", "streaming"):
         raise ValueError(setting)
     if (eps is None) == (tau is None):
         raise ValueError("give exactly one of eps / tau")
@@ -121,11 +126,21 @@ def solve_dmmc(
     )
     pts_norm = geometry.normalize_for_metric(pts, metric)
 
-    idx, info = seq_coreset_host(
-        pts_norm, cats_arr, spec, caps, k, eps=eps, tau=tau,
-        metric="euclidean",  # already normalized
-        oracle=oracle, force=force, device=dev,
-    )
+    if setting == "sequential":
+        idx, info = seq_coreset_host(
+            pts_norm, cats_arr, spec, caps, k, eps=eps, tau=tau,
+            metric="euclidean",  # already normalized
+            oracle=oracle, force=force, device=dev,
+        )
+    else:
+        if tau is None:
+            raise ValueError("streaming is parameterized by tau (§5.2)")
+        cs, _st = stream_coreset(
+            pts_norm, cats_arr, np.ones(n, bool), spec, caps, k, tau,
+            force=force, device=dev,
+        )
+        idx = cs.src_idx[cs.valid].cpu().numpy()
+        info = dict(tau=tau, size=int(idx.size))
 
     t1 = time.perf_counter()
     sol_idx, val = _final_solve(

@@ -1,7 +1,8 @@
 """Public wrappers around the hand-written kernels.
 
 Reference: ``repro/kernels/ops.py`` (``pairwise_sqdist`` :40,
-``pairwise_dist`` :48, ``gmm_update`` :117).
+``pairwise_dist`` :48, ``_pdist_e2`` :52, ``center_precheck`` :67,
+``gmm_update`` :117).
 
 Dispatch: inputs are first moved to ``device`` (CUDA unless the caller asks
 for the CPU). A CPU tensor runs the plain version in ``ref.py``; a CUDA
@@ -18,10 +19,12 @@ import torch
 
 from . import gmm_step as _gmm_step
 from . import pdist as _pdist
+from . import precheck as _precheck
 from . import ref as _ref
 from ..device import CUDA, DeviceLike, resolve_device
 
-_KERNELS = {"pairwise_sqdist": _pdist, "gmm_update": _gmm_step}
+_KERNELS = {"pairwise_sqdist": _pdist, "gmm_update": _gmm_step,
+            "center_precheck": _precheck}
 
 
 def _use_ref(t: torch.Tensor, force: Optional[str]) -> bool:
@@ -60,6 +63,61 @@ def gmm_update(x, z, min_dist, valid, *, force: Optional[str] = None,
     if _use_ref(x, force):
         return _ref.gmm_update(x, z, min_dist, valid)
     return _gmm_step.gmm_update(x, z, min_dist, valid)
+
+
+def _pdist_e2(block, centers, cvalid, *, per_row: bool = False):
+    """Squared-space error bound of the matmul-form ||x||^2+||y||^2-2x.y
+    distances: cancellation loses ~eps * (||x||^2+||y||^2); bound it by the
+    operand norms in play -- per block row when ``per_row`` (each point's
+    own norm against the largest valid center norm), the block-global max
+    otherwise."""
+    xnorm = torch.sum(block * block, dim=-1)
+    if not per_row:
+        xnorm = torch.amax(xnorm)
+    cnorm = torch.where(cvalid, torch.sum(centers * centers, dim=-1), 0.0)
+    scale = xnorm + torch.amax(cnorm)
+    return 1e-5 * torch.clamp_min(scale, 1e-12)
+
+
+def center_precheck(block, centers, cvalid, *, force: Optional[str] = None,
+                    device: DeviceLike = CUDA):
+    """Blocked-scan precheck (K3): distance to every center and the top-3
+    nearest per row in one op.
+
+    (B, d), (T, d), (T,) -> (dmin, z int32, second, z2 int32, third, each
+    (B,), and the error margin: (B,) per row, or a 0-d zero on the exact
+    path). Invalid centers count as float32 max; ``z``/``z2`` are the first
+    columns attaining the two smallest distances.
+
+    Paths: by default the kernel for a CUDA tensor and its matmul-form
+    plain version (``ref.center_precheck_matmul``) for a CPU tensor;
+    ``force="ref"`` the plain version on any device, with the margin;
+    ``force="exact"`` the broadcast oracle (``ref.center_precheck``) with
+    margin 0, which the reference calls ``force="ref"``. The matmul-form
+    paths report the margin e2 / max(dmin, sqrt(e2)) of ``_pdist_e2``: the
+    scan replays anything within it through the exact per-point step, so
+    every path gives the same scan state.
+    """
+    if force not in (None, "ref", "exact"):
+        raise ValueError(
+            f"unknown force={force!r}; expected None, 'ref' or 'exact'")
+    dev = resolve_device(device)
+    block, centers, cvalid = (
+        torch.as_tensor(t, device=dev) for t in (block, centers, cvalid)
+    )
+    if force == "exact":
+        stats = _ref.center_precheck(block, centers, cvalid)
+        return (*stats, torch.zeros((), dtype=torch.float32, device=dev))
+    if _use_ref(block, force):
+        stats = _ref.center_precheck_matmul(block, centers, cvalid)
+    else:
+        stats = _precheck.center_precheck_stats(block, centers, cvalid)
+    # |sqrt(a) - sqrt(b)| = |a - b| / (sqrt(a) + sqrt(b)), and every center
+    # the tie test compares sits at d >= dmin: e2 / dmin bounds the error,
+    # and sqrt(e2) where dmin is tiny
+    e2 = _pdist_e2(block, centers, cvalid, per_row=True)
+    margin = e2 / torch.maximum(stats[0], torch.sqrt(e2))
+    return (*stats, margin)
 
 
 def launch_counts() -> dict[str, int]:

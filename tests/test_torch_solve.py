@@ -116,7 +116,7 @@ def test_radius_target_mode_matches_jax(instance):
     _assert_same(got, want, P[:500])
 
 
-@pytest.mark.parametrize("setting", ["streaming", "mapreduce"])
+@pytest.mark.parametrize("setting", ["mapreduce"])
 def test_settings_not_ported_yet_raise(instance, setting):
     P, cats, caps, h, k = instance
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
