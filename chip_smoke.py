@@ -36,6 +36,34 @@ exits non-zero:
 7. ``timing``  each kernel, its plain version and (K1) a library call, at
                the inputs the main path gave it, with the least time the
                card could take for the same work; the GMM loop alone.
+8. ``lm``      the serving path of the LM stack at zamba2-7b's full width
+               (81 Mamba2 layers, one shared attention block applied 13
+               times, bf16, random weights from ``LM.init`` at ``--seed``):
+               (a) K4 (flash forward) and K6 (SSD intra-chunk) against
+               their plain versions at test shapes and at one layer's own
+               inputs, captured from a prefill; (b) ``Engine.generate`` for
+               24 prompts of 1,024 tokens and 16 new tokens, with launch
+               counts set to 0 before and read after, then the same on the
+               plain versions (``force="ref"``). The prefill run block by
+               block on the plain path, each block also on the kernel path
+               from the same input, must agree within 2e-2 of the largest
+               value (each block's output, and the logits of the last);
+               end to end, the prefill logits must agree within 2e-2 of
+               the largest logit or within twice the difference that one
+               bf16 step on 1e-4 of the embedding makes on the plain path
+               (this random-weight model's own sensitivity); with the
+               weights upcast to f32 (no bf16 rounding between layers) the
+               two prefills' logits must agree within 2e-2; and the
+               greedy tokens wherever the plain top-2 gap clears twice the
+               logit difference; (c) the diverse selection of
+               ``examples/serving_diverse.py``: each continuation embedded
+               as the mean of ``forward``'s output, then ``solve_dmmc(k=6,
+               tau=12, setting="sequential", metric="cosine")`` under a
+               partition matroid of 4 intents with caps of 2, launch counts
+               read around it; (d) one prefill and one decode step under
+               the profiler, then K4 and K6 timed at the slice's shapes
+               beside their plain versions, their bounds and (K4)
+               ``scaled_dot_product_attention``.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the repository beside it, it fails.
@@ -55,13 +83,29 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
 
 PDIST_SHAPES = [(8, 8, 4), (33, 17, 7), (128, 64, 32), (200, 300, 25),
                 (5, 1000, 3)]
 GMM_SHAPES = [(16, 4), (100, 25), (1025, 7), (64, 128)]
 PRECHECK_SHAPES = [(8, 5, 4), (37, 17, 7), (128, 33, 100), (200, 129, 25),
                    (128, 257, 100)]
-CUDA_SOURCES = ("pdist", "precheck")
+CUDA_SOURCES = ("pdist", "precheck", "flash_fwd", "ssd")
+# (BH, Sq, Skv, hd, causal): tests/test_kernels.py's FLASH_SHAPES, then
+# hd in {64, 112, 128} with S off the 64-row tile, causal and not
+FLASH_SHAPES = [(4, 64, 64, 16, True), (2, 48, 80, 32, False),
+                (3, 33, 33, 8, True), (1, 128, 128, 64, True),
+                (2, 96, 32, 16, False), (3, 100, 100, 64, True),
+                (2, 200, 200, 112, True), (2, 130, 257, 112, False),
+                (2, 70, 70, 128, True), (2, 90, 150, 128, False)]
+# (g, q, p, n): tests/test_kernels.py's SSD_SHAPES, then model widths
+SSD_SHAPES = [(2, 16, 8, 4), (3, 32, 16, 8), (1, 64, 32, 16), (4, 8, 64, 32),
+              (5, 256, 64, 64), (3, 256, 64, 128), (7, 100, 64, 64)]
+LM_ARCH = "zamba2-7b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 24, 1024, 16  # examples/serving_diverse.py:24
+LM_K, LM_TAU, LM_INTENTS, LM_CAP = 6, 12, 4, 2
+LM_LOGIT_TOL = 2e-2
+LM_HEADS = 32  # zamba2-7b's attention heads (BH = batch x heads)
 BLOCK = 128  # the streaming scan's block size on the main path
 INGEST_BATCH = 16_384
 PREFIX = 2048
@@ -96,9 +140,10 @@ def time_ms(fn, *, warmup: int = 3, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -735,6 +780,397 @@ def phase_timing(x_norm, sol, m_slice: int, st) -> dict:
     return dict(pdist=k1, gmm_step=k2, center_precheck=k3)
 
 
+def _check_flash(q, k, v, causal: bool, what: str) -> dict:
+    """K4 against its plain version: o within 1e-4 for f32 inputs and 1e-2
+    of the largest |o| for bf16 (a bf16 rounding or two), lse within
+    1e-4 (both compute in f32)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    o_r, lse_r = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                         force="ref")
+    torch.cuda.synchronize()
+    err = float((o.float() - o_r.float()).abs().max())
+    lse_err = float((lse - lse_r).abs().max())
+    if q.dtype == torch.float32:
+        tol = 1e-4
+        ok = bool(torch.allclose(o, o_r, rtol=tol, atol=tol))
+    else:
+        tol = 1e-2 * float(o_r.float().abs().max())
+        ok = bool(torch.allclose(o.float(), o_r.float(), rtol=1e-2,
+                                 atol=tol))
+    ok = ok and bool(torch.allclose(lse, lse_r, rtol=1e-4, atol=1e-4))
+    line = dict(kernel="flash_attention_fwd", what=what,
+                shape=[q.shape[0], q.shape[1], k.shape[1], q.shape[2]],
+                causal=causal, dtype=str(q.dtype), max_abs_err=err,
+                lse_max_abs_err=lse_err, tol=tol, ok=ok)
+    check(ok, f"flash {what} {line['shape']} {q.dtype}: max abs err {err}, "
+              f"lse {lse_err}")
+    return line
+
+
+def _check_ssd(xbar, loga, B, C, what: str) -> dict:
+    """K6 against its plain version: y and state within 2e-4 of the
+    largest |y| (|state|), the tolerance of the reference's SSD tests."""
+    import torch
+    from repro_torch.kernels import ops
+
+    y, s, _, _ = ops.ssd_intra_chunk(xbar, loga, B, C)
+    y_r, s_r, _, _ = ops.ssd_intra_chunk(xbar, loga, B, C, force="ref")
+    torch.cuda.synchronize()
+    errs, oks = [], []
+    for got, want in ((y, y_r), (s, s_r)):
+        scale = max(1.0, float(want.abs().max()))
+        errs.append(float((got - want).abs().max()))
+        oks.append(bool(torch.allclose(got, want, rtol=2e-4,
+                                       atol=2e-4 * scale)))
+    line = dict(kernel="ssd_intra_chunk", what=what,
+                shape=[*xbar.shape[:-2], *xbar.shape[-2:], B.shape[-1]],
+                b_c_shape=list(B.shape),
+                max_abs_err=errs[0], state_max_abs_err=errs[1],
+                tol_rel_to_max=2e-4, ok=all(oks))
+    check(all(oks), f"ssd {what} {line['shape']}: max abs err y {errs[0]}, "
+                    f"state {errs[1]}")
+    return line
+
+
+class _Capture:
+    """Keeps a copy of the inputs of the first call of each named ``ops``
+    function while it is entered (the model looks the op up on ``ops`` at
+    every call); the calls themselves go on as usual."""
+
+    NAMES = ("flash_attention_fwd", "ssd_intra_chunk")
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.orig, self.args = ops, {}, {}
+        for name in self.NAMES:
+            self.orig[name] = fn = getattr(ops, name)
+            setattr(ops, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            if name not in self.args:
+                self.args[name] = ([a.clone() for a in args], kw)
+            return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.ops, name, fn)
+
+
+def _first_divergence(tok, tok_r, lg, lg_r, d0: float) -> tuple:
+    """Per request: the first step whose greedy token differs between the
+    kernel and plain paths. Each must be a near-tie: the plain path's
+    top-2 gap at most twice the larger of the prefill's logit difference
+    d0 and that step's own. Returns (first step or None, rows equal)."""
+    import torch
+
+    first, equal = None, 0
+    for b in range(tok.shape[0]):
+        diff = (tok[b] != tok_r[b]).nonzero()
+        if diff.numel() == 0:
+            equal += 1
+            continue
+        t = int(diff[0])
+        top2 = torch.topk(lg_r[b, t].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        d = max(d0, float((lg[b, t].float() - lg_r[b, t].float()).abs().max()))
+        check(gap <= 2 * d, f"request {b}: greedy token differs at step {t} "
+                            f"with top-2 gap {gap} > 2 x {d}")
+        first = t if first is None else min(first, t)
+    return first, equal
+
+
+def _time_flash(q, k, v) -> dict:
+    """K4, its plain version and SDPA at the captured (BH, S, hd) inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash, ref
+
+    bh, s, hd = q.shape
+    heads = LM_HEADS
+    q4, k4, v4 = (t.view(bh // heads, heads, s, hd) for t in (q, k, v))
+    esz = q.element_size()
+    nbytes = 4 * bh * s * hd * esz + bh * s * 4
+    flops = 4 * hd * bh * s * (s + 1) // 2  # causal: q.k and p.v, k <= q
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    b, by = bound_ms(nbytes, flops, peak)
+    return dict(
+        kernel_ms=time_ms(lambda: flash.flash_attention_fwd(q, k, v, True)),
+        plain_ms=time_ms(lambda: ref.flash_attention_fwd(q, k, v, True),
+                         warmup=1, reps=5),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)),
+        bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
+        shape=[bh, s, hd], dtype=str(q.dtype))
+
+
+def _time_ssd(xbar, loga, B, C) -> dict:
+    """K6 and its plain version at the captured inputs (one layer's cells:
+    batch * chunk by head, B and C shared by the heads)."""
+    from repro_torch.kernels import ref, ssd
+
+    *lead, q, p = xbar.shape
+    n = B.shape[-1]
+    cells = lead[0] * lead[1]
+    tri = q * (q + 1) // 2
+    # causal C B^T and (C B^T * L) xbar, the decay mask, the state product
+    flops = cells * (tri * (2 * n + 2 * p + 1) + 2 * q * n * p)
+    nbytes = 4 * (2 * cells * q * p + cells * q + cells * n * p
+                  + 2 * lead[0] * q * n)  # B, C: one copy per (b, chunk)
+    b, by = bound_ms(nbytes, flops, FP32_FLOPS_PER_S)
+    return dict(
+        kernel_ms=time_ms(lambda: ssd.ssd_intra_chunk(xbar, loga, B, C)),
+        plain_ms=time_ms(lambda: ref.ssd_intra_chunk(xbar, loga, B, C),
+                         warmup=1, reps=5),
+        library_ms=None,
+        library_note="no single PyTorch call computes the decay-masked "
+                     "C B^T product and the chunk state",
+        bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
+        shape=[lead[0], lead[1], q, p, n])
+
+
+def _blockwise_prefill(lm, params, prompts, g) -> dict:
+    """The prefill of ``prompts`` block by block on the plain path. Each
+    block also runs on the kernel path from the same input: its output
+    must agree within LM_LOGIT_TOL of the largest |x|, and the logits
+    from the last block's kernel output within LM_LOGIT_TOL of the largest
+    |logit|. Beside it, the plain path from an embedding nudged by one
+    bf16 step on 1e-4 of its entries: the difference that the model's own
+    bf16 sensitivity makes, the noise floor of an end-to-end comparison.
+    Returns the last position's plain and nudged logits and the errors."""
+    import torch
+    from repro_torch.models.model import block_apply_full
+
+    B, S = prompts.shape
+    x = params["embed"][prompts]
+    hit = torch.rand(x.shape, generator=g, device=x.device) < 1e-4
+    xn = torch.where(hit, (x.float() * (1 + 2**-7)).to(x.dtype), x)
+    ctx_k = lm.context(params, B, S)
+    ctx_r = lm.context(params, B, S, force="ref")
+    worst, worst_at = 0.0, None
+    for si, i, kind, p in lm.blocks(params):
+        yk, _ = block_apply_full(kind, p, x, ctx_k, want_cache=False)
+        x, _ = block_apply_full(kind, p, x, ctx_r, want_cache=False)
+        xn, _ = block_apply_full(kind, p, xn, ctx_r, want_cache=False)
+        err = float((yk.float() - x.float()).abs().max()
+                    / x.float().abs().max())
+        if err > worst:
+            worst, worst_at = err, f"seg{si}[{i}] {kind}"
+    lg_k, lg_r, lg_n = (lm.head(params, h[:, -1:])[:, 0].float()
+                        for h in (yk, x, xn))
+    scale = float(lg_r.abs().max())
+    lg_err = float((lg_k - lg_r).abs().max()) / scale
+    check(worst <= LM_LOGIT_TOL, f"a block's kernel path is off by {worst} "
+                                 f"of max|x| at {worst_at}")
+    check(lg_err <= LM_LOGIT_TOL, f"logits from the last block's kernel "
+                                  f"output off by {lg_err} of max|logit|")
+    return dict(plain=lg_r, nudged=lg_n, block_max_rel_err=worst,
+                block_max_rel_err_at=worst_at,
+                last_block_logit_max_rel_err=lg_err)
+
+
+def _f32_prefill(lm, params, prompts) -> dict:
+    """The same prefill with the weights upcast to f32 (no bf16 rounding
+    between the layers), on the kernel path and on the plain path: the
+    last position's logits must agree within LM_LOGIT_TOL of the largest
+    |logit|."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_map
+
+    lm32 = LM(dataclasses.replace(lm.cfg, dtype="float32"))
+    p32 = tree_map(lambda t: t.float(), params)
+    t0 = time.perf_counter()
+    lg = lm32.prefill(p32, prompts)[0]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    lg_r = lm32.prefill(p32, prompts, force="ref")[0]
+    del p32
+    torch.cuda.empty_cache()
+    d = float((lg - lg_r).abs().max())
+    scale = float(lg_r.abs().max())
+    check(d <= LM_LOGIT_TOL * scale, f"f32 prefill logits differ by {d} > "
+                                     f"{LM_LOGIT_TOL} x {scale}")
+    return dict(logit_max_abs_diff=d, logit_max_abs=scale,
+                logit_max_rel_diff=d / scale, prefill_s=prefill_s)
+
+
+def phase_lm(seed: int) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import MatroidSpec, solve_dmmc
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config(LM_ARCH)
+    lm = LM(cfg)
+    max_len = LM_PROMPT + LM_STEPS
+    t0 = time.perf_counter()
+    params = lm.init(seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                            device="cuda")
+
+    # (a) kernel checks: test shapes, then one layer's own inputs
+    lines = []
+    for bh, sq, skv, hd, causal in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(bh, s, hd, generator=g, device="cuda")
+                       .to(dtype) for s in (sq, skv, skv))
+            lines.append(_check_flash(q, k, v, causal, "test shape"))
+    for gg, q, p, n in SSD_SHAPES:
+        xb = torch.randn(gg, q, p, generator=g, device="cuda")
+        la = -(torch.rand(gg, q, generator=g, device="cuda") * 0.39 + 0.01)
+        Bm, Cm = (torch.randn(gg, q, n, generator=g, device="cuda")
+                  for _ in range(2))
+        lines.append(_check_ssd(xb, la, Bm, Cm, "test shape"))
+    with _Capture() as cap:  # also the warm-up of the serving run
+        lm.prefill(params, prompts, cache_len=max_len)
+    torch.cuda.synchronize()
+    fa, fkw = cap.args["flash_attention_fwd"]
+    sa, _ = cap.args["ssd_intra_chunk"]
+    lines.append(_check_flash(*fa, fkw["causal"], "first attention layer"))
+    lines.append(_check_ssd(*sa, "first Mamba2 layer"))
+    emit(dict(phase="lm_kernels", checks=lines))
+
+    # (b) serving: the kernel path, then the plain path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eng = Engine(lm, params, max_len)
+    tok, lg = eng.generate(prompts, LM_STEPS, return_logits=True)
+    torch.cuda.synchronize()
+    serve_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    timings = dict(eng.timings)
+    supers = lm.plan[0][1]
+    check(serve_launches["flash_attention_fwd"] == supers,
+          f"K4 launched {serve_launches['flash_attention_fwd']} times in "
+          f"generate, expected {supers}")
+    check(serve_launches["ssd_intra_chunk"] == cfg.n_layers,
+          f"K6 launched {serve_launches['ssd_intra_chunk']} times in "
+          f"generate, expected {cfg.n_layers}")
+    check(tok.shape == (LM_BATCH, LM_STEPS) and bool(torch.isfinite(lg).all()),
+          "generate gave tokens of another shape or non-finite logits")
+    eng_r = Engine(lm, params, max_len, force="ref")
+    tok_r, lg_r = eng_r.generate(prompts, LM_STEPS, return_logits=True)
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == serve_launches,
+          "the plain path launched a kernel")
+    d0 = float((lg[:, 0].float() - lg_r[:, 0].float()).abs().max())
+    scale = float(lg_r[:, 0].float().abs().max())
+    bw = _blockwise_prefill(lm, params, prompts, g)
+    d_loop = float((bw["plain"] - lg_r[:, 0].float()).abs().max())
+    d_nudge = float((bw["nudged"] - bw["plain"]).abs().max())
+    # end to end: within the tolerance, or within twice the difference
+    # that one bf16 step on 1e-4 of the embedding makes on the plain path
+    check(d0 <= max(LM_LOGIT_TOL * scale, 2 * d_nudge),
+          f"prefill logits differ by {d0}: over {LM_LOGIT_TOL} x {scale} "
+          f"and over twice the plain path's noise floor {d_nudge}")
+    first, rows_equal = _first_divergence(tok, tok_r, lg, lg_r, d0)
+    f32 = _f32_prefill(lm, params, prompts)
+    dec_steps = timings["decode_steps"]
+    emit(dict(
+        phase="lm_serve", arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT,
+        new_tokens=LM_STEPS, max_len=max_len, dtype=cfg.dtype,
+        params=lm.param_count(), param_bytes=param_bytes, init_s=init_s,
+        prefill_s=timings["prefill_s"],
+        prompt_tokens_per_s=LM_BATCH * LM_PROMPT / timings["prefill_s"],
+        decode_ms_per_token=timings["decode_s"] / dec_steps * 1e3,
+        decode_tokens_per_s=LM_BATCH * dec_steps / timings["decode_s"],
+        peak_device_bytes=peak, launches=serve_launches,
+        plain=dict(prefill_s=eng_r.timings["prefill_s"],
+                   decode_ms_per_token=eng_r.timings["decode_s"]
+                   / dec_steps * 1e3),
+        prefill_logit_max_abs_diff=d0, prefill_logit_max_abs=scale,
+        prefill_logit_max_rel_diff=d0 / scale,
+        nudged_plain_logit_max_abs_diff=d_nudge,
+        blockwise_plain_vs_engine_plain_max_abs_diff=d_loop,
+        blockwise=dict((k, v) for k, v in bw.items()
+                       if k not in ("plain", "nudged")),
+        f32_prefill=f32,
+        requests_with_equal_tokens=rows_equal,
+        first_divergent_step=first,
+    ))
+    del lg, lg_r, eng, eng_r
+
+    # (c) the diverse selection of examples/serving_diverse.py
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    seqs = torch.cat([prompts, tok.long()], dim=1)
+    t0 = time.perf_counter()
+    hidden, _, _ = lm.forward(params, seqs)
+    emb = hidden.mean(dim=1, dtype=torch.float32)
+    del hidden
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    intents = (np.arange(LM_BATCH) % LM_INTENTS).astype(np.int32)[:, None]
+    caps = np.full(LM_INTENTS, LM_CAP, np.int32)
+    spec = MatroidSpec("partition", num_categories=LM_INTENTS, gamma=1)
+    sol = solve_dmmc(emb, LM_K, spec, cats=intents, caps=caps, tau=LM_TAU,
+                     setting="sequential", metric="cosine", device="cuda")
+    torch.cuda.synchronize()
+    select_launches = ops.launch_counts()
+    check(bool(torch.isfinite(emb).all()) and emb.shape == (
+        LM_BATCH, cfg.vocab_padded), "embeddings of another shape or "
+                                     "non-finite")
+    check(select_launches["flash_attention_fwd"] == supers
+          and select_launches["ssd_intra_chunk"] == cfg.n_layers,
+          f"embedding forward launched {select_launches}")
+    check(select_launches["gmm_update"] == LM_TAU
+          and select_launches["pairwise_sqdist"] >= 1,
+          f"selection launched {select_launches}")
+    counts = np.bincount(intents[sol.indices, 0], minlength=LM_INTENTS)
+    check(len(sol.indices) == LM_K and counts.max() <= LM_CAP,
+          f"selection {sol.indices} breaks the caps ({counts})")
+    check(np.isfinite(sol.diversity) and sol.diversity > 0,
+          f"diversity {sol.diversity}")
+    ref_sol = solve_dmmc(emb, LM_K, spec, cats=intents, caps=caps,
+                         tau=LM_TAU, setting="sequential", metric="cosine",
+                         force="ref", device="cuda")
+    emit(dict(phase="lm_select", embed_forward_s=embed_s,
+              seq_len=seqs.shape[1], selected=sorted(sol.indices.tolist()),
+              intent_counts=counts.tolist(), diversity=sol.diversity,
+              solve_s=sol.timings["total_s"], launches=select_launches,
+              plain_selected=sorted(ref_sol.indices.tolist()),
+              same_selection_as_plain=bool(np.array_equal(
+                  np.sort(sol.indices), np.sort(ref_sol.indices)))))
+
+    # (d) where a prefill's and a decode step's time goes (profiled), and
+    # K4 and K6 at the slice's inputs
+    del emb, seqs
+    _, caches = lm.prefill(params, prompts, cache_len=max_len)
+    prof_prefill = device_profile(
+        lambda: lm.prefill(params, prompts, cache_len=max_len))
+    prof_decode = device_profile(
+        lambda: lm.decode_step(params, tok[:, :1], caches, LM_PROMPT))
+    del caches
+    k4 = _time_flash(*fa)
+    k6 = _time_ssd(*sa)
+    emit(dict(phase="lm_timing", profiled_prefill=prof_prefill,
+              profiled_decode_step=prof_decode, flash_attention_fwd=k4,
+              ssd_intra_chunk=k6))
+    lm_launches = {name: serve_launches[name] + select_launches[name]
+                   for name in serve_launches}
+    return dict(launches=lm_launches, k4=k4, k6=k6,
+                k4_err=lines[-2]["max_abs_err"], k6_err=lines[-1]["max_abs_err"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -760,11 +1196,15 @@ def main() -> int:
                                 args.tau)
     stream = phase_stream(points, x_norm, cats, caps, spec, args.k, args.tau)
     times = phase_timing(x_norm, sol, args.k * args.tau, stream["st"])
+    del points, x_norm, cats, stream["st"]
+    torch.cuda.empty_cache()
+    lm = phase_lm(args.seed)
 
-    # launches: the sum over the two main paths, each read around its own
-    # solve (per path beside it)
+    # launches: the sum over the three main paths, each read around its own
+    # run (per path beside it)
     per_path = {name: dict(sequential=launches[name],
-                           streaming=stream["launches"][name])
+                           streaming=stream["launches"][name],
+                           lm=lm["launches"][name])
                 for name in launches}
     total = {name: sum(v.values()) for name, v in per_path.items()}
     for name, n in total.items():
@@ -800,6 +1240,23 @@ def main() -> int:
              max_abs_err=stream["k3_err"], ms=k3["kernel_ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=None),
+        dict(name="flash_attention_fwd", route="cuda",
+             source=f"{csrc}/csrc/flash_fwd.cu",
+             replaces="src/repro/kernels/flash.py:75",
+             launches=total["flash_attention_fwd"],
+             launches_per_path=per_path["flash_attention_fwd"],
+             max_abs_err=lm["k4_err"], ms=lm["k4"]["kernel_ms"],
+             plain_ms=lm["k4"]["plain_ms"], bound_ms=lm["k4"]["bound_ms"],
+             bound_by=lm["k4"]["bound_by"],
+             library_ms=lm["k4"]["library_ms"]),
+        dict(name="ssd_intra_chunk", route="cuda",
+             source=f"{csrc}/csrc/ssd.cu",
+             replaces="src/repro/kernels/ssd.py:53",
+             launches=total["ssd_intra_chunk"],
+             launches_per_path=per_path["ssd_intra_chunk"],
+             max_abs_err=lm["k6_err"], ms=lm["k6"]["kernel_ms"],
+             plain_ms=lm["k6"]["plain_ms"], bound_ms=lm["k6"]["bound_ms"],
+             bound_by=lm["k6"]["bound_by"], library_ms=None),
     ]
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": table})

@@ -9,6 +9,11 @@ res._asdict().items()}`` on the JAX side) and builds the port's object;
 ``to_arrays`` goes back. A scan state of the streaming setting
 (``repro.core.streaming.state_to_arrays``) is carried across by
 ``stream_state_from_arrays``, and the port can resume ingesting it.
+
+The LM stack's weights cross by ``lm_params_from_arrays``: the tree of
+the reference's ``LM.init`` with numpy leaves (``jax.tree.map(np.asarray,
+params)``, bf16 leaves as numpy's bfloat16 extension type) becomes the
+port's tree, leaf by leaf, with the stacked leading axes kept.
 """
 from __future__ import annotations
 
@@ -72,6 +77,40 @@ def stream_state_from_arrays(
 ) -> streaming.StreamState:
     """A scan state from the reference's ``state_to_arrays`` dict."""
     return streaming.state_from_arrays(arrays, device=device)
+
+
+def lm_params_from_arrays(cfg, tree: Mapping[str, Any], *,
+                          device: DeviceLike = CUDA) -> dict:
+    """The port's LM parameters from the reference's parameter tree.
+
+    Every leaf must have the shape of the port's spec (``LM(cfg)
+    .param_specs()``) and becomes a tensor of the spec's dtype; bf16 goes
+    through f32, which is exact.
+    """
+    from .models.model import LM
+
+    dev = resolve_device(device)
+    specs = LM(cfg).param_specs()
+
+    def conv(spec, a, path):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(spec.shape):
+            raise ValueError(f"{path}: shape {a.shape}, expected {spec.shape}")
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.as_tensor(np.array(a), device=dev).to(
+            spec.dtype)
+
+    def walk(spec, node, path):
+        if isinstance(spec, dict):
+            if set(spec) != set(node):
+                raise ValueError(f"{path or 'params'}: keys {sorted(node)}, "
+                                 f"expected {sorted(spec)}")
+            return {k: walk(spec[k], node[k], f"{path}.{k}".lstrip("."))
+                    for k in spec}
+        return conv(spec, node, path)
+
+    return walk(specs, tree, "")
 
 
 def to_arrays(obj) -> dict[str, Any]:

@@ -1,3 +1,3 @@
-"""Hand-written Hopper kernels (K1 pdist in CUDA C++, K2 GMM step in
-Triton), their plain PyTorch versions (``ref``) and the dispatching
-wrappers (``ops``)."""
+"""Hand-written Hopper kernels (K1 pdist, K3 precheck, K4 flash-attention
+forward and K6 SSD intra-chunk in CUDA C++; K2 GMM step in Triton), their
+plain PyTorch versions (``ref``) and the dispatching wrappers (``ops``)."""

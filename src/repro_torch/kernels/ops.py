@@ -2,7 +2,8 @@
 
 Reference: ``repro/kernels/ops.py`` (``pairwise_sqdist`` :40,
 ``pairwise_dist`` :48, ``_pdist_e2`` :52, ``center_precheck`` :67,
-``gmm_update`` :117).
+``gmm_update`` :117, ``ssd_intra_chunk`` :127, ``flash_attention_fwd``
+:144).
 
 Dispatch: inputs are first moved to ``device`` (CUDA unless the caller asks
 for the CPU). A CPU tensor runs the plain version in ``ref.py``; a CUDA
@@ -17,14 +18,17 @@ from typing import Optional
 
 import torch
 
+from . import flash as _flash
 from . import gmm_step as _gmm_step
 from . import pdist as _pdist
 from . import precheck as _precheck
 from . import ref as _ref
+from . import ssd as _ssd
 from ..device import CUDA, DeviceLike, resolve_device
 
 _KERNELS = {"pairwise_sqdist": _pdist, "gmm_update": _gmm_step,
-            "center_precheck": _precheck}
+            "center_precheck": _precheck, "flash_attention_fwd": _flash,
+            "ssd_intra_chunk": _ssd}
 
 
 def _use_ref(t: torch.Tensor, force: Optional[str]) -> bool:
@@ -118,6 +122,41 @@ def center_precheck(block, centers, cvalid, *, force: Optional[str] = None,
     e2 = _pdist_e2(block, centers, cvalid, per_row=True)
     margin = e2 / torch.maximum(stats[0], torch.sqrt(e2))
     return (*stats, margin)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        force: Optional[str] = None,
+                        device: DeviceLike = CUDA):
+    """Flash-attention forward (K4). q: (BH, Sq, hd), k/v: (BH, Skv, hd),
+    heads expanded and flattened, f32 or bf16. Returns (o (BH, Sq, hd) in
+    q's dtype, lse (BH, Sq) f32). The TPU kernel's q/kv block sizes are
+    not arguments here: they change no result."""
+    dev = resolve_device(device)
+    q, k, v = (torch.as_tensor(t, device=dev) for t in (q, k, v))
+    if _use_ref(q, force):
+        return _ref.flash_attention_fwd(q, k, v, causal=causal)
+    return _flash.flash_attention_fwd(q, k, v, causal=causal)
+
+
+def ssd_intra_chunk(xbar, loga, B, C, *, force: Optional[str] = None,
+                    device: DeviceLike = CUDA):
+    """Batched SSD intra-chunk (K6). xbar: (..., q, p), loga: (..., q),
+    B/C: (..., q, n), f32, with one or two leading (cell) dims; B and C
+    broadcast to xbar's, e.g. as stride-0 views shared by all heads.
+
+    Returns (y_intra (..., q, p), state (..., n, p), decay_from_start
+    (..., q), total_decay (...)); the two decays come from a torch cumsum
+    here, not from the kernel, as in the reference.
+    """
+    dev = resolve_device(device)
+    xbar, loga, B, C = (torch.as_tensor(t, device=dev)
+                        for t in (xbar, loga, B, C))
+    if _use_ref(xbar, force):
+        y, s = _ref.ssd_intra_chunk(xbar, loga, B, C)
+    else:
+        y, s = _ssd.ssd_intra_chunk(xbar, loga, B, C)
+    cum = torch.cumsum(loga.to(torch.float32), dim=-1)
+    return y, s, torch.exp(cum), torch.exp(cum[..., -1])
 
 
 def launch_counts() -> dict[str, int]:

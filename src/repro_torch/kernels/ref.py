@@ -1,12 +1,15 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Reference: ``repro/kernels/ref.py`` (``pairwise_sqdist``, ``gmm_update``,
-and the precheck oracles ``_nearest_stats`` :31, ``center_precheck`` :59,
-``center_precheck_matmul`` :79). These are the CPU path of ``ops`` and the
-oracle that the CUDA/Triton kernels are held against on the card
-(``force="ref"``).
+the precheck oracles ``_nearest_stats`` :31, ``center_precheck`` :59,
+``center_precheck_matmul`` :79, ``ssd_intra_chunk`` :132,
+``ssd_reference_scan`` :162 and ``flash_attention_fwd`` :196). These are
+the CPU path of ``ops`` and the oracle that the CUDA/Triton kernels are
+held against on the card (``force="ref"``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -107,3 +110,126 @@ def center_precheck_matmul(
     d2 = xn[:, None] + cn[None, :] - 2.0 * (block @ centers.T)
     return _nearest_stats(_masked(torch.sqrt(torch.clamp_min(d2, 0.0)),
                                   cvalid))
+
+
+NEG_INF = -1e30
+_CHUNK_ELEMS = 2**28  # f32 elements of one temporary of the chunked oracles
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,  # (BH, Sq, hd)
+    k: torch.Tensor,  # (BH, Skv, hd)
+    v: torch.Tensor,  # (BH, Skv, hd)
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense-softmax attention, the plain version of K4. Returns (o in q's
+    dtype, lse (BH, Sq) f32).
+
+    Scores are (q . k) / sqrt(hd) in f32; the causal mask is ``qpos >=
+    kpos`` from 0 (top-left aligned), masked scores are -1e30. ``lse`` is
+    ``repro/models/attention.py:69-70``'s: m + log(max(l, 1e-30)) where l > 0,
+    else -1e30. q rows are walked in chunks so that one (BH, rows, Skv) f32
+    score block stays near 1 GB; a chunk changes no row's formula.
+    """
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    scale = 1.0 / (hd ** 0.5)
+    o = torch.empty((bh, sq, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    rows = max(1, _CHUNK_ELEMS // max(1, bh * skv))
+    kpos = torch.arange(skv, device=q.device)
+    for r0 in range(0, sq, rows):
+        r1 = min(sq, r0 + rows)
+        s = torch.einsum("bqh,bkh->bqk", q[:, r0:r1].to(torch.float32),
+                         kf) * scale
+        if causal:
+            qpos = torch.arange(r0, r1, device=q.device)
+            s = torch.where((qpos[:, None] >= kpos[None, :])[None], s,
+                            NEG_INF)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        del s
+        l = torch.sum(p, dim=-1, keepdim=True)
+        o[:, r0:r1] = (torch.einsum("bqk,bkh->bqh", p, vf)
+                       / torch.clamp_min(l, 1e-30)).to(q.dtype)
+        lse[:, r0:r1] = torch.where(
+            l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), NEG_INF)[..., 0]
+    return o, lse
+
+
+def ssd_intra_chunk(
+    xbar: torch.Tensor,  # (..., q, p)
+    loga: torch.Tensor,  # (..., q)
+    B: torch.Tensor,  # (..., q, n), broadcast to xbar's leading dims
+    C: torch.Tensor,  # (..., q, n)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 intra-chunk step per cell, the plain version of K6. Returns
+    (y_intra (..., q, p), state (..., n, p)), both f32 and contiguous.
+
+    cum = cumsum(loga); L[t, s] = exp(cum[t] - cum[s]) for s <= t, else 0;
+    y = (C B^T * L) xbar; state = (B * exp(cum[-1] - cum))^T xbar. The
+    leading dims are walked in chunks along the first so that one (q, q)
+    block per cell stays near 1 GB in all; B and C may be stride-0 views.
+    """
+    *lead, q, p = xbar.shape
+    n = B.shape[-1]
+    B = B.expand(*lead, q, n)
+    C = C.expand(*lead, q, n)
+    f32 = torch.float32
+    y = torch.empty((*lead, q, p), dtype=f32, device=xbar.device)
+    st = torch.empty((*lead, n, p), dtype=f32, device=xbar.device)
+    if not lead:
+        return _ssd_cells(xbar, loga, B, C, y, st)
+    cells_per_row = math.prod(lead[1:])
+    rows = max(1, _CHUNK_ELEMS // max(1, cells_per_row * q * q))
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=xbar.device))
+    for r0 in range(0, lead[0], rows):
+        r1 = min(lead[0], r0 + rows)
+        _ssd_cells(xbar[r0:r1], loga[r0:r1], B[r0:r1], C[r0:r1],
+                   y[r0:r1], st[r0:r1], tril)
+    return y, st
+
+
+def _ssd_cells(xbar, loga, B, C, y, st, tril=None):
+    f32 = torch.float32
+    x = xbar.to(f32)
+    Bf = B.to(f32)
+    cum = torch.cumsum(loga.to(f32), dim=-1)
+    q = x.shape[-2]
+    if tril is None:
+        tril = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                     device=x.device))
+    diff = cum[..., :, None] - cum[..., None, :]
+    L = torch.where(tril, torch.exp(diff), 0.0)
+    del diff
+    G = C.to(f32) @ Bf.transpose(-1, -2)  # (..., q, q)
+    y.copy_((G * L) @ x)
+    del G, L
+    decay_to_end = torch.exp(cum[..., -1:] - cum)  # (..., q)
+    st.copy_((Bf * decay_to_end[..., None]).transpose(-1, -2) @ x)
+    return y, st
+
+
+def ssd_reference_scan(
+    xbar: torch.Tensor,  # (l, p)
+    loga: torch.Tensor,  # (l,)
+    B: torch.Tensor,  # (l, n)
+    C: torch.Tensor,  # (l, n)
+    s0=None,  # (n, p)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Step-by-step recurrent oracle of SSD: s_t = a_t s_{t-1} + B_t (x)
+    xbar_t, y_t = C_t @ s_t. Returns (ys (l, p), s_final (n, p))."""
+    f32 = torch.float32
+    l, p = xbar.shape
+    n = B.shape[1]
+    s = (torch.zeros((n, p), dtype=f32, device=xbar.device) if s0 is None
+         else s0.to(f32))
+    ys = []
+    for t in range(l):
+        s = torch.exp(loga[t].to(f32)) * s + B[t].to(f32)[:, None] * xbar[
+            t].to(f32)[None, :]
+        ys.append(C[t].to(f32) @ s)
+    return torch.stack(ys), s

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.device import disable_tf32
 from repro_torch.core import MatroidSpec, streaming
-from repro_torch.kernels import gmm_step, ops, pdist, precheck
+from repro_torch.kernels import flash, gmm_step, ops, pdist, precheck, ssd
 
 pytestmark = pytest.mark.cuda
 
@@ -22,6 +22,22 @@ PDIST_SHAPES = [
 GMM_SHAPES = [(16, 4), (100, 25), (1025, 7), (64, 128), (3, 300), (4097, 129)]
 PRECHECK_SHAPES = [(8, 5, 4), (37, 17, 7), (128, 33, 100), (200, 129, 25),
                    (128, 257, 100), (128, 65, 5000), (1, 1, 1), (33, 70, 17)]
+# (BH, Sq, Skv, hd, causal): tests/test_kernels.py's FLASH_SHAPES, then
+# hd in {64, 112, 128, 256} with S off the 64-row tile, Sq != Skv, one row
+FLASH_SHAPES = [
+    (4, 64, 64, 16, True), (2, 48, 80, 32, False), (3, 33, 33, 8, True),
+    (1, 128, 128, 64, True), (2, 96, 32, 16, False),
+    (3, 100, 100, 64, True), (2, 200, 200, 112, True),
+    (2, 130, 257, 112, False), (2, 70, 70, 128, True), (1, 90, 50, 128, True),
+    (2, 65, 65, 256, False), (3, 1, 70, 112, False), (8, 1024, 1024, 112, True),
+]
+# (g, q, p, n): tests/test_kernels.py's SSD_SHAPES, then the model's chunk
+# widths (q up to 256, p = 64, n = 64 or 128) and ragged q
+SSD_SHAPES = [
+    (2, 16, 8, 4), (3, 32, 16, 8), (1, 64, 32, 16), (4, 8, 64, 32),
+    (5, 256, 64, 64), (3, 256, 64, 128), (7, 100, 64, 64), (2, 1, 16, 8),
+    (9, 16, 64, 64),
+]
 
 
 @pytest.fixture
@@ -181,3 +197,141 @@ def test_blocked_scan_equals_per_point_on_the_card(cuda):
     for bs in (16, 128):
         for f in streaming.StreamState._fields:
             assert torch.equal(getattr(states[1], f), getattr(states[bs], f)), f
+
+
+def _flash_inputs(cuda, bh, sq, skv, hd, dtype):
+    rng = np.random.default_rng(bh * 1000 + sq + hd)
+    return [torch.as_tensor(rng.normal(size=(bh, s, hd)), device=cuda).to(
+        dtype) for s in (sq, skv, skv)]
+
+
+@pytest.mark.parametrize("bh,sq,skv,hd,causal", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_kernel_vs_plain(cuda, bh, sq, skv, hd, causal, dtype):
+    q, k, v = _flash_inputs(cuda, bh, sq, skv, hd, dtype)
+    before = flash.launches
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    o_r, lse_r = ops.flash_attention_fwd(q, k, v, causal=causal, force="ref")
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_r, rtol=1e-4, atol=1e-4)
+    else:  # 1e-2 relative to the output's scale: a bf16 rounding or two
+        scale = float(o_r.float().abs().max())
+        torch.testing.assert_close(o.float(), o_r.float(), rtol=1e-2,
+                                   atol=1e-2 * scale)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_fwd_kernel_matches_model_attention(cuda):
+    """The model's attention layout (GQA kv heads expanded) through K4
+    equals the plain path."""
+    from repro_torch.models.attention import flash_attention
+
+    rng = np.random.default_rng(7)
+    B, S, H, KV, hd = 2, 100, 8, 2, 112
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, hd)),
+                               dtype=torch.float32, device=cuda)
+               for h in (H, KV, KV))
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q, k, v, causal=True, force="ref")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _ssd_inputs(cuda, g, q, p, n):
+    rng = np.random.default_rng(g * 100 + q + n)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    return (f(rng.normal(size=(g, q, p))), f(-rng.uniform(0.01, 0.4, (g, q))),
+            f(rng.normal(size=(g, q, n))), f(rng.normal(size=(g, q, n))))
+
+
+def _close_to_scale(got, want, tol=2e-4):
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("g,q,p,n", SSD_SHAPES)
+def test_ssd_kernel_vs_plain(cuda, g, q, p, n):
+    xb, la, B, C = _ssd_inputs(cuda, g, q, p, n)
+    before = ssd.launches
+    y, s, dfs, td = ops.ssd_intra_chunk(xb, la, B, C)
+    y_r, s_r, dfs_r, td_r = ops.ssd_intra_chunk(xb, la, B, C, force="ref")
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    assert y.shape == (g, q, p) and s.shape == (g, n, p)
+    _close_to_scale(y, y_r)
+    _close_to_scale(s, s_r)
+    torch.testing.assert_close(dfs, dfs_r)
+    torch.testing.assert_close(td, td_r)
+
+
+def test_ssd_kernel_head_broadcast_strided(cuda):
+    """The model's layout: cells (batch*chunk, head) as a permuted view of
+    (B, S, H, P), B and C shared by all heads as stride-0 views. No copy
+    per head is made, and y comes back in xbar's layout."""
+    rng = np.random.default_rng(3)
+    Bsz, nc, Q, H, P, N = 2, 3, 64, 12, 64, 64
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    xbar = f(rng.normal(size=(Bsz * nc, Q, H, P))).permute(0, 2, 1, 3)
+    loga = f(-rng.uniform(0.01, 0.4, (Bsz * nc, Q, H))).permute(0, 2, 1)
+    Bm = f(rng.normal(size=(Bsz * nc, 1, Q, N))).expand(-1, H, -1, -1)
+    Cm = f(rng.normal(size=(Bsz * nc, 1, Q, N))).expand(-1, H, -1, -1)
+    assert Bm.stride(1) == 0
+    before = ssd.launches
+    y, s, _, _ = ops.ssd_intra_chunk(xbar, loga, Bm, Cm)
+    assert ssd.launches == before + 1
+    assert y.stride() == xbar.stride()
+    y_r, s_r, _, _ = ops.ssd_intra_chunk(
+        xbar.contiguous(), loga.contiguous(), Bm.contiguous(),
+        Cm.contiguous(), force="ref")
+    _close_to_scale(y, y_r)
+    _close_to_scale(s, s_r)
+
+
+def test_ssd_chunked_kernel_matches_recurrent_scan(cuda):
+    from repro_torch.kernels import ref
+    from repro_torch.models.mamba import ssd_chunked
+
+    rng = np.random.default_rng(1)
+    b, l, h, p, n = 2, 96, 3, 16, 8
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    xb = f(rng.normal(size=(b, l, h, p)))
+    la = f(-rng.uniform(0.01, 0.3, size=(b, l, h)))
+    B = f(rng.normal(size=(b, l, n)))
+    C = f(rng.normal(size=(b, l, n)))
+    y, s_fin = ssd_chunked(xb, la, B, C, chunk=32)
+    for bi in range(b):
+        for hi in range(h):
+            ys, sf = ref.ssd_reference_scan(xb[bi, :, hi], la[bi, :, hi],
+                                            B[bi], C[bi])
+            torch.testing.assert_close(y[bi, :, hi], ys, rtol=2e-4,
+                                       atol=2e-4)
+            torch.testing.assert_close(s_fin[bi, hi], sf.T, rtol=2e-4,
+                                       atol=2e-4)
+
+
+def test_lm_forward_launches_k4_and_k6(cuda):
+    """A reduced hybrid forward on the card launches K4 once per shared
+    attention application and K6 once per Mamba2 layer, and agrees with
+    the plain path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(),
+                              dtype="float32")
+    lm = LM(cfg)
+    params = lm.init(0, device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 48)), device=cuda)
+    ops.reset_launches()
+    got, _, _ = lm.forward(params, toks)
+    counts = ops.launch_counts()
+    want, _, _ = lm.forward(params, toks, force="ref")
+    supers = cfg.n_layers // cfg.shared_attn_every
+    assert counts["flash_attention_fwd"] == supers
+    assert counts["ssd_intra_chunk"] == cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))

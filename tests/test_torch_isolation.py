@@ -32,6 +32,9 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     assert "src/repro_torch/core/solve.py" in names
     assert "src/repro_torch/kernels/gmm_step.py" in names
+    for f in ("models/model.py", "models/mamba.py", "serve/engine.py",
+              "kernels/flash.py", "kernels/ssd.py"):
+        assert f"src/repro_torch/{f}" in names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -49,3 +52,19 @@ def test_solve_defaults_to_the_card():
     P = rng.normal(size=(50, 4)).astype(np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solve_dmmc(P, 3, MatroidSpec("uniform"), tau=4)
+
+
+@pytest.mark.parametrize("entry", ["init", "engine"])
+def test_lm_defaults_to_the_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default runs there")
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve.engine import Engine
+
+    lm = LM(get_config("smollm-135m").reduced())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "init":
+            lm.init(0)
+        else:
+            Engine(lm, lm.init(0, device="cpu"), 16)

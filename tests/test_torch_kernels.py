@@ -98,8 +98,17 @@ def test_cuda_without_card_raises_and_cpu_path_launches_nothing():
         ops.center_precheck(x, x, torch.ones(5, dtype=bool),
                             force="matmul", device="cpu")
     ops.center_precheck(x, x, torch.ones(5, dtype=bool), device="cpu")
+    q = torch.randn(2, 6, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.flash_attention_fwd(q, q, q)
+    ops.flash_attention_fwd(q, q, q, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.ssd_intra_chunk(q, -q[..., 0].abs(), q, q)
+    ops.ssd_intra_chunk(q, -q[..., 0].abs(), q, q, device="cpu")
     assert ops.launch_counts() == {"pairwise_sqdist": 0, "gmm_update": 0,
-                                   "center_precheck": 0}
+                                   "center_precheck": 0,
+                                   "flash_attention_fwd": 0,
+                                   "ssd_intra_chunk": 0}
 
 
 def test_gmm_step_block_d():
