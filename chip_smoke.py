@@ -64,6 +64,23 @@ exits non-zero:
                the profiler, then K4 and K6 timed at the slice's shapes
                beside their plain versions, their bounds and (K4)
                ``scaled_dot_product_attention``.
+9. ``train``   the training path at smollm-135m's full width and depth
+               (bf16, random weights, batch 16 x 2,048, diverse selection
+               on): (a) K5 (flash backward) against its plain version at
+               test shapes, and K5 and K4 at one layer's own inputs,
+               captured from a backward; (b) five steps of
+               ``make_train_step`` with launch counts set to 0 before and
+               read after (K2, K4, K5); the selection on plain GMM must
+               pick the same batches; the same five steps on the plain
+               versions: step i's loss within 2 (i + 1) times the largest
+               difference that one bf16 step on 1e-4 of the embedding
+               makes on the plain path up to step i; in f32, the step-0
+               loss within 1e-5 and every gradient leaf within 1e-3
+               relative L2; (c) ``launch.train.main`` preempted by SIGTERM
+               after step 4, resumed to 6, equal to an uninterrupted run
+               bit for bit; (d) step time, tokens/s, peak memory, a step
+               under the profiler, and K5 beside its plain version, its
+               bound and the backward of ``scaled_dot_product_attention``.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the repository beside it, it fails.
@@ -72,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -87,10 +105,11 @@ BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
 
 PDIST_SHAPES = [(8, 8, 4), (33, 17, 7), (128, 64, 32), (200, 300, 25),
                 (5, 1000, 3)]
-GMM_SHAPES = [(16, 4), (100, 25), (1025, 7), (64, 128)]
+GMM_SHAPES = [(16, 4), (100, 25), (1025, 7), (64, 128),
+              (64, 32)]  # the last: the train pipeline's pool x embedding
 PRECHECK_SHAPES = [(8, 5, 4), (37, 17, 7), (128, 33, 100), (200, 129, 25),
                    (128, 257, 100)]
-CUDA_SOURCES = ("pdist", "precheck", "flash_fwd", "ssd")
+CUDA_SOURCES = ("pdist", "precheck", "flash_fwd", "flash_bwd", "ssd")
 # (BH, Sq, Skv, hd, causal): tests/test_kernels.py's FLASH_SHAPES, then
 # hd in {64, 112, 128} with S off the 64-row tile, causal and not
 FLASH_SHAPES = [(4, 64, 64, 16, True), (2, 48, 80, 32, False),
@@ -106,6 +125,10 @@ LM_BATCH, LM_PROMPT, LM_STEPS = 24, 1024, 16  # examples/serving_diverse.py:24
 LM_K, LM_TAU, LM_INTENTS, LM_CAP = 6, 12, 4, 2
 LM_LOGIT_TOL = 2e-2
 LM_HEADS = 32  # zamba2-7b's attention heads (BH = batch x heads)
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 2048, 5  # SmolLM-135M's context
+TRAIN_CLI_STEPS, TRAIN_PREEMPT_AT = 6, 4
+TRAIN_F32_LOSS_TOL, TRAIN_F32_GRAD_TOL = 1e-5, 1e-3
 BLOCK = 128  # the streaming scan's block size on the main path
 INGEST_BATCH = 16_384
 PREFIX = 2048
@@ -840,7 +863,7 @@ class _Capture:
     function while it is entered (the model looks the op up on ``ops`` at
     every call); the calls themselves go on as usual."""
 
-    NAMES = ("flash_attention_fwd", "ssd_intra_chunk")
+    NAMES = ("flash_attention_fwd", "flash_attention_bwd", "ssd_intra_chunk")
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -886,14 +909,13 @@ def _first_divergence(tok, tok_r, lg, lg_r, d0: float) -> tuple:
     return first, equal
 
 
-def _time_flash(q, k, v) -> dict:
+def _time_flash(q, k, v, heads: int = LM_HEADS) -> dict:
     """K4, its plain version and SDPA at the captured (BH, S, hd) inputs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash, ref
 
     bh, s, hd = q.shape
-    heads = LM_HEADS
     q4, k4, v4 = (t.view(bh // heads, heads, s, hd) for t in (q, k, v))
     esz = q.element_size()
     nbytes = 4 * bh * s * hd * esz + bh * s * 4
@@ -1171,6 +1193,371 @@ def phase_lm(seed: int) -> dict:
                 k4_err=lines[-2]["max_abs_err"], k6_err=lines[-1]["max_abs_err"])
 
 
+def _check_flash_bwd(q, k, v, o, lse, do, causal: bool, what: str) -> dict:
+    """K5 against its plain version: dq, dk and dv within 1e-4 (f32) or
+    1e-2 (bf16: a rounding or two of the output) of each gradient's
+    largest |value| (a model's gradients are ~1e-7 and smaller)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   force="ref")
+    torch.cuda.synchronize()
+    tol = 1e-4 if q.dtype == torch.float32 else 1e-2
+    errs, rels, ok = [], [], True
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        scale = float(w.abs().max())
+        errs.append(float((g - w).abs().max()))
+        rels.append(errs[-1] / scale if scale else errs[-1])
+        ok = ok and rels[-1] <= tol
+    line = dict(kernel="flash_attention_bwd", what=what,
+                shape=[q.shape[0], q.shape[1], k.shape[1], q.shape[2]],
+                causal=causal, dtype=str(q.dtype), max_abs_err=max(errs),
+                dq_dk_dv_max_abs_err=errs, dq_dk_dv_err_rel_to_max=rels,
+                tol_rel_to_max=tol, ok=ok)
+    check(ok, f"flash bwd {what} {line['shape']} {q.dtype}: errors {rels} "
+              f"of the largest |gradient|")
+    return line
+
+
+def _fresh_state(params, opt_cfg):
+    import torch
+    from repro_torch.models.model import tree_map
+    from repro_torch.train import adamw_init
+
+    p = tree_map(lambda t: t.detach().clone(), params)
+    return {"params": p, "opt": adamw_init(p, opt_cfg),
+            "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+
+
+def _clone_state(state):
+    from repro_torch.models.model import tree_map
+
+    return tree_map(lambda t: t.clone(), state)
+
+
+def _run_steps(lm, params, batches, opt_cfg, force=None) -> list:
+    """The slice's steps from a copy of ``params`` on ``batches``; the
+    per-step losses."""
+    from repro_torch.train import make_train_step
+
+    state = _fresh_state(params, opt_cfg)
+    step = make_train_step(lm, opt_cfg, force=force)
+    losses = []
+    for b in batches:
+        state, m = step(state, {"tokens": b})
+        losses.append(m["loss"])
+    return [float(x) for x in losses]
+
+
+def _state_diff(a, b) -> tuple[float, list]:
+    """Largest |a - b| over the leaves of two states, and the paths of the
+    leaves that differ."""
+    from repro_torch.train.checkpoint import _paths
+
+    worst, paths = 0.0, []
+    for (key, x), (_, y) in zip(_paths(a), _paths(b)):
+        if not bool((x == y).all()):
+            paths.append(key)
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return worst, paths
+
+
+def _train_f32_check(lm, params, tokens) -> dict:
+    """The config in f32 (weights upcast): the loss and every gradient leaf
+    of one step on the kernel path against the plain path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_leaves, tree_map
+
+    lm32 = LM(dataclasses.replace(lm.cfg, dtype="float32"))
+    out = {}
+    for force in (None, "ref"):
+        p32 = tree_map(lambda t: t.detach().float().requires_grad_(True),
+                       params)
+        loss, _ = lm32.loss(p32, tokens, force=force)
+        grads = torch.autograd.grad(loss, tree_leaves(p32))
+        out[force] = (float(loss.detach()), grads)
+        del p32, loss
+    (lk, gk), (lr, gr) = out[None], out["ref"]
+    loss_rel = abs(lk - lr) / abs(lr)
+    grad_rel = max(float((a - b).norm() / (b.norm() + 1e-30))
+                   for a, b in zip(gk, gr))
+    del out, gk, gr
+    torch.cuda.empty_cache()
+    check(loss_rel <= TRAIN_F32_LOSS_TOL,
+          f"f32 step-0 loss differs by {loss_rel} relative")
+    check(grad_rel <= TRAIN_F32_GRAD_TOL,
+          f"an f32 gradient leaf differs by {grad_rel} relative L2")
+    return dict(loss=lk, loss_plain=lr, loss_rel_diff=loss_rel,
+                grad_max_rel_l2_diff=grad_rel)
+
+
+def _train_cli(seed: int, exact: bool, spread: float) -> dict:
+    """``launch.train.main`` in process: an uninterrupted run of
+    TRAIN_CLI_STEPS steps; the same run sent SIGTERM after step
+    TRAIN_PREEMPT_AT (it must checkpoint and return); the same command
+    again, which must resume there. Its losses and final checkpoint must
+    equal the uninterrupted run's bit for bit (or within ``spread`` where
+    a repeated step was not bit-identical)."""
+    import os
+    import shutil
+    import signal
+
+    import numpy as np
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import CheckpointManager
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_CLI_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt-every", "100", "--log-every", "1", "--seed", str(seed)]
+
+    def preempt(step: int) -> None:
+        if step == TRAIN_PREEMPT_AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    t0 = time.perf_counter()
+    full = launch_train.main(argv + ["--ckpt-dir", str(root / "a")])
+    full_s = time.perf_counter() - t0
+    first = launch_train.main(argv + ["--ckpt-dir", str(root / "b")],
+                              after_step=preempt)
+    saved = CheckpointManager(str(root / "b")).all_steps()
+    check(saved == [TRAIN_PREEMPT_AT] and len(first) == TRAIN_PREEMPT_AT,
+          f"preempted run: checkpoints {saved}, {len(first)} steps")
+    rest = launch_train.main(argv + ["--ckpt-dir", str(root / "b")])
+    check(len(rest) == TRAIN_CLI_STEPS - TRAIN_PREEMPT_AT,
+          f"resumed run took {len(rest)} steps")
+    loss_diff = max(abs(a - b) for a, b in zip(first + rest, full))
+    arr_diff = 0.0
+    final = f"step_{TRAIN_CLI_STEPS:010d}/arrays.npz"
+    with np.load(root / "a" / final) as za, np.load(root / "b" / final) as zb:
+        check(sorted(za.files) == sorted(zb.files), "checkpoint keys differ")
+        for key in za.files:
+            a, b = za[key], zb[key]
+            if a.dtype == np.uint16:  # bf16 bits
+                a, b = (x.astype(np.uint32) << 16 for x in (a, b))
+                a, b = a.view(np.float32), b.view(np.float32)
+            arr_diff = max(arr_diff, float(np.max(np.abs(
+                a.astype(np.float64) - b.astype(np.float64)), initial=0.0)))
+    shutil.rmtree(root, ignore_errors=True)
+    if exact:
+        check(loss_diff == 0.0 and arr_diff == 0.0,
+              f"resumed run differs from the uninterrupted one: losses by "
+              f"{loss_diff}, checkpoint by {arr_diff}")
+    else:
+        check(arr_diff <= spread, f"resumed run's checkpoint differs by "
+                                  f"{arr_diff} > the repeat spread {spread}")
+    check(all(np.isfinite(full)), f"non-finite CLI losses {full}")
+    return dict(steps=TRAIN_CLI_STEPS, preempted_at=TRAIN_PREEMPT_AT,
+                losses=full, resumed_losses=rest,
+                loss_max_abs_diff=loss_diff,
+                checkpoint_max_abs_diff=arr_diff,
+                uninterrupted_run_s=full_s)
+
+
+def _time_flash_bwd(q, k, v, o, lse, do, heads: int) -> dict:
+    """K5, its plain version and the backward alone of SDPA at one layer's
+    captured (BH, S, hd) inputs, causal."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash, ref
+
+    bh, s, hd = q.shape
+    esz = q.element_size()
+    # q, k, v, o, do read and dq, dk, dv written once, lse read
+    nbytes = 8 * bh * s * hd * esz + bh * s * 4
+    # S, dP, dv, dq, dk: five products over the causal pairs
+    flops = 5 * 2 * hd * bh * s * (s + 1) // 2
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    b, by = bound_ms(nbytes, flops, peak)
+    q4, k4, v4 = (t.view(bh // heads, heads, s, hd).detach()
+                  .requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.view(bh // heads, heads, s, hd)
+    res = dict(
+        kernel_ms=time_ms(lambda: flash.flash_attention_bwd(
+            q, k, v, o, lse, do, True)),
+        plain_ms=time_ms(lambda: ref.flash_attention_bwd(
+            q, k, v, o, lse, do, True), warmup=1, reps=5),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            out, (q4, k4, v4), do4, retain_graph=True)),
+        library_note="the backward alone of scaled_dot_product_attention("
+                     "is_causal=True): autograd.grad after one forward",
+        bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
+        shape=[bh, s, hd], dtype=str(q.dtype))
+    del out
+    return res
+
+
+def phase_train(seed: int) -> dict:
+    import statistics as st
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the driver's optimizer rule (launch/train.py) for a run of this length
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS,
+                          warmup_steps=min(100, TRAIN_STEPS // 10 + 1))
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+
+    # (a) K5 at test shapes, then at one layer's own inputs, captured from a
+    # backward of the slice (the last layer's, the first in the backward)
+    lines = []
+    for bh, sq, skv, hd, causal in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(bh, n, hd, generator=g, device="cuda")
+                       .to(dtype) for n in (sq, skv, skv))
+            o, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                             force="ref")
+            do = torch.randn(bh, sq, hd, generator=g, device="cuda").to(dtype)
+            lines.append(_check_flash_bwd(q, k, v, o, lse, do, causal,
+                                          "test shape"))
+    pipe = Pipeline(data_cfg)
+    warm = pipe.batch_at(0)["tokens"]
+    with _Capture() as cap:  # also the warm-up of the training run
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = lm.loss(live, warm)
+        torch.autograd.grad(loss, tree_leaves(live))
+        del live, loss
+    torch.cuda.synchronize()
+    fa, fkw = cap.args["flash_attention_fwd"]
+    ba, bkw = cap.args["flash_attention_bwd"]
+    lines.append(_check_flash_bwd(*ba, bkw["causal"],
+                                  "a layer's backward (the last layer)"))
+    k5_err = lines[-1]["max_abs_err"]
+    lines.append(_check_flash(*fa, fkw["causal"],
+                              "a training layer's forward (the first)"))
+    emit(dict(phase="train_kernels", checks=lines))
+
+    # (b) five steps on the kernel path, launch counts read around them
+    # (the data selection included), then the same batches on the plain path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state = _fresh_state(params, opt_cfg)
+    step = make_train_step(lm, opt_cfg)
+    picked, losses = [], []
+    for i in range(TRAIN_STEPS):
+        picked.append(pipe.batch_at(i))
+        state, m = step(state, {"tokens": picked[-1]["tokens"]})
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    run_peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    tau = data_cfg.selector_tau
+    want = dict(gmm_update=TRAIN_STEPS * tau,
+                flash_attention_fwd=TRAIN_STEPS * 2 * cfg.n_layers,
+                flash_attention_bwd=TRAIN_STEPS * cfg.n_layers,
+                pairwise_sqdist=0, center_precheck=0, ssd_intra_chunk=0)
+    check(launches == want, f"train launches {launches}, expected {want}")
+    check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
+    # the selection on plain GMM picks the same sequences (K2 at the
+    # pipeline's own shape)
+    pipe_r = Pipeline(data_cfg, force="ref")
+    for i, b in enumerate(picked):
+        b_r = pipe_r.batch_at(i)
+        check(torch.equal(b["tokens"], b_r["tokens"])
+              and torch.equal(b["domains"], b_r["domains"]),
+              f"step {i}: the batch differs from the plain selection's")
+    batches = [b["tokens"] for b in picked]
+    losses_r = _run_steps(lm, params, batches, opt_cfg, force="ref")
+    check(ops.launch_counts() == launches, "the plain path launched a kernel")
+    hit = torch.rand(params["embed"].shape, generator=g, device="cuda") < 1e-4
+    nudged = dict(params, embed=torch.where(
+        hit, (params["embed"].float() * (1 + 2**-7)).to(torch.bfloat16),
+        params["embed"]))
+    losses_n = _run_steps(lm, nudged, batches, opt_cfg, force="ref")
+    del nudged, hit
+    # bf16: step 0 differs only by the forward's roundings, and within
+    # twice what the nudge moves; each later step adds one step's rounding
+    # differences (Adam's normalised update turns them into lr-sized
+    # moves), so step i may differ by 2 (i + 1) times the largest nudge
+    # difference so far
+    diffs = [abs(a - b) for a, b in zip(losses, losses_r)]
+    floors = [abs(a - b) for a, b in zip(losses_n, losses_r)]
+    limits = [2 * (i + 1) * max(floors[:i + 1]) for i in range(len(diffs))]
+    for i, (d, lim) in enumerate(zip(diffs, limits)):
+        check(d <= lim, f"step {i}: kernel and plain losses differ by {d}, "
+                        f"over 2 x {i + 1} x the nudge's {lim / 2 / (i + 1)}")
+    # a repeated step from one state: is the step deterministic?
+    s1, s2 = _clone_state(state), _clone_state(state)
+    s1, m1 = step(s1, {"tokens": batches[0]})
+    s2, m2 = step(s2, {"tokens": batches[0]})
+    spread, differing = _state_diff(s1, s2)
+    exact = not differing and float(m1["loss"]) == float(m2["loss"])
+    del s1, s2
+    f32 = _train_f32_check(lm, params, batches[0])
+    emit(dict(phase="train_steps", arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+              seq=TRAIN_SEQ, steps=TRAIN_STEPS, params=lm.param_count(),
+              init_s=init_s, run_s=run_s, launches=launches,
+              run_peak_device_bytes=run_peak, losses=losses,
+              plain_losses=losses_r, nudged_plain_losses=losses_n,
+              loss_abs_diffs=diffs, nudge_abs_diffs=floors,
+              loss_abs_diff_limits=limits, same_batches_as_plain=True,
+              repeat_step_bit_identical=exact,
+              repeat_step_max_abs_diff=spread,
+              repeat_step_differing_leaves=differing, f32=f32))
+
+    # (c) the CLI: preempted, resumed, equal to the uninterrupted run
+    cli = _train_cli(seed, exact, spread)
+    emit(dict(phase="train_cli", **cli))
+
+    # (d) where a step's time goes: step time (selection included), peak
+    # memory, one step under the profiler, K5 (and K4) at the slice's inputs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_times, data_times = [], []
+    for i in range(TRAIN_STEPS, TRAIN_STEPS + 3):
+        t0 = time.perf_counter()
+        tok = pipe.batch_at(i)["tokens"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, {"tokens": tok})
+        float(m["loss"])
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        data_times.append(t1 - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = st.median(step_times)
+    prof = device_profile(lambda: step(state, {"tokens": pipe.batch_at(
+        TRAIN_STEPS + 3)["tokens"]}))
+    heads = cfg.n_heads
+    k5 = _time_flash_bwd(*ba, heads)
+    k4 = _time_flash(*fa, heads=heads)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit(dict(phase="train_timing", step_s=step_s, step_times_s=step_times,
+              data_select_s=st.median(data_times),
+              tokens_per_s=tokens / step_s, peak_device_bytes=peak,
+              profiled_step=prof, flash_attention_bwd=k5,
+              flash_attention_fwd_train_shape=k4))
+    del state, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, k5=k5, k5_err=k5_err)
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1199,12 +1586,15 @@ def main() -> int:
     del points, x_norm, cats, stream["st"]
     torch.cuda.empty_cache()
     lm = phase_lm(args.seed)
+    torch.cuda.empty_cache()  # the zamba2 weights went with phase_lm
+    train = phase_train(args.seed)
 
     # launches: the sum over the three main paths, each read around its own
     # run (per path beside it)
     per_path = {name: dict(sequential=launches[name],
                            streaming=stream["launches"][name],
-                           lm=lm["launches"][name])
+                           lm=lm["launches"][name],
+                           train=train["launches"][name])
                 for name in launches}
     total = {name: sum(v.values()) for name, v in per_path.items()}
     for name, n in total.items():
@@ -1249,6 +1639,16 @@ def main() -> int:
              plain_ms=lm["k4"]["plain_ms"], bound_ms=lm["k4"]["bound_ms"],
              bound_by=lm["k4"]["bound_by"],
              library_ms=lm["k4"]["library_ms"]),
+        dict(name="flash_attention_bwd", route="cuda",
+             source=f"{csrc}/csrc/flash_bwd.cu",
+             replaces="src/repro/kernels/flash.py:219",
+             launches=total["flash_attention_bwd"],
+             launches_per_path=per_path["flash_attention_bwd"],
+             max_abs_err=train["k5_err"], ms=train["k5"]["kernel_ms"],
+             plain_ms=train["k5"]["plain_ms"],
+             bound_ms=train["k5"]["bound_ms"],
+             bound_by=train["k5"]["bound_by"],
+             library_ms=train["k5"]["library_ms"]),
         dict(name="ssd_intra_chunk", route="cuda",
              source=f"{csrc}/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd.py:53",

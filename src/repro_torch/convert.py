@@ -13,7 +13,9 @@ res._asdict().items()}`` on the JAX side) and builds the port's object;
 The LM stack's weights cross by ``lm_params_from_arrays``: the tree of
 the reference's ``LM.init`` with numpy leaves (``jax.tree.map(np.asarray,
 params)``, bf16 leaves as numpy's bfloat16 extension type) becomes the
-port's tree, leaf by leaf, with the stacked leading axes kept.
+port's tree, leaf by leaf, with the stacked leading axes kept; a train
+state (``repro.train.train_state.init_train_state``'s tree: parameters,
+AdamW moments and step counters) by ``train_state_from_arrays``.
 """
 from __future__ import annotations
 
@@ -79,38 +81,74 @@ def stream_state_from_arrays(
     return streaming.state_from_arrays(arrays, device=device)
 
 
+def _tree_from_arrays(like, tree, dev: torch.device, dtype_of, what: str):
+    """A tree of ``like``'s keys and shapes from numpy leaves, each as
+    ``dtype_of(like_leaf, array)``; bf16 goes through f32, which is
+    exact."""
+    def walk(spec, node, path):
+        if isinstance(spec, dict):
+            if set(spec) != set(node):
+                raise ValueError(f"{path or what}: keys {sorted(node)}, "
+                                 f"expected {sorted(spec)}")
+            return {k: walk(spec[k], node[k], f"{path}.{k}".lstrip("."))
+                    for k in spec}
+        a = np.asarray(node)
+        if tuple(a.shape) != tuple(spec.shape):
+            raise ValueError(f"{what}.{path}: shape {a.shape}, expected "
+                             f"{tuple(spec.shape)}")
+        dtype = dtype_of(spec, a)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.as_tensor(np.array(a), device=dev).to(dtype)
+
+    return walk(like, tree, "")
+
+
+def _array_dtype(_spec, a: np.ndarray) -> torch.dtype:
+    if a.dtype.name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros((), a.dtype)).dtype
+
+
 def lm_params_from_arrays(cfg, tree: Mapping[str, Any], *,
                           device: DeviceLike = CUDA) -> dict:
     """The port's LM parameters from the reference's parameter tree.
 
     Every leaf must have the shape of the port's spec (``LM(cfg)
-    .param_specs()``) and becomes a tensor of the spec's dtype; bf16 goes
-    through f32, which is exact.
+    .param_specs()``) and becomes a tensor of the spec's dtype.
+    """
+    from .models.model import LM
+
+    return _tree_from_arrays(LM(cfg).param_specs(), tree,
+                             resolve_device(device),
+                             lambda spec, _a: spec.dtype, "params")
+
+
+def train_state_from_arrays(cfg, tree: Mapping[str, Any], *,
+                            device: DeviceLike = CUDA) -> dict:
+    """The port's train state from the reference's ``{"params", "opt":
+    {"m", "v", "step"[, "master"]}, "step"}`` tree with numpy leaves.
+
+    Parameters go through ``lm_params_from_arrays``; each moment (and the
+    master copy) keeps its array's dtype (f32, or bf16 as numpy's
+    extension type) and must have its parameter's shape; the step
+    counters become 0-d int32 tensors.
     """
     from .models.model import LM
 
     dev = resolve_device(device)
     specs = LM(cfg).param_specs()
 
-    def conv(spec, a, path):
-        a = np.asarray(a)
-        if tuple(a.shape) != tuple(spec.shape):
-            raise ValueError(f"{path}: shape {a.shape}, expected {spec.shape}")
-        if a.dtype.name == "bfloat16":
-            a = a.astype(np.float32)
-        return torch.as_tensor(np.array(a), device=dev).to(
-            spec.dtype)
+    def step(a):
+        return torch.as_tensor(np.array(a), device=dev).to(torch.int32)
 
-    def walk(spec, node, path):
-        if isinstance(spec, dict):
-            if set(spec) != set(node):
-                raise ValueError(f"{path or 'params'}: keys {sorted(node)}, "
-                                 f"expected {sorted(spec)}")
-            return {k: walk(spec[k], node[k], f"{path}.{k}".lstrip("."))
-                    for k in spec}
-        return conv(spec, node, path)
-
-    return walk(specs, tree, "")
+    opt = tree["opt"]
+    out = {name: _tree_from_arrays(specs, opt[name], dev, _array_dtype,
+                                   f"opt.{name}")
+           for name in ("m", "v", "master") if name in opt}
+    out["step"] = step(opt["step"])
+    return {"params": lm_params_from_arrays(cfg, tree["params"], device=dev),
+            "opt": out, "step": step(tree["step"])}
 
 
 def to_arrays(obj) -> dict[str, Any]:

@@ -4,6 +4,8 @@ Reference: ``repro/core/__init__.py``. Ported so far:
     MatroidSpec, make_host_matroid          -- matroid representations
     gmm, gmm_fixed, gmm_radius              -- Gonzalez clustering (K2)
     seq_coreset_host, extract_host          -- sequential construction (Alg. 1)
+    seq_coreset, extraction_mask, compress  -- SeqCoreset on the device
+    rank_in_group, partition_extract_mask   -- device EXTRACT masks
     coreset_distance_matrix, final_solve    -- final stage (K1 + host solvers)
     local_search_sum, exhaustive_best       -- final-stage solvers (4.4)
     SolverEngine, register_engine, ...      -- solver-engine registry
@@ -12,7 +14,15 @@ Reference: ``repro/core/__init__.py``. Ported so far:
                                                (sequential, streaming)
     diversity, VARIANTS                     -- Table-1 objectives (host)
 """
-from .coreset import Coreset, default_capacity, extract_host, seq_coreset_host
+from .coreset import (
+    Coreset,
+    compress,
+    default_capacity,
+    extract_host,
+    extraction_mask,
+    seq_coreset,
+    seq_coreset_host,
+)
 from .diversity import (
     VARIANTS,
     Variant,
@@ -31,6 +41,8 @@ from .matroid import (
     TransversalMatroid,
     UniformMatroid,
     make_host_matroid,
+    partition_extract_mask,
+    rank_in_group,
 )
 from .solve import DMMCSolution, solve_dmmc
 from .streaming import (
@@ -64,7 +76,9 @@ from .solvers import (
 )
 
 __all__ = [
-    "Coreset", "default_capacity", "extract_host", "seq_coreset_host",
+    "Coreset", "compress", "default_capacity", "extract_host",
+    "extraction_mask", "seq_coreset", "seq_coreset_host",
+    "partition_extract_mask", "rank_in_group",
     "VARIANTS", "Variant", "diversity", "diversity_of_points", "f_of_k",
     "farness_lower_bound", "SubsetMatroidView", "coreset_distance_matrix",
     "final_solve", "GMMResult", "gmm", "gmm_fixed", "gmm_radius",

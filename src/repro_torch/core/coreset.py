@@ -5,8 +5,13 @@ Reference: ``repro/core/coreset.py`` (``Coreset``, ``default_capacity``,
 1 verbatim: GMM on the device (K2), then the numpy EXTRACT (exact Kuhn
 matching for transversal U_i + category top-up, and the general-matroid
 fallback T_i = C_i) over the cluster assignment, which is the only array
-that crosses to the host. The jit ``seq_coreset``, ``compress``,
-``extraction_mask`` and ``concat_coresets`` come with the MapReduce slice.
+that crosses to the host.
+
+``seq_coreset`` is the reference's jit SeqCoreset (:136):
+``extraction_mask`` (:71, uniform and partition) and ``compress`` (:97)
+run in torch on the points' device after GMM on K2, and nothing crosses
+to the host but GMM's loop bound. The transversal mask and
+``concat_coresets`` come with the MapReduce slice (ROADMAP.md step 11).
 """
 from __future__ import annotations
 
@@ -19,7 +24,13 @@ import torch
 from ..device import CUDA, DeviceLike, resolve_device
 from . import geometry
 from .gmm import GMMResult, gmm
-from .matroid import Matroid, MatroidSpec, make_host_matroid
+from .matroid import (
+    Matroid,
+    MatroidSpec,
+    make_host_matroid,
+    partition_extract_mask,
+    rank_in_group,
+)
 
 
 class Coreset(NamedTuple):
@@ -51,6 +62,92 @@ def default_capacity(spec: MatroidSpec, k: int, tau: int) -> int:
         return min(per_cluster, k * max(spec.num_categories, 1)) * tau
     # general matroids can degenerate to whole clusters; host path only.
     raise ValueError(f"no static capacity for matroid kind {spec.kind!r}")
+
+
+def extraction_mask(
+    spec: MatroidSpec,
+    assign: torch.Tensor,
+    cats: torch.Tensor,
+    caps: Optional[torch.Tensor],
+    valid: torch.Tensor,
+    k: int,
+    tau: int,
+) -> torch.Tensor:
+    """Per-point keep mask implementing EXTRACT (uniform, partition)."""
+    if spec.kind == "uniform":
+        # the unconstrained diversity coreset: k points per cluster
+        return valid & (rank_in_group(assign, valid, tau) < k)
+    if spec.kind == "partition":
+        return partition_extract_mask(assign, cats, caps, valid, k, tau,
+                                      spec.num_categories)
+    if spec.kind == "transversal":
+        raise NotImplementedError(
+            "the device EXTRACT of a transversal matroid is not ported yet: "
+            "ROADMAP.md step 11 (use seq_coreset_host)")
+    raise ValueError(f"device EXTRACT not defined for {spec.kind!r}")
+
+
+def compress(
+    points: torch.Tensor,
+    cats: torch.Tensor,
+    mask: torch.Tensor,
+    cap: int,
+    base_index: Optional[torch.Tensor] = None,
+) -> Coreset:
+    """The first ``cap`` masked rows, in index order, packed into a
+    fixed-capacity Coreset (-1 / 0 fill), with no host round trip."""
+    n = mask.shape[0]
+    dev = mask.device
+    pos = torch.cumsum(mask.to(torch.int64), dim=0) - 1
+    slot = torch.where(mask & (pos < cap), pos, cap)  # cap: a discard slot
+    idx = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
+    idx.scatter_(0, slot, torch.arange(n, dtype=torch.int64, device=dev))
+    idx = idx[:cap]
+    valid = idx >= 0
+    safe = torch.clamp_min(idx, 0)
+    src = idx if base_index is None else torch.where(valid, base_index + idx,
+                                                     -1)
+    return Coreset(
+        points=torch.where(valid[:, None], points[safe], 0.0),
+        cats=torch.where(valid[:, None], cats[safe], -1).to(torch.int32),
+        valid=valid,
+        src_idx=src.to(torch.int32),
+    )
+
+
+def seq_coreset(
+    points,  # (n, d) metric-normalized
+    cats,  # (n, gamma)
+    valid,  # (n,)
+    spec: MatroidSpec,
+    caps,  # (h,) or None
+    k: int,
+    tau: int,
+    *,
+    eps: float = 0.0,
+    use_radius_target: bool = False,
+    cap: Optional[int] = None,
+    base_index: Optional[torch.Tensor] = None,
+    force: Optional[str] = None,
+    device: DeviceLike = CUDA,
+) -> tuple[Coreset, GMMResult, torch.Tensor]:
+    """SeqCoreset on the device. Returns (coreset, gmm_result,
+    overflow_count); overflow_count > 0 means ``cap`` was too small for
+    the selection (never for partition/uniform at the default capacity).
+    """
+    dev = resolve_device(device)
+    points = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    cats = torch.as_tensor(cats, device=dev)
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+    if caps is not None:
+        caps = torch.as_tensor(caps, device=dev)
+    res = gmm(points, valid, tau_max=tau, k=k, eps=eps,
+              use_radius_target=use_radius_target, force=force, device=dev)
+    mask = extraction_mask(spec, res.assign, cats, caps, valid, k, tau)
+    cap_ = cap if cap is not None else default_capacity(spec, k, tau)
+    cs = compress(points, cats, mask, cap_, base_index)
+    overflow = torch.clamp_min(torch.sum(mask.to(torch.int32)) - cap_, 0)
+    return cs, res, overflow
 
 
 def _cats_2d(cats: Optional[np.ndarray], n: int) -> np.ndarray:

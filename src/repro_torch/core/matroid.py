@@ -5,7 +5,11 @@ Reference: the host half of ``repro/core/matroid.py``: ``MatroidSpec``
 ``PartitionMatroid``, ``TransversalMatroid`` (Kuhn's augmenting-path
 matching, ``_kuhn_try``) and ``GeneralMatroid`` (:55-241), and
 ``make_host_matroid`` (:331). They run on coreset-sized inputs for the
-final-stage solvers and on the EXTRACT step of Algorithm 1.
+final-stage solvers and on the EXTRACT step of Algorithm 1. The device
+masks of the jit EXTRACT, ``rank_in_group`` and ``partition_extract_mask``
+(:248-292), run in torch on the points' device (``core.coreset.
+seq_coreset``); ``transversal_extract_mask`` and ``partition_counts_ok``
+wait for ROADMAP.md step 11.
 
 Array conventions
 -----------------
@@ -21,6 +25,7 @@ import dataclasses
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
 # --------------------------------------------------------------------------
 # Static spec (hashable)
@@ -229,6 +234,54 @@ class GeneralMatroid(Matroid):
         if len(set(idxs)) != len(idxs):
             return False
         return bool(self.oracle(idxs))
+
+
+# --------------------------------------------------------------------------
+# Device masks (static shapes, no host round trip)
+# --------------------------------------------------------------------------
+
+
+def rank_in_group(group_ids: torch.Tensor, valid: torch.Tensor,
+                  num_groups: int) -> torch.Tensor:
+    """Stream-order rank of every element within its group.
+
+    group_ids: int[m] in [0, num_groups); valid: bool[m]. Returns int32[m];
+    invalid entries get rank 2**30. Stable in index order, the paper's
+    "first come" extraction semantics.
+    """
+    m = group_ids.shape[0]
+    dev = group_ids.device
+    key = torch.where(valid, group_ids.to(torch.int64),
+                      num_groups)  # park invalid in the last group
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    idx = torch.arange(m, dtype=torch.int64, device=dev)
+    is_start = torch.ones((m,), dtype=torch.bool, device=dev)
+    is_start[1:] = sorted_key[1:] != sorted_key[:-1]
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    ranks = torch.empty((m,), dtype=torch.int64, device=dev)
+    ranks[order] = idx - seg_start
+    return torch.where(valid, ranks, 2**30).to(torch.int32)
+
+
+def partition_extract_mask(
+    assign: torch.Tensor,  # int[n] cluster id per point
+    cats: torch.Tensor,  # int[n, 1]
+    caps: torch.Tensor,  # int[h]
+    valid: torch.Tensor,  # bool[n]
+    k: int,
+    tau: int,
+    num_categories: int,
+) -> torch.Tensor:
+    """Exact Thm-1 EXTRACT for partition matroids, all clusters at once:
+    the first min(caps[c], k) points of every (cluster, category), then the
+    first k survivors of every cluster, in index order."""
+    c = cats[:, 0].to(torch.int64)
+    gc = assign.to(torch.int64) * num_categories + c
+    r_cc = rank_in_group(gc, valid, tau * num_categories)
+    stage1 = (r_cc < torch.clamp_max(caps.to(torch.int64)[c], k)) & valid
+    r_cl = rank_in_group(assign, stage1, tau)
+    return stage1 & (r_cl < k)
 
 
 # --------------------------------------------------------------------------

@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.matroid import MatroidSpec
-from .device import CUDA, DeviceLike, resolve_device
+from ..core.matroid import MatroidSpec
+from ..device import CUDA, DeviceLike, resolve_device
 
 SONGS_N = 237_698
 SONGS_DIM = 5000

@@ -3,7 +3,8 @@
 Reference: ``repro/kernels/ops.py`` (``pairwise_sqdist`` :40,
 ``pairwise_dist`` :48, ``_pdist_e2`` :52, ``center_precheck`` :67,
 ``gmm_update`` :117, ``ssd_intra_chunk`` :127, ``flash_attention_fwd``
-:144).
+:144); ``flash_attention_bwd`` is ``repro/kernels/flash.py:219``, which
+the reference's ops never exposes.
 
 Dispatch: inputs are first moved to ``device`` (CUDA unless the caller asks
 for the CPU). A CPU tensor runs the plain version in ``ref.py``; a CUDA
@@ -11,6 +12,13 @@ tensor launches the kernel, or the kernel's wrapper raises. ``force="ref"``
 is the one way to run the plain version on the card (the chip smoke run
 and the tests compare the two with it). No environment variable picks a
 path, and nothing falls back from the kernel to the plain version.
+
+No silent detach: the kernels are launches with no autograd graph, so a
+kernel path called under grad mode with an input that requires grad
+raises (a loss through it would lose the gradient without a word). The
+one differentiable route to K4 is ``models.attention.FlashAttention``,
+whose backward is K5; the plain versions are torch and differentiate as
+they are.
 """
 from __future__ import annotations
 
@@ -26,9 +34,13 @@ from . import ref as _ref
 from . import ssd as _ssd
 from ..device import CUDA, DeviceLike, resolve_device
 
-_KERNELS = {"pairwise_sqdist": _pdist, "gmm_update": _gmm_step,
-            "center_precheck": _precheck, "flash_attention_fwd": _flash,
-            "ssd_intra_chunk": _ssd}
+# op name -> (wrapper module, name of its launch counter)
+_KERNELS = {"pairwise_sqdist": (_pdist, "launches"),
+            "gmm_update": (_gmm_step, "launches"),
+            "center_precheck": (_precheck, "launches"),
+            "flash_attention_fwd": (_flash, "launches"),
+            "flash_attention_bwd": (_flash, "bwd_launches"),
+            "ssd_intra_chunk": (_ssd, "launches")}
 
 
 def _use_ref(t: torch.Tensor, force: Optional[str]) -> bool:
@@ -41,6 +53,17 @@ def _use_ref(t: torch.Tensor, force: Optional[str]) -> bool:
     return False
 
 
+def _no_silent_detach(op: str, *tensors: torch.Tensor) -> None:
+    """Raise if the kernel path of ``op`` would cut an autograd graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"ops.{op}: the kernel has no backward here, and an input "
+            f"requires grad; the gradient would be cut silently. Run it "
+            f"under torch.no_grad(), detach the inputs, or use a "
+            f"differentiable route (models.attention.FlashAttention for "
+            f"attention)")
+
+
 def pairwise_sqdist(x, y, *, force: Optional[str] = None,
                     device: DeviceLike = CUDA):
     """(n, d), (m, d) -> (n, m) f32 squared Euclidean distances (K1)."""
@@ -49,6 +72,7 @@ def pairwise_sqdist(x, y, *, force: Optional[str] = None,
     y = torch.as_tensor(y, device=dev)
     if _use_ref(x, force):
         return _ref.pairwise_sqdist(x, y)
+    _no_silent_detach("pairwise_sqdist", x, y)
     return _pdist.pairwise_sqdist(x, y)
 
 
@@ -66,6 +90,7 @@ def gmm_update(x, z, min_dist, valid, *, force: Optional[str] = None,
     )
     if _use_ref(x, force):
         return _ref.gmm_update(x, z, min_dist, valid)
+    _no_silent_detach("gmm_update", x, z, min_dist)
     return _gmm_step.gmm_update(x, z, min_dist, valid)
 
 
@@ -115,6 +140,7 @@ def center_precheck(block, centers, cvalid, *, force: Optional[str] = None,
     if _use_ref(block, force):
         stats = _ref.center_precheck_matmul(block, centers, cvalid)
     else:
+        _no_silent_detach("center_precheck", block, centers)
         stats = _precheck.center_precheck_stats(block, centers, cvalid)
     # |sqrt(a) - sqrt(b)| = |a - b| / (sqrt(a) + sqrt(b)), and every center
     # the tie test compares sits at d >= dmin: e2 / dmin bounds the error,
@@ -135,7 +161,23 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     q, k, v = (torch.as_tensor(t, device=dev) for t in (q, k, v))
     if _use_ref(q, force):
         return _ref.flash_attention_fwd(q, k, v, causal=causal)
+    _no_silent_detach("flash_attention_fwd", q, k, v)
     return _flash.flash_attention_fwd(q, k, v, causal=causal)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        force: Optional[str] = None,
+                        device: DeviceLike = CUDA):
+    """Flash-attention backward (K5): (dq, dk, dv) in the inputs' dtype
+    from q (BH, Sq, hd), k/v (BH, Skv, hd), the forward's o and lse
+    (BH, Sq) f32, and the output gradient do (BH, Sq, hd)."""
+    dev = resolve_device(device)
+    q, k, v, o, lse, do = (torch.as_tensor(t, device=dev)
+                           for t in (q, k, v, o, lse, do))
+    if _use_ref(q, force):
+        return _ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    _no_silent_detach("flash_attention_bwd", q, k, v, o, do)
+    return _flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
 
 
 def ssd_intra_chunk(xbar, loga, B, C, *, force: Optional[str] = None,
@@ -154,6 +196,7 @@ def ssd_intra_chunk(xbar, loga, B, C, *, force: Optional[str] = None,
     if _use_ref(xbar, force):
         y, s = _ref.ssd_intra_chunk(xbar, loga, B, C)
     else:
+        _no_silent_detach("ssd_intra_chunk", xbar, loga, B, C)
         y, s = _ssd.ssd_intra_chunk(xbar, loga, B, C)
     cum = torch.cumsum(loga.to(torch.float32), dim=-1)
     return y, s, torch.exp(cum), torch.exp(cum[..., -1])
@@ -161,9 +204,9 @@ def ssd_intra_chunk(xbar, loga, B, C, *, force: Optional[str] = None,
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per op since the last ``reset_launches``."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launches() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _KERNELS.values():
+        setattr(mod, attr, 0)

@@ -3,7 +3,10 @@
 Reference: ``repro/kernels/ref.py`` (``pairwise_sqdist``, ``gmm_update``,
 the precheck oracles ``_nearest_stats`` :31, ``center_precheck`` :59,
 ``center_precheck_matmul`` :79, ``ssd_intra_chunk`` :132,
-``ssd_reference_scan`` :162 and ``flash_attention_fwd`` :196). These are
+``ssd_reference_scan`` :162 and ``flash_attention_fwd`` :196), and the
+backward of ``repro/kernels/flash.py`` (``flash_attention_bwd`` :219),
+which has no jnp oracle there (its test differentiates the dense
+formula). These are
 the CPU path of ``ops`` and the oracle that the CUDA/Triton kernels are
 held against on the card (``force="ref"``).
 """
@@ -157,6 +160,57 @@ def flash_attention_fwd(
         lse[:, r0:r1] = torch.where(
             l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), NEG_INF)[..., 0]
     return o, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (BH, Sq, hd)
+    k: torch.Tensor,  # (BH, Skv, hd)
+    v: torch.Tensor,  # (BH, Skv, hd)
+    o: torch.Tensor,  # (BH, Sq, hd)
+    lse: torch.Tensor,  # (BH, Sq) f32
+    do: torch.Tensor,  # (BH, Sq, hd)
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense-recompute backward of attention, the plain version of K5.
+    Returns (dq, dk, dv) in the inputs' dtypes.
+
+    P is recomputed from (q, k, lse) with the forward's scale and mask
+    (masked scores -1e30, so their P is 0); dsum = rowsum(do * o);
+    ds = P * (do v^T - dsum) * scale; dq = ds k, dk = ds^T q, dv = P^T do,
+    all in f32. q rows are walked in chunks as in ``flash_attention_fwd``,
+    so one (BH, rows, Skv) f32 block stays near 1 GB; dk and dv sum the
+    chunks in f32.
+    """
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    f32 = torch.float32
+    kf = k.to(f32)
+    vf = v.to(f32)
+    scale = 1.0 / (hd ** 0.5)
+    dsum = torch.sum(do.to(f32) * o.to(f32), dim=-1)  # (BH, Sq)
+    dq = torch.empty((bh, sq, hd), dtype=q.dtype, device=q.device)
+    dk = torch.zeros((bh, skv, hd), dtype=f32, device=q.device)
+    dv = torch.zeros((bh, skv, hd), dtype=f32, device=q.device)
+    rows = max(1, _CHUNK_ELEMS // max(1, bh * skv))
+    kpos = torch.arange(skv, device=q.device)
+    for r0 in range(0, sq, rows):
+        r1 = min(sq, r0 + rows)
+        qc = q[:, r0:r1].to(f32)
+        doc = do[:, r0:r1].to(f32)
+        s = torch.einsum("bqh,bkh->bqk", qc, kf) * scale
+        if causal:
+            qpos = torch.arange(r0, r1, device=q.device)
+            s = torch.where((qpos[:, None] >= kpos[None, :])[None], s,
+                            NEG_INF)
+        p = torch.exp(s - lse[:, r0:r1, None].to(f32))
+        del s
+        dv += torch.einsum("bqk,bqh->bkh", p, doc)
+        dp = torch.einsum("bqh,bkh->bqk", doc, vf)
+        ds = p * (dp - dsum[:, r0:r1, None]) * scale
+        del p, dp
+        dq[:, r0:r1] = torch.einsum("bqk,bkh->bqh", ds, kf).to(q.dtype)
+        dk += torch.einsum("bqk,bqh->bkh", ds, qc)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ssd_intra_chunk(

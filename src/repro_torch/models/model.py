@@ -1,12 +1,23 @@
-"""LM assembly for the dense, ssm and hybrid families.
+"""LM assembly for the dense, ssm and hybrid families, and the training
+loss of the dense family.
 
 Reference: ``repro/models/model.py`` (``layer_plan`` :50, ``block_init``
-:114, ``block_apply_full`` :227, ``block_apply_decode`` :311, ``LM`` :341).
+:114, ``block_apply_full`` :227, ``block_apply_decode`` :311, ``LM`` :341,
+``LM.loss`` :431).
 A model is a sequence of segments; each segment is ``count`` identical
 blocks whose parameters are stacked on a leading axis, exactly the
 reference's parameter tree (so ``convert.lm_params_from_arrays`` carries a
 JAX tree across leaf by leaf). The reference's ``lax.scan`` and
-``fori_loop`` over a segment become Python loops over its blocks.
+``fori_loop`` over a segment become Python loops over its blocks, and
+the reference's ``jax.checkpoint(body)`` per block (:413-414) is
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per block
+when ``forward(remat=True)`` runs under grad mode.
+
+Training: ``LM.loss`` is differentiable for the dense (and audio) family,
+whose only kernels are K4 and K5 behind ``attention.FlashAttention``. The
+ssm and hybrid families' Mamba2 layers run K6, which has no backward yet,
+so their ``loss`` raises ``NotImplementedError`` (ROADMAP.md step 13.2)
+rather than train with a cut gradient; moe and vlm are not ported.
 
 Families -> layer plans:
   dense/audio   [("dense", L)]
@@ -28,6 +39,8 @@ import itertools
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import CUDA, DeviceLike, resolve_device
@@ -54,8 +67,18 @@ _NOT_PORTED = {
     "vlm_super": "ROADMAP.md step 13 (the VLM family)",
 }
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
+# families whose loss has a backward path in the port
+_TRAINABLE = ("dense", "audio")
+_NO_BACKWARD = {
+    "ssm": "ROADMAP.md step 13.2 (a backward for the Mamba2 layers' K6 path)",
+    "hybrid": "ROADMAP.md step 13.2 (a backward for the Mamba2 layers' K6 "
+              "path)",
+    "moe": "ROADMAP.md step 13 (models/moe.py)",
+    "vlm": "ROADMAP.md step 13 (the VLM family)",
+}
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
 
 
 def layer_plan(cfg: ArchConfig) -> list[tuple[str, int]]:
@@ -242,6 +265,11 @@ def block_apply_full(kind, p, x, ctx, *, want_cache: bool):
     raise ValueError(kind)
 
 
+def _block_out(kind, p, x, ctx):
+    """One block's output alone: the function each checkpoint recomputes."""
+    return block_apply_full(kind, p, x, ctx, want_cache=False)[0]
+
+
 # --------------------------------------------------------------------------
 # sub-layer apply (single-token decode against caches)
 # --------------------------------------------------------------------------
@@ -296,7 +324,7 @@ class LM:
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
         self.plan = layer_plan(cfg)
-        self.dtype = _DTYPES[cfg.dtype]
+        self.dtype = DTYPES[cfg.dtype]
 
     # ---- parameters ----
 
@@ -328,6 +356,13 @@ class LM:
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(generator))
         return _map(lambda s: _draw(s, gen, dev), specs)
+
+    def abstract_params(self) -> Params:
+        """The parameter tree as tensors on the ``meta`` device (shapes and
+        dtypes, no storage), the counterpart of the reference's
+        ``abstract_params``."""
+        return _map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), self.param_specs())
 
     def param_count(self) -> int:
         return sum(s.numel() for s in _leaves(self.param_specs()))
@@ -364,19 +399,29 @@ class LM:
         *,
         want_caches: bool = False,
         cache_len: Optional[int] = None,
+        remat: bool = False,
         force: Optional[str] = None,
     ):
         """Returns (logits (B,S,V), aux scalar, caches list | None). With
         ``want_caches`` only the last position's logits are made, and the
-        caches hold ``cache_len`` positions (default S)."""
+        caches hold ``cache_len`` positions (default S). ``remat``: under
+        grad mode each block is checkpointed (its activations are
+        recomputed in the backward). The reference's ``skip_masked`` has no
+        counterpart: K4 and K5 always skip masked tiles, which changes no
+        value."""
         embed = params["embed"]
         tokens = torch.as_tensor(tokens, device=embed.device).long()
         B, S = tokens.shape
-        x = embed[tokens]
+        x = F.embedding(tokens, embed)
         ctx = self.context(params, B, S, force=force)
         caches = (self.init_caches(B, cache_len or S, device=x.device)
                   if want_caches else None)
+        remat = remat and not want_caches and torch.is_grad_enabled()
         for si, i, kind, p in self.blocks(params):
+            if remat:
+                x = checkpoint(_block_out, kind, p, x, ctx,
+                               use_reentrant=False)
+                continue
             x, cache = block_apply_full(kind, p, x, ctx,
                                         want_cache=want_caches)
             if want_caches:
@@ -387,6 +432,29 @@ class LM:
         logits = self.head(params, x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, aux, caches
+
+    # ---- losses ----
+
+    def loss(self, params: Params, tokens, *, remat: bool = True,
+             force: Optional[str] = None):
+        """Next-token cross-entropy + 0.01 * aux, as the reference's
+        ``LM.loss``: over all ``vocab_padded`` classes, the mean over
+        B x (S - 1) positions, logsumexp in f32. Returns (loss, dict(ce,
+        aux)), 0-d f32 tensors."""
+        fam = self.cfg.family
+        if fam not in _TRAINABLE:
+            raise NotImplementedError(
+                f"LM.loss for the {fam} family has no backward path in the "
+                f"port yet: {_NO_BACKWARD.get(fam, 'ROADMAP.md step 13')}")
+        logits, aux, _ = self.forward(params, tokens, remat=remat,
+                                      force=force)
+        tokens = torch.as_tensor(tokens, device=logits.device).long()
+        tgt = tokens[:, 1:]
+        lg = logits[:, :-1]
+        gold = torch.gather(lg, -1, tgt[..., None])[..., 0].to(torch.float32)
+        logz = torch.logsumexp(lg.to(torch.float32), dim=-1)
+        ce = torch.mean(logz - gold)
+        return ce + 0.01 * aux, dict(ce=ce, aux=aux)
 
     # ---- serving ----
 

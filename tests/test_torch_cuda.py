@@ -335,3 +335,96 @@ def test_lm_forward_launches_k4_and_k6(cuda):
     assert counts["ssd_intra_chunk"] == cfg.n_layers
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))
+
+
+def _flash_bwd_inputs(cuda, bh, sq, skv, hd, causal, dtype):
+    """q, k, v, and o and lse from the plain forward, and a random do."""
+    q, k, v = _flash_inputs(cuda, bh, sq, skv, hd, dtype)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal, force="ref")
+    rng = np.random.default_rng(bh + sq + skv)
+    do = torch.as_tensor(rng.normal(size=(bh, sq, hd)), device=cuda).to(dtype)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("bh,sq,skv,hd,causal", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_vs_plain(cuda, bh, sq, skv, hd, causal, dtype):
+    args = _flash_bwd_inputs(cuda, bh, sq, skv, hd, causal, dtype)
+    before = flash.bwd_launches
+    got = ops.flash_attention_bwd(*args, causal=causal)
+    want = ops.flash_attention_bwd(*args, causal=causal, force="ref")
+    torch.cuda.synchronize()
+    assert flash.bwd_launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        # relative to each gradient's largest entry: f32 sums in another
+        # order, bf16 a rounding or two of the output
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), err
+
+
+def test_flash_bwd_kernel_is_deterministic(cuda):
+    args = _flash_bwd_inputs(cuda, 6, 300, 300, 64, True, torch.bfloat16)
+    a = ops.flash_attention_bwd(*args)
+    b = ops.flash_attention_bwd(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_loss_backward_on_the_card_launches_k4_and_k5(cuda):
+    """A reduced dense model's loss and gradient on the card through K4 and
+    K5 (with remat: K4 twice a layer) agree with the plain path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              dtype="float32")
+    lm = LM(cfg)
+    params = tree_map(lambda p: p.requires_grad_(True),
+                      lm.init(0, device=cuda))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100)), device=cuda)
+    ops.reset_launches()
+    loss, _ = lm.loss(params, toks)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    counts = ops.launch_counts()
+    assert counts["flash_attention_fwd"] == 2 * cfg.n_layers
+    assert counts["flash_attention_bwd"] == cfg.n_layers
+    loss_r, _ = lm.loss(params, toks, force="ref")
+    grads_r = torch.autograd.grad(loss_r, tree_leaves(params))
+    assert ops.launch_counts() == counts
+    torch.testing.assert_close(loss, loss_r, rtol=1e-5, atol=1e-5)
+    for g, w in zip(grads, grads_r):
+        rel = float((g - w).norm() / (w.norm() + 1e-30))
+        assert rel <= 1e-4, rel
+
+
+def test_kernel_path_refuses_to_cut_a_graph_on_the_card(cuda):
+    xb, la, B, C = _ssd_inputs(cuda, 2, 16, 8, 4)
+    xb.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="cut silently"):
+        ops.ssd_intra_chunk(xb, la, B, C)
+    with torch.no_grad():
+        ops.ssd_intra_chunk(xb, la, B, C)
+
+
+def test_pipeline_selects_on_k2_as_on_the_plain_path(cuda):
+    """The diverse batch selection launches K2 (tau a step) and picks the
+    same sequences as the selection on plain GMM."""
+    from repro_torch.data import DataConfig, Pipeline
+
+    cfg = DataConfig(vocab=1000, seq_len=16, global_batch=16, seed=3)
+    pipe, pipe_r = Pipeline(cfg, device=cuda), Pipeline(cfg, force="ref",
+                                                        device=cuda)
+    for step in range(3):
+        ops.reset_launches()
+        b = pipe.batch_at(step)
+        assert ops.launch_counts()["gmm_update"] == cfg.selector_tau
+        b_r = pipe_r.batch_at(step)
+        assert ops.launch_counts()["gmm_update"] == cfg.selector_tau
+        assert torch.equal(b["tokens"], b_r["tokens"])
+        assert torch.equal(b["domains"], b_r["domains"])

@@ -33,7 +33,9 @@ def test_port_files_exist():
     assert "src/repro_torch/core/solve.py" in names
     assert "src/repro_torch/kernels/gmm_step.py" in names
     for f in ("models/model.py", "models/mamba.py", "serve/engine.py",
-              "kernels/flash.py", "kernels/ssd.py"):
+              "kernels/flash.py", "kernels/ssd.py", "train/optimizer.py",
+              "train/train_state.py", "train/checkpoint.py",
+              "data/pipeline.py", "data/songs.py", "launch/train.py"):
         assert f"src/repro_torch/{f}" in names
 
 

@@ -105,9 +105,14 @@ def test_cuda_without_card_raises_and_cpu_path_launches_nothing():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.ssd_intra_chunk(q, -q[..., 0].abs(), q, q)
     ops.ssd_intra_chunk(q, -q[..., 0].abs(), q, q, device="cpu")
+    o, lse = ops.flash_attention_fwd(q, q, q, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.flash_attention_bwd(q, q, q, o, lse, q)
+    ops.flash_attention_bwd(q, q, q, o, lse, q, device="cpu")
     assert ops.launch_counts() == {"pairwise_sqdist": 0, "gmm_update": 0,
                                    "center_precheck": 0,
                                    "flash_attention_fwd": 0,
+                                   "flash_attention_bwd": 0,
                                    "ssd_intra_chunk": 0}
 
 
