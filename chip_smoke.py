@@ -9,7 +9,10 @@ exits non-zero:
 1. ``device``  the card's name and power limit (``nvidia-smi``).
 2. ``build``   nvcc builds each CUDA source in ``src/repro_torch/kernels/
                csrc`` (one process per source, all at once) and Triton
-               compiles the GMM step, with their seconds and ptxas lines.
+               compiles the GMM step, with their seconds and ptxas lines;
+               ``cuobjdump -sass`` counts the tensor-core instructions of
+               the flash libraries (``HGMMA`` for wgmma, ``HMMA`` for
+               mma.sync), which must be there.
 3. ``data``    songs-sim at the paper's Songs widths (n = 237,698,
                dim = 5000, 16 genres, rank ~89), generated on the card.
 4. ``kernels`` every kernel against its plain PyTorch version on the card,
@@ -63,7 +66,8 @@ exits non-zero:
                read around it; (d) one prefill and one decode step under
                the profiler, then K4 and K6 timed at the slice's shapes
                beside their plain versions, their bounds and (K4)
-               ``scaled_dot_product_attention``.
+               ``scaled_dot_product_attention``, with K4's route (bf16:
+               the tensor cores), TFLOP/s and kernel / library ratio.
 9. ``train``   the training path at smollm-135m's full width and depth
                (bf16, random weights, batch 16 x 2,048, diverse selection
                on): (a) K5 (flash backward) against its plain version at
@@ -80,7 +84,8 @@ exits non-zero:
                after step 4, resumed to 6, equal to an uninterrupted run
                bit for bit; (d) step time, tokens/s, peak memory, a step
                under the profiler, and K5 beside its plain version, its
-               bound and the backward of ``scaled_dot_product_attention``.
+               bound and the backward of ``scaled_dot_product_attention``
+               (route, TFLOP/s, ratio).
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the repository beside it, it fails.
@@ -111,12 +116,17 @@ PRECHECK_SHAPES = [(8, 5, 4), (37, 17, 7), (128, 33, 100), (200, 129, 25),
                    (128, 257, 100)]
 CUDA_SOURCES = ("pdist", "precheck", "flash_fwd", "flash_bwd", "ssd")
 # (BH, Sq, Skv, hd, causal): tests/test_kernels.py's FLASH_SHAPES, then
-# hd in {64, 112, 128} with S off the 64-row tile, causal and not
+# hd in {64, 112, 128} with S off the 64-row tile, causal and not, then
+# edges of the bf16 tensor-core tiles (hd 40 and 256, S off 128 rows)
 FLASH_SHAPES = [(4, 64, 64, 16, True), (2, 48, 80, 32, False),
                 (3, 33, 33, 8, True), (1, 128, 128, 64, True),
                 (2, 96, 32, 16, False), (3, 100, 100, 64, True),
                 (2, 200, 200, 112, True), (2, 130, 257, 112, False),
-                (2, 70, 70, 128, True), (2, 90, 150, 128, False)]
+                (2, 70, 70, 128, True), (2, 90, 150, 128, False),
+                (2, 255, 129, 40, True), (2, 129, 255, 256, False)]
+# the SASS of the tensor-core routes: flash_fwd must hold wgmma, flash_bwd
+# wgmma or mma.sync
+TENSOR_CORE_SASS = {"flash_fwd": ("HGMMA",), "flash_bwd": ("HGMMA", "HMMA")}
 # (g, q, p, n): tests/test_kernels.py's SSD_SHAPES, then model widths
 SSD_SHAPES = [(2, 16, 8, 4), (3, 32, 16, 8), (1, 64, 32, 16), (4, 8, 64, 32),
               (5, 256, 64, 64), (3, 256, 64, 128), (7, 100, 64, 64)]
@@ -248,10 +258,29 @@ def phase_build() -> None:
     triton_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln
-                    or "Compiling entry" in ln]
+                    or "Compiling entry" in ln or "C75" in ln]
              for name, log in _build.BUILD_LOG.items()}
+    sass = {name: _tensor_core_sass(_build.library(name)._name)
+            for name in TENSOR_CORE_SASS}
+    for name, ops_ in TENSOR_CORE_SASS.items():
+        check(sum(sass[name][op] for op in ops_) > 0,
+              f"{name}: no {' or '.join(ops_)} in its SASS: {sass[name]}")
     emit(dict(phase="build", nvcc_s=nvcc_s, nvcc_wall_s=nvcc_wall_s,
-              triton_first_compile_s=triton_s, ptxas=ptxas))
+              triton_first_compile_s=triton_s, tensor_core_sass=sass,
+              ptxas=ptxas))
+
+
+def _tensor_core_sass(lib_path: str) -> dict:
+    """Counts of tensor-core instructions in a built library's SASS
+    (``cuobjdump -sass``): HGMMA (wgmma) and HMMA (mma.sync)."""
+    import re
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "HMMA")}
 
 
 def phase_data(seed: int):
@@ -922,14 +951,24 @@ def _time_flash(q, k, v, heads: int = LM_HEADS) -> dict:
     flops = 4 * hd * bh * s * (s + 1) // 2  # causal: q.k and p.v, k <= q
     peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     b, by = bound_ms(nbytes, flops, peak)
-    return dict(
+    res = dict(
         kernel_ms=time_ms(lambda: flash.flash_attention_fwd(q, k, v, True)),
+        route=flash.last_route["fwd"],
         plain_ms=time_ms(lambda: ref.flash_attention_fwd(q, k, v, True),
                          warmup=1, reps=5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True)),
         bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
         shape=[bh, s, hd], dtype=str(q.dtype))
+    return _rates(res)
+
+
+def _rates(res: dict) -> dict:
+    """Adds achieved TFLOP/s (the function's FLOP over the kernel's time)
+    and the kernel's time over the library call's."""
+    res["tflop_per_s"] = res["flops"] / res["kernel_ms"] / 1e9
+    res["kernel_over_library"] = res["kernel_ms"] / res["library_ms"]
+    return res
 
 
 def _time_ssd(xbar, loga, B, C) -> dict:
@@ -1383,6 +1422,7 @@ def _time_flash_bwd(q, k, v, o, lse, do, heads: int) -> dict:
     res = dict(
         kernel_ms=time_ms(lambda: flash.flash_attention_bwd(
             q, k, v, o, lse, do, True)),
+        route=flash.last_route["bwd"],
         plain_ms=time_ms(lambda: ref.flash_attention_bwd(
             q, k, v, o, lse, do, True), warmup=1, reps=5),
         library_ms=time_ms(lambda: torch.autograd.grad(
@@ -1392,7 +1432,7 @@ def _time_flash_bwd(q, k, v, o, lse, do, heads: int) -> dict:
         bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
         shape=[bh, s, hd], dtype=str(q.dtype))
     del out
-    return res
+    return _rates(res)
 
 
 def phase_train(seed: int) -> dict:

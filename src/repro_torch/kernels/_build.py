@@ -3,11 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/repro_torch_kernels/`` at the checkout's root, and is loaded with
-``ctypes``. A library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and an unchanged one is reused. A failed
-build raises; nothing falls back to another path. There is no
-Pallas-compat layer to port: ``repro/kernels/compat.py`` only papers over
-Pallas API drift.
+``ctypes``. A library's file name carries a hash of its source, of the
+headers in ``csrc/`` (``*.cuh``, which a source may include) and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. A failed build raises; nothing falls back to another path. There
+is no Pallas-compat layer to port: ``repro/kernels/compat.py`` only papers
+over Pallas API drift.
 """
 from __future__ import annotations
 
@@ -46,7 +47,10 @@ def library(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise RuntimeError(f"no CUDA source csrc/{name}.cu")
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -2,15 +2,19 @@
 for Hopper.
 
 Replaces the TPU kernels ``repro/kernels/flash.py``: the forward
-(``flash_attention_fwd`` :75, body ``_flash_fwd_kernel`` :32) and the
+(``flash_attention_fwd`` :75, body ``_flash_fwd_kernel`` :30) and the
 backward (``flash_attention_bwd`` :219, bodies ``_flash_bwd_dq_kernel``
-:151 and ``_flash_bwd_dkv_kernel`` :183). The kernels are
+:132 and ``_flash_bwd_dkv_kernel`` :171). The kernels are
 ``csrc/flash_fwd.cu`` (K4) and ``csrc/flash_bwd.cu`` (K5); their headers
-say what bounds them on an H100 and how the designs meet that. This
-module is their wrapper: it checks what a kernel takes, allocates the
-outputs and launches on PyTorch's current stream. Unlike the TPU kernel
-the forward also returns the logsumexp of each row, from which the
-backward recomputes the probabilities. The plain versions are
+say what bounds them on an H100 and how the designs meet that. Each has
+two routes, chosen in its C launcher: bf16 with hd % 8 == 0, hd <= 256
+and 16-byte-aligned tensors runs on the tensor cores (``wgmma``); f32,
+and bf16 at any other hd, runs the FFMA kernels. ``last_route`` records
+the route of the latest launch of each. This module is their wrapper: it
+checks what a kernel takes, allocates the outputs and launches on
+PyTorch's current stream. Unlike the TPU kernel the forward also returns
+the logsumexp of each row, from which the backward recomputes the
+probabilities. The plain versions are
 ``ref.flash_attention_fwd`` and ``ref.flash_attention_bwd``;
 ``ops.flash_attention_fwd`` / ``ops.flash_attention_bwd`` pick between
 the two by the tensor's device, and ``models.attention.FlashAttention``
@@ -26,6 +30,8 @@ from . import _build
 
 launches = 0  # K4 launches since the last reset (see ops.reset_launches)
 bwd_launches = 0  # K5 launches (one dq and one dk/dv kernel each)
+# the route of the latest launch: "wgmma" (bf16 tensor cores) or "ffma"
+last_route: dict[str, str | None] = {"fwd": None, "bwd": None}
 
 _DTYPES = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_bf16"}
 _BWD_DTYPES = {torch.float32: "flash_bwd_f32",
@@ -54,6 +60,19 @@ def _bwd_fn(name: str):
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _route(lib: str, tensors) -> str:
+    """The route the C launcher of ``lib`` takes for these tensors (its
+    own ``*_bf16_route`` function decides; f32 always runs FFMA)."""
+    if tensors[0].dtype != torch.bfloat16:
+        return "ffma"
+    fn = getattr(_build.library(lib), f"{lib}_bf16_route")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * len(tensors)
+        fn.restype = ctypes.c_int
+    hd = tensors[0].shape[-1]
+    return "wgmma" if fn(hd, *(t.data_ptr() for t in tensors)) else "ffma"
 
 
 def _check_qkv(q, k, v, what: str) -> None:
@@ -96,7 +115,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o, lse
     if skv == 0:
         raise ValueError("flash kernel needs at least one key")
-    if -(-sq // _BQ) > _GRID_Y_MAX or bh > _INT_MAX:
+    tiles = -(-sq // _BQ)
+    # FFMA: q tiles on grid axis y; wgmma: bh x q tiles on grid axis x
+    if tiles > _GRID_Y_MAX or bh * tiles > _INT_MAX:
         raise ValueError(f"flash kernel cannot take BH={bh}, Sq={sq}, "
                          f"Skv={skv}")
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -107,6 +128,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError {err}")
     launches += 1
+    last_route["fwd"] = _route("flash_fwd", (q, k, v, o))
     return o, lse
 
 
@@ -150,7 +172,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq == 0:
         return dq, dk.zero_(), dv.zero_()
     tiles = -(-max(sq, skv) // _BWD_TILE_MIN)
-    if tiles > _GRID_Y_MAX or bh > _INT_MAX:
+    if tiles > _GRID_Y_MAX or bh * tiles > _INT_MAX:
         raise ValueError(f"flash backward kernel cannot take BH={bh}, "
                          f"Sq={sq}, Skv={skv}")
     torch._assert_async(torch.all(lse > NEG_INF / 2))
@@ -165,4 +187,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             f"flash backward kernel launch failed: cudaError {err}")
     bwd_launches += 1
+    last_route["bwd"] = _route("flash_bwd", (q, k, v, do, dq, dk, dv))
     return dq, dk, dv

@@ -23,13 +23,19 @@ GMM_SHAPES = [(16, 4), (100, 25), (1025, 7), (64, 128), (3, 300), (4097, 129)]
 PRECHECK_SHAPES = [(8, 5, 4), (37, 17, 7), (128, 33, 100), (200, 129, 25),
                    (128, 257, 100), (128, 65, 5000), (1, 1, 1), (33, 70, 17)]
 # (BH, Sq, Skv, hd, causal): tests/test_kernels.py's FLASH_SHAPES, then
-# hd in {64, 112, 128, 256} with S off the 64-row tile, Sq != Skv, one row
+# hd in {64, 112, 128, 256} with S off the 64-row tile, Sq != Skv, one row;
+# then the edges of the bf16 tensor-core tiles: S off the 128-row tile (129,
+# 255), Sq != Skv both ways under the causal mask, Sq = 1, hd 8, 40 and 256
 FLASH_SHAPES = [
     (4, 64, 64, 16, True), (2, 48, 80, 32, False), (3, 33, 33, 8, True),
     (1, 128, 128, 64, True), (2, 96, 32, 16, False),
     (3, 100, 100, 64, True), (2, 200, 200, 112, True),
     (2, 130, 257, 112, False), (2, 70, 70, 128, True), (1, 90, 50, 128, True),
     (2, 65, 65, 256, False), (3, 1, 70, 112, False), (8, 1024, 1024, 112, True),
+    (2, 129, 129, 64, True), (2, 255, 129, 40, True), (2, 129, 255, 40, False),
+    (2, 129, 300, 112, True), (2, 300, 129, 64, True), (2, 1, 200, 64, False),
+    (1, 1, 9, 8, False), (2, 255, 255, 256, True), (2, 129, 200, 256, False),
+    (3, 255, 255, 8, False),
 ]
 # (g, q, p, n): tests/test_kernels.py's SSD_SHAPES, then the model's chunk
 # widths (q up to 256, p = 64, n = 64 or 128) and ragged q
@@ -199,6 +205,10 @@ def test_blocked_scan_equals_per_point_on_the_card(cuda):
             assert torch.equal(getattr(states[1], f), getattr(states[bs], f)), f
 
 
+def _route(dtype) -> str:
+    return "wgmma" if dtype == torch.bfloat16 else "ffma"
+
+
 def _flash_inputs(cuda, bh, sq, skv, hd, dtype):
     rng = np.random.default_rng(bh * 1000 + sq + hd)
     return [torch.as_tensor(rng.normal(size=(bh, s, hd)), device=cuda).to(
@@ -214,6 +224,9 @@ def test_flash_fwd_kernel_vs_plain(cuda, bh, sq, skv, hd, causal, dtype):
     o_r, lse_r = ops.flash_attention_fwd(q, k, v, causal=causal, force="ref")
     torch.cuda.synchronize()
     assert flash.launches == before + 1
+    # bf16 runs on the tensor cores (every hd here is a multiple of 8), f32
+    # on the FFMA kernel
+    assert flash.last_route["fwd"] == _route(dtype)
     assert o.dtype == dtype and lse.dtype == torch.float32
     if dtype == torch.float32:
         torch.testing.assert_close(o, o_r, rtol=1e-4, atol=1e-4)
@@ -355,6 +368,7 @@ def test_flash_bwd_kernel_vs_plain(cuda, bh, sq, skv, hd, causal, dtype):
     want = ops.flash_attention_bwd(*args, causal=causal, force="ref")
     torch.cuda.synchronize()
     assert flash.bwd_launches == before + 1
+    assert flash.last_route["bwd"] == _route(dtype)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         # relative to each gradient's largest entry: f32 sums in another
@@ -364,8 +378,9 @@ def test_flash_bwd_kernel_vs_plain(cuda, bh, sq, skv, hd, causal, dtype):
         assert err <= tol * float(w.float().abs().max()), err
 
 
-def test_flash_bwd_kernel_is_deterministic(cuda):
-    args = _flash_bwd_inputs(cuda, 6, 300, 300, 64, True, torch.bfloat16)
+@pytest.mark.parametrize("hd", [64, 112])
+def test_flash_bwd_kernel_is_deterministic(cuda, hd):
+    args = _flash_bwd_inputs(cuda, 6, 300, 300, hd, True, torch.bfloat16)
     a = ops.flash_attention_bwd(*args)
     b = ops.flash_attention_bwd(*args)
     for x, y in zip(a, b):
