@@ -103,9 +103,12 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit)
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit). The card
+# multiplies f32 operands on its tensor cores (TF32, and 3xTF32 at f32
+# accuracy), so the operation part of every f32 kernel's bound takes the
+# TF32 rate: no f32 kernel can beat its own bound.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # dense, tensor cores
 BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
 
 PDIST_SHAPES = [(8, 8, 4), (33, 17, 7), (128, 64, 32), (200, 300, 25),
@@ -125,11 +128,19 @@ FLASH_SHAPES = [(4, 64, 64, 16, True), (2, 48, 80, 32, False),
                 (2, 70, 70, 128, True), (2, 90, 150, 128, False),
                 (2, 255, 129, 40, True), (2, 129, 255, 256, False)]
 # the SASS of the tensor-core routes: flash_fwd must hold wgmma, flash_bwd
-# wgmma or mma.sync
-TENSOR_CORE_SASS = {"flash_fwd": ("HGMMA",), "flash_bwd": ("HGMMA", "HMMA")}
-# (g, q, p, n): tests/test_kernels.py's SSD_SHAPES, then model widths
+# and ssd wgmma or mma.sync
+TENSOR_CORE_SASS = {"flash_fwd": ("HGMMA",), "flash_bwd": ("HGMMA", "HMMA"),
+                    "ssd": ("HGMMA", "HMMA")}
+# (g, q, p, n): tests/test_kernels.py's SSD_SHAPES, then model widths; each
+# takes the per_cell route
 SSD_SHAPES = [(2, 16, 8, 4), (3, 32, 16, 8), (1, 64, 32, 16), (4, 8, 64, 32),
               (5, 256, 64, 64), (3, 256, 64, 128), (7, 100, 64, 64)]
+# (batch * chunks, heads, q): the model's layout, B and C stride-0 head
+# views, which takes the shared_bc route (q = 16 packs four heads a block)
+SSD_MODEL_SHAPES = [(6, 8, 256), (6, 12, 16)]
+# rows of x against itself (K1's sym route): the songs-sim solve's coreset
+# (327 at seed 0) and k * tau
+PDIST_SELF_ROWS = (327, 1408)
 LM_ARCH = "zamba2-7b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 24, 1024, 16  # examples/serving_diverse.py:24
 LM_K, LM_TAU, LM_INTENTS, LM_CAP = 6, 12, 4, 2
@@ -174,7 +185,7 @@ def time_ms(fn, *, warmup: int = 3, reps: int = 20) -> float:
 
 
 def bound_ms(nbytes: float, flops: float,
-             peak: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
+             peak: float = TF32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -395,7 +406,7 @@ def phase_kernels(x_norm, m_slice: int, seed: int) -> float:
     """Each kernel against its plain version; returns K2's max abs error at
     the main path's shape."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, pdist
 
     g = torch.Generator(device="cuda").manual_seed(seed + 7)
     lines, k2_err = [], None
@@ -412,14 +423,43 @@ def phase_kernels(x_norm, m_slice: int, seed: int) -> float:
             else:
                 x = y = data.to(dtype)
             got = ops.pairwise_sqdist(x, y)
+            route = pdist.last_route
             want = ops.pairwise_sqdist(x, y, force="ref")
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+            ok = ok and route == ("full" if data is None else "sym")
             lines.append(dict(kernel="pdist", shape=[n, m, d],
-                              dtype=str(dtype), max_abs_err=err, tol=tol,
+                              dtype=str(dtype), route=route,
+                              max_abs_err=err, tol=tol, ok=ok))
+            check(ok, f"pdist {n}x{m}x{d} {dtype} ({route}): max abs err "
+                      f"{err}")
+    # x against itself (the sym route): D == D^T bit for bit, a zero
+    # diagonal, two calls bit-identical, within the tolerance of the plain
+    # version
+    for m in PDIST_SELF_ROWS:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            x = x_norm[:m].to(dtype)
+            got = ops.pairwise_sqdist(x, x)
+            route, splits = pdist.last_route, pdist.last_splits
+            again = ops.pairwise_sqdist(x, x)
+            want = ops.pairwise_sqdist(x, x, force="ref")
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            sym = bool(torch.equal(got, got.T))
+            diag0 = int(torch.count_nonzero(torch.diagonal(got))) == 0
+            same = bool(torch.equal(got, again))
+            ok = (route == "sym" and sym and diag0 and same
+                  and bool(torch.allclose(got, want, rtol=tol, atol=tol)))
+            lines.append(dict(kernel="pdist", what="x against itself",
+                              shape=[m, m, x.shape[1]], dtype=str(dtype),
+                              route=route, splits=splits, max_abs_err=err,
+                              tol=tol, symmetric_bitwise=sym,
+                              zero_diagonal=diag0, repeat_bitwise=same,
                               ok=ok))
-            check(ok, f"pdist {n}x{m}x{d} {dtype}: max abs err {err}")
+            check(ok, f"pdist self {m}x{x.shape[1]} {dtype}: route {route}, "
+                      f"D == D^T {sym}, zero diagonal {diag0}, repeat "
+                      f"{same}, max abs err {err}")
 
     n_full = x_norm.shape[0]
     for n, d in GMM_SHAPES + [(n_full, x_norm.shape[1])]:
@@ -768,7 +808,7 @@ def _time_pdist(rows, what: str) -> dict:
     """K1, its plain version and the library call on (m, d) rows against
     themselves, as ``coreset_distance_matrix`` calls it."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, pdist, ref
 
     m, d = rows.shape
 
@@ -778,10 +818,12 @@ def _time_pdist(rows, what: str) -> dict:
                            alpha=-2.0)
 
     err = _check_pdist_at(rows, what)
-    b, by = bound_ms(2 * m * d * 4 + m * m * 4,
-                     2 * m * m * d + 4 * m * d + 4 * m * m)
+    # x is y: the rows are read once, and the least work is the upper
+    # triangle's dots (the sym route), the row norms and its epilogue
+    b, by = bound_ms(m * d * rows.element_size() + m * m * 4,
+                     m * (m + 1) * d + 2 * m * d + 2 * m * (m + 1))
     return dict(
-        max_abs_err=err,
+        max_abs_err=err, route=pdist.last_route, splits=pdist.last_splits,
         kernel_ms=time_ms(lambda: ops.pairwise_sqdist(rows, rows)),
         plain_ms=time_ms(lambda: ref.pairwise_sqdist(rows, rows)),
         library_ms=time_ms(library), bound_ms=b, bound_by=by,
@@ -862,13 +904,15 @@ def _check_flash(q, k, v, causal: bool, what: str) -> dict:
     return line
 
 
-def _check_ssd(xbar, loga, B, C, what: str) -> dict:
+def _check_ssd(xbar, loga, B, C, what: str, route: str) -> dict:
     """K6 against its plain version: y and state within 2e-4 of the
-    largest |y| (|state|), the tolerance of the reference's SSD tests."""
+    largest |y| (|state|), the tolerance of the reference's SSD tests; and
+    the route the launch took."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ssd
 
     y, s, _, _ = ops.ssd_intra_chunk(xbar, loga, B, C)
+    got_route = ssd.last_route
     y_r, s_r, _, _ = ops.ssd_intra_chunk(xbar, loga, B, C, force="ref")
     torch.cuda.synchronize()
     errs, oks = [], []
@@ -877,20 +921,22 @@ def _check_ssd(xbar, loga, B, C, what: str) -> dict:
         errs.append(float((got - want).abs().max()))
         oks.append(bool(torch.allclose(got, want, rtol=2e-4,
                                        atol=2e-4 * scale)))
+    oks.append(got_route == route)
     line = dict(kernel="ssd_intra_chunk", what=what,
                 shape=[*xbar.shape[:-2], *xbar.shape[-2:], B.shape[-1]],
-                b_c_shape=list(B.shape),
+                b_c_shape=list(B.shape), route=got_route,
                 max_abs_err=errs[0], state_max_abs_err=errs[1],
                 tol_rel_to_max=2e-4, ok=all(oks))
-    check(all(oks), f"ssd {what} {line['shape']}: max abs err y {errs[0]}, "
-                    f"state {errs[1]}")
+    check(all(oks), f"ssd {what} {line['shape']} ({got_route}, expected "
+                    f"{route}): max abs err y {errs[0]}, state {errs[1]}")
     return line
 
 
 class _Capture:
     """Keeps a copy of the inputs of the first call of each named ``ops``
     function while it is entered (the model looks the op up on ``ops`` at
-    every call); the calls themselves go on as usual."""
+    every call), and of K6's first call at each chunk length q (under
+    ``ssd_intra_chunk@q<q>``); the calls themselves go on as usual."""
 
     NAMES = ("flash_attention_fwd", "flash_attention_bwd", "ssd_intra_chunk")
 
@@ -905,8 +951,14 @@ class _Capture:
 
     def _wrap(self, name, fn):
         def call(*args, **kw):
-            if name not in self.args:
-                self.args[name] = ([a.clone() for a in args], kw)
+            keys = [name]
+            if name == "ssd_intra_chunk":
+                keys.append(f"{name}@q{args[0].shape[-2]}")
+            missing = [key for key in keys if key not in self.args]
+            if missing:
+                saved = ([a.clone() for a in args], kw)
+                for key in missing:
+                    self.args[key] = saved
             return fn(*args, **kw)
         return call
 
@@ -949,7 +1001,7 @@ def _time_flash(q, k, v, heads: int = LM_HEADS) -> dict:
     esz = q.element_size()
     nbytes = 4 * bh * s * hd * esz + bh * s * 4
     flops = 4 * hd * bh * s * (s + 1) // 2  # causal: q.k and p.v, k <= q
-    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else TF32_FLOPS_PER_S
     b, by = bound_ms(nbytes, flops, peak)
     res = dict(
         kernel_ms=time_ms(lambda: flash.flash_attention_fwd(q, k, v, True)),
@@ -980,12 +1032,18 @@ def _time_ssd(xbar, loga, B, C) -> dict:
     n = B.shape[-1]
     cells = lead[0] * lead[1]
     tri = q * (q + 1) // 2
-    # causal C B^T and (C B^T * L) xbar, the decay mask, the state product
-    flops = cells * (tri * (2 * n + 2 * p + 1) + 2 * q * n * p)
+    # B and C shared by the heads: the least work computes the causal
+    # C B^T once per (batch, chunk)
+    gram_cells = lead[0] if B.shape[1] == C.shape[1] == 1 else cells
+    # causal C B^T, (C B^T * L) xbar with the decay mask, the state product
+    flops = (gram_cells * tri * 2 * n
+             + cells * (tri * (2 * p + 1) + 2 * q * n * p))
     nbytes = 4 * (2 * cells * q * p + cells * q + cells * n * p
                   + 2 * lead[0] * q * n)  # B, C: one copy per (b, chunk)
-    b, by = bound_ms(nbytes, flops, FP32_FLOPS_PER_S)
+    b, by = bound_ms(nbytes, flops)
+    ssd.ssd_intra_chunk(xbar, loga, B, C)
     return dict(
+        route=ssd.last_route,
         kernel_ms=time_ms(lambda: ssd.ssd_intra_chunk(xbar, loga, B, C)),
         plain_ms=time_ms(lambda: ref.ssd_intra_chunk(xbar, loga, B, C),
                          warmup=1, reps=5),
@@ -1099,14 +1157,25 @@ def phase_lm(seed: int) -> dict:
         la = -(torch.rand(gg, q, generator=g, device="cuda") * 0.39 + 0.01)
         Bm, Cm = (torch.randn(gg, q, n, generator=g, device="cuda")
                   for _ in range(2))
-        lines.append(_check_ssd(xb, la, Bm, Cm, "test shape"))
+        lines.append(_check_ssd(xb, la, Bm, Cm, "test shape", "per_cell"))
+    for bc, heads, q in SSD_MODEL_SHAPES:
+        # the model's layout: a permuted view of (B * chunks, q, H, P), B
+        # and C (B * chunks, 1, q, N), broadcast over the heads
+        p_, n_ = 64, 64
+        xb = torch.randn(bc, q, heads, p_, generator=g,
+                         device="cuda").permute(0, 2, 1, 3)
+        la = -(torch.rand(bc, q, heads, generator=g, device="cuda") * 0.39
+               + 0.01).permute(0, 2, 1)
+        Bm, Cm = (torch.randn(bc, 1, q, n_, generator=g, device="cuda")
+                  for _ in range(2))
+        lines.append(_check_ssd(xb, la, Bm, Cm, "model layout", "shared_bc"))
     with _Capture() as cap:  # also the warm-up of the serving run
         lm.prefill(params, prompts, cache_len=max_len)
     torch.cuda.synchronize()
     fa, fkw = cap.args["flash_attention_fwd"]
     sa, _ = cap.args["ssd_intra_chunk"]
     lines.append(_check_flash(*fa, fkw["causal"], "first attention layer"))
-    lines.append(_check_ssd(*sa, "first Mamba2 layer"))
+    lines.append(_check_ssd(*sa, "first Mamba2 layer", "shared_bc"))
     emit(dict(phase="lm_kernels", checks=lines))
 
     # (b) serving: the kernel path, then the plain path
@@ -1175,11 +1244,16 @@ def phase_lm(seed: int) -> dict:
     ops.reset_launches()
     seqs = torch.cat([prompts, tok.long()], dim=1)
     t0 = time.perf_counter()
-    hidden, _, _ = lm.forward(params, seqs)
+    with _Capture() as cap_e:  # K6's first call at the embedding's chunk
+        hidden, _, _ = lm.forward(params, seqs)
     emb = hidden.mean(dim=1, dtype=torch.float32)
     del hidden
     torch.cuda.synchronize()
     embed_s = time.perf_counter() - t0
+    ea = [key for key in cap_e.args if key.startswith("ssd_intra_chunk@q")]
+    check(len(ea) == 1, f"embedding forward ran K6 at chunk lengths {ea}")
+    sa_e, _ = cap_e.args[ea[0]]
+    del cap_e
     intents = (np.arange(LM_BATCH) % LM_INTENTS).astype(np.int32)[:, None]
     caps = np.full(LM_INTENTS, LM_CAP, np.int32)
     spec = MatroidSpec("partition", num_categories=LM_INTENTS, gamma=1)
@@ -1223,13 +1297,19 @@ def phase_lm(seed: int) -> dict:
     del caches
     k4 = _time_flash(*fa)
     k6 = _time_ssd(*sa)
+    k6_e_line = _check_ssd(*sa_e, "first Mamba2 layer of the embedding "
+                                  "forward", "shared_bc")
+    k6_e = _time_ssd(*sa_e)
     emit(dict(phase="lm_timing", profiled_prefill=prof_prefill,
               profiled_decode_step=prof_decode, flash_attention_fwd=k4,
-              ssd_intra_chunk=k6))
+              ssd_intra_chunk=k6, ssd_intra_chunk_embedding=k6_e,
+              ssd_embedding_check=k6_e_line))
     lm_launches = {name: serve_launches[name] + select_launches[name]
                    for name in serve_launches}
-    return dict(launches=lm_launches, k4=k4, k6=k6,
-                k4_err=lines[-2]["max_abs_err"], k6_err=lines[-1]["max_abs_err"])
+    return dict(launches=lm_launches, k4=k4, k6=k6, k6_e=k6_e,
+                k6_e_launches=select_launches["ssd_intra_chunk"],
+                k4_err=lines[-2]["max_abs_err"], k6_err=lines[-1]["max_abs_err"],
+                k6_e_err=k6_e_line["max_abs_err"])
 
 
 def _check_flash_bwd(q, k, v, o, lse, do, causal: bool, what: str) -> dict:
@@ -1413,7 +1493,7 @@ def _time_flash_bwd(q, k, v, o, lse, do, heads: int) -> dict:
     nbytes = 8 * bh * s * hd * esz + bh * s * 4
     # S, dP, dv, dq, dk: five products over the causal pairs
     flops = 5 * 2 * hd * bh * s * (s + 1) // 2
-    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else TF32_FLOPS_PER_S
     b, by = bound_ms(nbytes, flops, peak)
     q4, k4, v4 = (t.view(bh // heads, heads, s, hd).detach()
                   .requires_grad_(True) for t in (q, k, v))
@@ -1696,7 +1776,19 @@ def main() -> int:
              launches_per_path=per_path["ssd_intra_chunk"],
              max_abs_err=lm["k6_err"], ms=lm["k6"]["kernel_ms"],
              plain_ms=lm["k6"]["plain_ms"], bound_ms=lm["k6"]["bound_ms"],
-             bound_by=lm["k6"]["bound_by"], library_ms=None),
+             bound_by=lm["k6"]["bound_by"], library_ms=None,
+             shape=lm["k6"]["shape"], kernel_route=lm["k6"]["route"]),
+        # K6 at the embedding forward's chunk (q = 16): its launches are
+        # those of that forward, part of the lm count above
+        dict(name="ssd_intra_chunk_q16", route="cuda",
+             source=f"{csrc}/csrc/ssd.cu",
+             replaces="src/repro/kernels/ssd.py:53",
+             launches=lm["k6_e_launches"],
+             max_abs_err=lm["k6_e_err"], ms=lm["k6_e"]["kernel_ms"],
+             plain_ms=lm["k6_e"]["plain_ms"],
+             bound_ms=lm["k6_e"]["bound_ms"],
+             bound_by=lm["k6_e"]["bound_by"], library_ms=None,
+             shape=lm["k6_e"]["shape"], kernel_route=lm["k6_e"]["route"]),
     ]
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": table})

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the bf16 tensor-core flash-attention
-// kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu).
+// Hopper (sm_90a) building blocks of the tensor-core kernels: the bf16
+// flash-attention kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) and the
+// 3xTF32 SSD kernel (csrc/ssd.cu); csrc/pdist.cu takes the cp.async helpers.
 //
 // Shared-memory tiles. A tile of R rows x hd bf16 columns (hd % 8 == 0,
 // hd <= 256) is kept as NS = ceil(hd / 64) slabs of R rows x 64 columns:
@@ -172,6 +173,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A B in TF32: A 64 x 8 in registers, B 8 x 64 K-major in shared
+// memory (wgmma transposes only 16-bit operands, so a tf32 operand read
+// from shared memory is always K-major). The A fragment of thread t (warp
+// w, lane l), as for mma.m16n8k8.tf32: a[0] at (row 16 w + l / 4, k l % 4),
+// a[1] at row + 8, a[2] and a[3] at k l % 4 + 4. Each register holds a
+// tf32 value in an f32 container (see split_tf32).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HOPPER_D32_REGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : HOPPER_D32_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 #undef HOPPER_D32_REGS
 #undef HOPPER_D32_OUT
 
@@ -189,6 +207,22 @@ __device__ __forceinline__ void pack_a(const float (&d)[32],
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// 3xTF32: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded
+// to nearest (cvt.rna); hi_a hi_b + hi_a lo_b + lo_a hi_b then carries
+// about the precision of an f32 product (the lo_a lo_b term left out is
+// ~2^-22 of it).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 // The 1024-byte-aligned start of the dynamic shared memory (the launch

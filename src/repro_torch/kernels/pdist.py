@@ -7,6 +7,14 @@ its wrapper: it checks what the kernel takes, allocates the output, and
 launches on PyTorch's current stream. The plain version is
 ``ref.pairwise_sqdist``; ``ops.pairwise_sqdist`` picks between the two by
 the tensor's device.
+
+Two routes, chosen by an explicit branch in the C launcher: ``"sym"`` when
+x and y are one tensor (same storage, shape and strides, as
+``core/final_solve.coreset_distance_matrix`` calls it), which computes
+the tiles on and above the diagonal and mirrors them, so D equals its
+transpose bit for bit; ``"full"`` for any other pair. ``last_route`` and
+``last_splits`` (how many blocks share the d axis of a tile) record the
+latest launch.
 """
 from __future__ import annotations
 
@@ -17,25 +25,33 @@ import torch
 from . import _build
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
+last_route: str | None = None  # "sym" or "full"
+last_splits: int | None = None
 
 _DTYPES = {torch.float32: "pdist_f32", torch.bfloat16: "pdist_bf16"}
-_TILE = 64  # BN of csrc/pdist.cu: y rows per block, on grid axis y
-_GRID_Y_MAX = 65535
+_TILE = 64  # rows of an output tile of csrc/pdist.cu
 _INT_MAX = 2**31 - 1
+# (n, m, d, sym, device index) -> (splits, scratch floats) of pdist_plan
+_plans: dict[tuple, tuple[int, int]] = {}
 
 
-def _fn(name: str):
+def _lib():
     lib = _build.library("pdist")
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.pdist_plan.argtypes is None:
+        lib.pdist_plan.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.pdist_plan.restype = ctypes.c_int
+        for name in _DTYPES.values():
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(n, d), (m, d) CUDA tensors, f32 or bf16 -> (n, m) f32 on the card."""
-    global launches
+    global launches, last_route, last_splits
     if not (x.is_cuda and y.is_cuda) or x.device != y.device:
         raise ValueError(
             f"pdist kernel needs both inputs on one CUDA device, got "
@@ -54,14 +70,27 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return out
     if d == 0:
         return out.zero_()
-    if -(-m // _TILE) > _GRID_Y_MAX or max(n, m, d) > _INT_MAX:
+    tiles = -(-n // _TILE) * -(-m // _TILE)
+    if tiles > _INT_MAX or max(n, m, d) > _INT_MAX:
         raise ValueError(f"pdist kernel cannot take shape n={n}, m={m}, d={d}")
+    sym = (x.data_ptr() == y.data_ptr() and x.shape == y.shape
+           and x.stride() == y.stride())
+    lib = _lib()
+    key = (n, m, d, sym, x.device.index)
+    if key not in _plans:
+        need = ctypes.c_longlong(0)
+        splits = lib.pdist_plan(n, m, d, int(sym), x.device.index,
+                                ctypes.byref(need))
+        _plans[key] = (splits, need.value)
+    splits, need = _plans[key]
+    scratch = torch.empty(need, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _fn(_DTYPES[x.dtype])(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d,
-        x.device.index, stream,
+    err = getattr(lib, _DTYPES[x.dtype])(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, m,
+        d, int(sym), x.device.index, stream,
     )
     if err != 0:
         raise RuntimeError(f"pdist kernel launch failed: cudaError {err}")
     launches += 1
+    last_route, last_splits = ("sym" if sym else "full"), splits
     return out

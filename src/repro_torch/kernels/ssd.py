@@ -9,6 +9,12 @@ model's (B, S, H, P) activations and a stride-0 head broadcast of its B
 and C go in without a copy), allocates the outputs and launches on
 PyTorch's current stream. The plain version is ``ref.ssd_intra_chunk``;
 ``ops.ssd_intra_chunk`` picks between the two and adds the decays.
+
+Two routes, chosen by an explicit branch in the C launcher and recorded
+in ``last_route``: ``"shared_bc"`` when B and C have stride 0 along the
+cells' second axis (the model's head broadcast), where C B^T is computed
+once per first-axis index into scratch that this wrapper allocates, and
+``"per_cell"`` for any other B and C.
 """
 from __future__ import annotations
 
@@ -19,19 +25,23 @@ import torch
 from . import _build
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
+last_route: str | None = None  # "shared_bc" or "per_cell"
 
 _P_MAX, _N_MAX = 64, 128
 _GRID_MAX = 2**31 - 1
 
 
-def _fn():
-    fn = _build.library("ssd").ssd_f32
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 15 + [ctypes.c_int,
-                                                     ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.library("ssd")
+    if lib.ssd_f32.argtypes is None:
+        lib.ssd_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.ssd_plan.restype = ctypes.c_int
+        lib.ssd_f32.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                                + [ctypes.c_longlong] * 15
+                                + [ctypes.c_int, ctypes.c_void_p])
+        lib.ssd_f32.restype = ctypes.c_int
+    return lib
 
 
 def _two_lead(t: torch.Tensor, lead: tuple, tail: tuple) -> torch.Tensor:
@@ -47,7 +57,7 @@ def ssd_intra_chunk(xbar: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
     with one or two leading dims (B and C broadcast to xbar's: stride 0 is
     fine) -> (y (..., q, p) f32 laid out like xbar, state (..., n, p) f32
     contiguous)."""
-    global launches
+    global launches, last_route
     dev = xbar.device
     if not (xbar.is_cuda and all(t.device == dev for t in (loga, B, C))):
         raise ValueError(
@@ -95,13 +105,21 @@ def ssd_intra_chunk(xbar: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
     strides = []
     for t in (x2, l2, b2, c2, y2):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
+    lib = _lib()
+    need = ctypes.c_longlong(0)
+    shared = lib.ssd_plan(g1, g2, q, b2.stride(1), c2.stride(1),
+                          ctypes.byref(need))
+    scratch = (torch.empty(need.value, dtype=torch.float32, device=dev)
+               if need.value else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fn()(
+    err = lib.ssd_f32(
         x2.data_ptr(), l2.data_ptr(), b2.data_ptr(), c2.data_ptr(),
-        y2.data_ptr(), state.data_ptr(), g1, g2, q, p, n, *strides,
-        dev.index, stream,
+        y2.data_ptr(), state.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), g1, g2, q, p, n,
+        *strides, dev.index, stream,
     )
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: cudaError {err}")
     launches += 1
+    last_route = "shared_bc" if shared else "per_cell"
     return y, state

@@ -15,10 +15,16 @@ from repro_torch.kernels import flash, gmm_step, ops, pdist, precheck, ssd
 
 pytestmark = pytest.mark.cuda
 
+# then d off the 32-column panel and the split width: d below one panel,
+# d % 4 != 0 (element copies), odd d over several splits
 PDIST_SHAPES = [
     (8, 8, 4), (33, 17, 7), (128, 64, 32), (200, 300, 25), (5, 1000, 3),
     (1, 1, 1), (65, 129, 17), (64, 64, 5000), (327, 327, 5000),
+    (100, 64, 31), (70, 90, 33), (64, 200, 4999), (130, 70, 4100),
 ]
+# (n, d) of x against itself: the sym route
+PDIST_SELF_SHAPES = [(300, 5000), (327, 5000), (1408, 5000), (70, 33),
+                     (65, 20)]
 GMM_SHAPES = [(16, 4), (100, 25), (1025, 7), (64, 128), (3, 300), (4097, 129)]
 PRECHECK_SHAPES = [(8, 5, 4), (37, 17, 7), (128, 33, 100), (200, 129, 25),
                    (128, 257, 100), (128, 65, 5000), (1, 1, 1), (33, 70, 17)]
@@ -42,7 +48,7 @@ FLASH_SHAPES = [
 SSD_SHAPES = [
     (2, 16, 8, 4), (3, 32, 16, 8), (1, 64, 32, 16), (4, 8, 64, 32),
     (5, 256, 64, 64), (3, 256, 64, 128), (7, 100, 64, 64), (2, 1, 16, 8),
-    (9, 16, 64, 64),
+    (9, 16, 64, 64), (5, 33, 48, 100), (4, 20, 6, 10), (3, 300, 64, 72),
 ]
 
 
@@ -65,6 +71,7 @@ def test_pdist_kernel_vs_plain(cuda, n, m, d, dtype):
     want = ops.pairwise_sqdist(x, y, force="ref")
     torch.cuda.synchronize()
     assert pdist.launches == before + 1
+    assert pdist.last_route == "full"
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
@@ -102,15 +109,24 @@ def test_gmm_step_first_index_on_ties(cuda):
     assert int(fi) == 90 and float(fv) == pytest.approx(4.0)
 
 
+@pytest.mark.parametrize("n,d", PDIST_SELF_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_pdist_kernel_self_distance_is_exactly_zero(cuda, dtype):
-    """Norms and dot products share one FFMA order, so d(x, x) = 0 exactly
-    (the plain matmul form leaves cancellation noise there)."""
+def test_pdist_kernel_self_distance_is_exactly_zero(cuda, n, d, dtype):
+    """x against itself takes the sym route: norms and dot products share
+    one FFMA order and one split order, so d(x, x) = 0 exactly (the plain
+    matmul form leaves cancellation noise there); D equals its transpose
+    bit for bit, and two calls give the same bits."""
     rng = np.random.default_rng(5)
-    x = torch.as_tensor(rng.normal(size=(300, 5000)), device=cuda).to(dtype)
+    x = torch.as_tensor(rng.normal(size=(n, d)), device=cuda).to(dtype)
     x = x / x.float().norm(dim=1, keepdim=True).to(dtype)
     d2 = ops.pairwise_sqdist(x, x)
+    assert pdist.last_route == "sym"
     assert torch.count_nonzero(torch.diagonal(d2)) == 0
+    assert torch.equal(d2, d2.T)
+    assert torch.equal(d2, ops.pairwise_sqdist(x, x))
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(d2, ops.pairwise_sqdist(x, x, force="ref"),
+                               rtol=tol, atol=tol)
 
 
 def _check_precheck(x, c, cv):
@@ -272,6 +288,7 @@ def test_ssd_kernel_vs_plain(cuda, g, q, p, n):
     y_r, s_r, dfs_r, td_r = ops.ssd_intra_chunk(xb, la, B, C, force="ref")
     torch.cuda.synchronize()
     assert ssd.launches == before + 1
+    assert ssd.last_route == "per_cell"
     assert y.shape == (g, q, p) and s.shape == (g, n, p)
     _close_to_scale(y, y_r)
     _close_to_scale(s, s_r)
@@ -279,12 +296,15 @@ def test_ssd_kernel_vs_plain(cuda, g, q, p, n):
     torch.testing.assert_close(td, td_r)
 
 
-def test_ssd_kernel_head_broadcast_strided(cuda):
+@pytest.mark.parametrize("Q", [1, 16, 64, 100, 256])
+def test_ssd_kernel_head_broadcast_strided(cuda, Q):
     """The model's layout: cells (batch*chunk, head) as a permuted view of
-    (B, S, H, P), B and C shared by all heads as stride-0 views. No copy
-    per head is made, and y comes back in xbar's layout."""
+    (B, S, H, P), B and C shared by all heads as stride-0 views, which
+    takes the shared_bc route (q <= 32 packs several heads a block). No
+    copy per head is made, y comes back in xbar's layout, and two calls
+    give the same bits."""
     rng = np.random.default_rng(3)
-    Bsz, nc, Q, H, P, N = 2, 3, 64, 12, 64, 64
+    Bsz, nc, H, P, N = 2, 3, 12, 64, 64
     f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
     xbar = f(rng.normal(size=(Bsz * nc, Q, H, P))).permute(0, 2, 1, 3)
     loga = f(-rng.uniform(0.01, 0.4, (Bsz * nc, Q, H))).permute(0, 2, 1)
@@ -294,7 +314,10 @@ def test_ssd_kernel_head_broadcast_strided(cuda):
     before = ssd.launches
     y, s, _, _ = ops.ssd_intra_chunk(xbar, loga, Bm, Cm)
     assert ssd.launches == before + 1
+    assert ssd.last_route == "shared_bc"
     assert y.stride() == xbar.stride()
+    y2, s2, _, _ = ops.ssd_intra_chunk(xbar, loga, Bm, Cm)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
     y_r, s_r, _, _ = ops.ssd_intra_chunk(
         xbar.contiguous(), loga.contiguous(), Bm.contiguous(),
         Cm.contiguous(), force="ref")

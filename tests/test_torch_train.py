@@ -9,10 +9,10 @@ The JAX model draws the weights; they cross to the port through
 within 1e-4 relative L2 per leaf in f32; in bf16 each leaf within 3e-2 of
 the largest entry of the f32 gradient, or within twice the JAX bf16
 gradient's own error (bf16 rounding alone moves a gradient by 2-5%
-here, and the JAX model rounds the attention probabilities to bf16
-before P V, while K4, K5 and their plain versions keep them in f32,
-ROADMAP §3); three steps' losses within 1e-5 and parameters within 1e-4
-(f32).
+here; the JAX model rounds the attention probabilities to bf16 before
+P V, as the bf16 routes of K4 and K5 on the card do, while the plain
+versions that run here keep them in f32, ROADMAP §3); three steps'
+losses within 1e-5 and parameters within 1e-4 (f32).
 """
 import dataclasses
 import os
