@@ -31,14 +31,22 @@ exits non-zero:
                ``block_size=128``): ``stream_coreset`` on the kernel path;
                the same stream through ``ingest_batch(force="ref")`` in
                batches of 16,384 rows must give the same state bit for bit;
-               blocked must equal per-point on a 2,048-point prefix; K3 at
-               the main path's shape against the final centers; then
-               ``solve_dmmc(setting="streaming")`` with launch counts set
-               to 0 before and read after, whose coreset must be the
-               scan's snapshot.
+               blocked must equal per-point on a 2,048-point prefix; a
+               64-block window under the profiler must show at most 5
+               CUDA kernels a block (printed per block: kernels, copies,
+               K3 launches, replays, recomputes); K3's stats route at the
+               main path's shape against the final centers, and its fused
+               route (the scan's) against its plain version on 8 blocks
+               after the mid-pass state and 8 against the final one (z
+               equal on quiet rows, a flag differing only near a
+               boundary); then ``solve_dmmc(setting="streaming")`` with
+               launch counts set to 0 before and read after, whose coreset
+               must be the scan's snapshot.
 7. ``timing``  each kernel, its plain version and (K1) a library call, at
                the inputs the main path gave it, with the least time the
-               card could take for the same work; the GMM loop alone.
+               card could take for the same work; K3's two routes with
+               their device time per launch and cluster shape; the GMM
+               loop alone.
 8. ``lm``      the serving path of the LM stack at zamba2-7b's full width
                (81 Mamba2 layers, one shared attention block applied 13
                times, bf16, random weights from ``LM.init`` at ``--seed``):
@@ -191,12 +199,14 @@ def bound_ms(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, count: str = "") -> dict:
     """Run ``fn`` once under ``torch.profiler`` and read the card's kernel
     events: their summed time, the span from the first kernel's start to
     the last one's end, the host wall time of the window (the profiler
-    adds host overhead to it), the busy share of the span, and the
-    kernels with the most time."""
+    adds host overhead to it), the busy share of the span, the kernels
+    with the most time, and how many of the device events are copies or
+    fills (``Memcpy``/``Memset``), how many kernels, and (``count``) how
+    many events have that string in their name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -221,10 +231,15 @@ def device_profile(fn) -> dict:
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    copies = sum(v[1] for n, v in by_name.items()
+                 if n.startswith(("Memcpy", "Memset")))
     return dict(wall_ms=wall * 1e3, device_ms=busy, span_ms=span,
                 busy_share_of_span=busy / span if span else None,
                 busy_share_of_wall=busy / (wall * 1e3),
-                kernels=len(kernels),
+                kernels=len(kernels), copies=copies,
+                launches=len(kernels) - copies,
+                counted=(sum(v[1] for n, v in by_name.items() if count in n)
+                         if count else None),
                 top=[dict(name=n[:80], ms=v[0], count=v[1]) for n, v in top])
 
 
@@ -377,6 +392,62 @@ def _check_precheck(x, c, cv, what: str, *, exact_ties: bool = False) -> dict:
                 max_err_over_margin=over_margin,
                 z_checked=int(safe_z.sum()), pair_checked=int(safe_pair.sum()),
                 tol=1e-4, ok=True)
+
+
+def _check_block_precheck(xb, st, what: str) -> dict:
+    """K3's fused route against ``ref.block_precheck`` on the plain path,
+    for a block against a scan state, with that state's thresholds (the
+    radius variant's thr = 2 R, and the diameter flags at x1 and 2 R):
+    z equal on every row where both flags are off; a flag that differs
+    only where the plain path's comparison lies within 2 margins (the
+    third center) or 2 SLACK (the refined comparisons) of its boundary;
+    two calls bit-identical."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    R = float(st.R)
+    thr = r2 = float(np.float32(2.0) * np.float32(R))
+    out = dict(what=what, shape=[xb.shape[0], st.centers.shape[0],
+                                 xb.shape[1]],
+               centers=int(st.cvalid.sum()))
+    for variant, x1, r2_ in (("radius", None, None),
+                             ("diameter", st.x1, r2)):
+        got = ops.block_precheck(xb, st.centers, st.cvalid, x1, thr, r2_)
+        again = ops.block_precheck(xb, st.centers, st.cvalid, x1, thr, r2_)
+        plain = ops.block_precheck(xb, st.centers, st.cvalid, x1, thr, r2_,
+                                   force="ref")
+        torch.cuda.synchronize()
+        check(torch.equal(got, again),
+              f"fused precheck {what} ({variant}): two calls differ")
+        z, f = got[0], got[1] != 0
+        z_r, f_r = plain[0], plain[1] != 0
+        dmin_e, z1, _, z2, third_e, margin = ops.center_precheck(
+            xb, st.centers, st.cvalid, force="ref")
+        cv, c = st.cvalid, st.centers
+        d1e = torch.where(cv[z1.long()], ref.point_dist(c[z1.long()], xb),
+                          ref._F32_MAX)
+        d2e = torch.where(cv[z2.long()], ref.point_dist(c[z2.long()], xb),
+                          ref._F32_MAX)
+        dmin = torch.minimum(d1e, d2e)
+        both_off = ~f & ~f_r
+        check(torch.equal(z[both_off], z_r[both_off]),
+              f"fused precheck {what} ({variant}): z differs on a quiet row")
+        slack = 2 * ref.SLACK
+        near = (((third_e - dmin_e) - 2 * margin).abs() <= 2 * margin) | (
+            (d1e - d2e).abs() <= slack * dmin) | (
+            (dmin - thr).abs() <= slack * thr)
+        if x1 is not None:
+            d1 = ref.point_dist(xb, x1[None, :])
+            near |= (d1 - r2).abs() <= slack * r2
+        differ = f != f_r
+        check(bool(torch.all(near[differ])),
+              f"fused precheck {what} ({variant}): a flag differs away "
+              f"from every boundary")
+        out[variant] = dict(flags=int(f.sum()), plain_flags=int(f_r.sum()),
+                            differing=int(differ.sum()),
+                            z_checked=int(both_off.sum()))
+    return out
 
 
 def _precheck_cases(g):
@@ -662,7 +733,7 @@ def phase_stream(points, x_norm, cats, caps, spec, k: int, tau: int) -> dict:
     )
     from repro_torch.core import streaming
     from repro_torch.core.solve import _final_solve
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, precheck
 
     n, d = x_norm.shape
     valid = np.ones(n, bool)
@@ -684,15 +755,19 @@ def phase_stream(points, x_norm, cats, caps, spec, k: int, tau: int) -> dict:
     check(launches_a["gmm_update"] == 0, "K2 launched on the streaming path")
     fp_a = epoch_fingerprint(st_a)
 
-    # B: the plain path, resumed batch by batch as the serving runtime does
+    # B: the plain path, resumed batch by batch as the serving runtime does;
+    # the state after the batch that crosses n / 2 is kept (mid-pass)
     t0 = time.perf_counter()
     st_b = init_stream_state(d, cats.shape[1], spec, k, tau, device="cuda")
+    st_mid = None
     for off in range(0, n, INGEST_BATCH):
         end = min(n, off + INGEST_BATCH)
         st_b = ingest_batch(st_b, x_norm[off:end], cats[off:end],
                             valid[off:end], spec, caps, k, tau,
                             base_index=off, block_size=BLOCK, force="ref")
         fp_b = epoch_fingerprint(st_b)
+        if st_mid is None and end >= n // 2:
+            st_mid, mid_end = st_b, end
     torch.cuda.synchronize()
     plain_stream_s = time.perf_counter() - t0
     _assert_states_equal(st_a, st_b, "kernel pass vs plain batched resume")
@@ -711,12 +786,23 @@ def phase_stream(points, x_norm, cats, caps, spec, k: int, tau: int) -> dict:
     _assert_states_equal(st_pp, st_bl, f"blocked vs per-point, {PREFIX} pts")
 
     # a steady-state window on the card: 64 blocks resumed into a copy of
-    # the final state, under the profiler
+    # the final state, under the profiler; a block should cost one K3
+    # launch and one copy to the host
     off = (n // 2) // BLOCK * BLOCK
+    before = streaming.scan_counts()
     window = device_profile(lambda: ingest_batch(
         st_a, x_norm[off:off + 64 * BLOCK], cats[off:off + 64 * BLOCK],
         valid[off:off + 64 * BLOCK], spec, caps, k, tau, base_index=off,
-        block_size=BLOCK))
+        block_size=BLOCK), count="precheck")
+    window_counts = {key: v - before[key]
+                     for key, v in streaming.scan_counts().items()}
+    per_block = dict(device_events=window["kernels"] / 64,
+                     kernels=window["launches"] / 64,
+                     copies=window["copies"] / 64,
+                     k3_launches=window["counted"] / 64,
+                     scan_counts=window_counts)
+    check(per_block["kernels"] <= 5,
+          f"{per_block['kernels']} CUDA kernels a block in the window")
 
     # K3 at the main path's shape: stream blocks against the final centers
     k3_lines = [
@@ -724,6 +810,16 @@ def phase_stream(points, x_norm, cats, caps, spec, k: int, tau: int) -> dict:
                         st_a.cvalid, f"songs-sim block {b}, final centers")
         for b in np.linspace(0, blocks - 2, 8).astype(int)
     ]
+    # K3's fused route (the scan's) against its plain version on 8 blocks
+    # after the mid-pass state and 8 of the whole stream against the final
+    # one, with that state's thresholds, radius and diameter flags
+    fused_lines = []
+    for st_x, lo, what in ((st_mid, mid_end, "mid-pass"),
+                           (st_a, 0, "final")):
+        for b in np.linspace(lo // BLOCK, blocks - 2, 8).astype(int):
+            fused_lines.append(_check_block_precheck(
+                x_norm[b * BLOCK:(b + 1) * BLOCK], st_x,
+                f"songs-sim block {b}, {what} centers"))
 
     # the streaming solve, with launch counts read around it
     torch.cuda.synchronize()
@@ -768,39 +864,70 @@ def phase_stream(points, x_norm, cats, caps, spec, k: int, tau: int) -> dict:
         total_s=sol.timings["total_s"], coreset_size=sol.coreset_size,
         diversity=sol.diversity, solve_peak_device_bytes=solve_peak,
         launches=launches, pdist_max_abs_err_at_coreset=k1_err,
-        profiled_window_64_blocks=window, k3_main_path=k3_lines,
+        profiled_window_64_blocks=window, window_per_block=per_block,
+        k3_cluster=precheck.last_plan, k3_main_path=k3_lines,
+        k3_fused_main_path=fused_lines,
     ))
     return dict(st=st_a, launches=launches,
                 k3_err=max(line["max_abs_err"] for line in k3_lines))
 
 
 def _time_precheck(x_norm, st) -> dict:
-    """K3 and its plain version on a block of the stream against the scan's
-    final center buffer, (128, 65, 5000) on the main path."""
+    """K3's two routes and their plain versions on a block of the stream
+    against the scan's final center buffer, (128, 65, 5000) on the main
+    path: (b) the fused block precheck, which the scan launches, with the
+    final state's thresholds (radius variant); (a) the stats route, the
+    TPU kernel's function. Bounds count the valid centers only: the kernel
+    reads no invalid row."""
     from repro_torch.kernels import ops, precheck, ref
 
     xb = x_norm[:BLOCK]
     c, cv = st.centers, st.cvalid
     B, d = xb.shape
     T = c.shape[0]
-    b, by = bound_ms((B * d + T * d) * 4 + T + 5 * B * 4,
-                     2 * B * T * d + 2 * (B + T) * d + 6 * B * T)
-    def kernel():
+    tv = int(cv.sum())
+    thr = 2.0 * float(st.R)
+    reads = (B * d + tv * d) * 4 + T
+    dots = 2 * B * tv * d + 2 * (B + tv) * d
+    b_a, by_a = bound_ms(reads + 5 * B * 4, dots + 6 * B * tv)
+    # the fused route also refines two candidates (a difference and an
+    # FMA a column) and writes (2, B) int32
+    b_b, by_b = bound_ms(reads + 2 * B * 4, dots + 6 * B * tv + 6 * B * d)
+
+    def stats():
         return precheck.center_precheck_stats(xb, c, cv)
 
-    def launches20():
-        for _ in range(20):
-            kernel()
+    def fused():
+        return precheck.block_precheck(xb, c, cv, None, thr,
+                                       ref.SLACK * thr, 0.0, 0.0)
 
-    prof = device_profile(launches20)
+    def device_us(fn) -> tuple[float, dict]:
+        prof = device_profile(lambda: [fn() for _ in range(20)],
+                              count="precheck")
+        us = (None if prof["device_ms"] is None
+              else prof["device_ms"] / 20 * 1e3)
+        return us, prof
+
+    us_a, prof_a = device_us(stats)
+    us_b, prof_b = device_us(fused)
     return dict(
-        kernel_ms=time_ms(kernel),
-        plain_ms=time_ms(lambda: ref.center_precheck_matmul(xb, c, cv)),
-        op_with_margin_ms=time_ms(lambda: ops.center_precheck(xb, c, cv)),
-        device_ms_per_launch=(None if prof["device_ms"] is None
-                              else prof["device_ms"] / 20),
-        profile_20_launches=prof,
-        library_ms=None, bound_ms=b, bound_by=by, shape=[B, T, d],
+        kernel_ms=time_ms(fused),
+        plain_ms=time_ms(lambda: ops.block_precheck(xb, c, cv, None, thr,
+                                                    None, force="ref")),
+        op_ms=time_ms(lambda: ops.block_precheck(xb, c, cv, None, thr,
+                                                 None)),
+        device_us_per_launch=us_b, launches_per_call=prof_b["counted"] / 20,
+        profile_20_launches=prof_b, bound_ms=b_b, bound_by=by_b,
+        library_ms=None,
+        stats_route=dict(
+            kernel_ms=time_ms(stats),
+            plain_ms=time_ms(lambda: ref.center_precheck_matmul(xb, c, cv)),
+            op_with_margin_ms=time_ms(lambda: ops.center_precheck(xb, c,
+                                                                  cv)),
+            device_us_per_launch=us_a,
+            launches_per_call=prof_a["counted"] / 20,
+            profile_20_launches=prof_a, bound_ms=b_a, bound_by=by_a),
+        cluster=precheck.last_plan, shape=[B, T, d], valid_centers=tv,
     )
 
 
@@ -1742,6 +1869,8 @@ def main() -> int:
              plain_ms=times["gmm_step"]["plain_ms"],
              bound_ms=times["gmm_step"]["bound_ms"],
              bound_by=times["gmm_step"]["bound_by"], library_ms=None),
+        # K3 as the scan launches it (the fused route); the stats route,
+        # the TPU kernel's own function, beside it
         dict(name="center_precheck", route="cuda",
              source=f"{csrc}/csrc/precheck.cu",
              replaces="src/repro/kernels/precheck.py:92",
@@ -1749,7 +1878,11 @@ def main() -> int:
              launches_per_path=per_path["center_precheck"],
              max_abs_err=stream["k3_err"], ms=k3["kernel_ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
-             bound_by=k3["bound_by"], library_ms=None),
+             bound_by=k3["bound_by"], library_ms=None,
+             kernel_route="fused", device_us=k3["device_us_per_launch"],
+             stats_route={key: k3["stats_route"][key] for key in (
+                 "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                 "device_us_per_launch")}),
         dict(name="flash_attention_fwd", route="cuda",
              source=f"{csrc}/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash.py:75",

@@ -19,12 +19,14 @@ How the JAX control flow became PyTorch:
   copies of the small integer buffers (``cvalid``, ``dv``, ``dc``, ``ds``)
   and of the scalars (``R`` as a numpy float32, ``n_seen``, ``overflow``),
   which one ingest call reads at entry and writes back at exit.
-- The scan is blocked (``block_size`` points per step). Each block costs
-  one K3 launch (``kernels.ops.center_precheck``), an exact refinement of
-  the two candidate centers, the HANDLE count tables (host) and one host
-  sync; only active points replay the per-point step, and the precheck is
-  recomputed only after a replay that changed state (the ``dirty`` rule).
-  ``block_size=1`` is the per-point scan; both give the same state.
+- The scan is blocked (``block_size`` points per step). On the card a
+  block costs one K3 launch (``kernels.ops.block_precheck``: the
+  distances, the exact refinement of the two candidate centers and the
+  replay flags in one kernel), one device-to-host copy of its (2, B)
+  result, and the HANDLE count tables (host, numpy); only active points
+  replay the per-point step, and the precheck is recomputed only after a
+  replay that changed state (the ``dirty`` rule). ``block_size=1`` is the
+  per-point scan; both give the same state.
 - The reference has two per-point steps: the branchless masked one, which
   exists so that ``vmap``/``shard_map`` lanes skip branches, and the
   cond-ladder ``reference`` one. On a single placement in eager PyTorch
@@ -35,12 +37,12 @@ How the JAX control flow became PyTorch:
   ascending (center, slot) order; HANDLE writes only to kept centers, so
   that list is fixed before the loop.
 - Out-of-range gathers are clipped explicitly where JAX clamps them.
-- On the card, PyTorch's reduction order depends on a tensor's shape, so
-  the block's exact refinement ((B, d) rows) and the per-point step
-  ((T, d) rows) may differ in the last bits. The block precheck therefore
+- The block's exact refinement (in the kernel, or torch's (B, d) rows on
+  the plain path) and the per-point step ((T, d) rows) sum in other
+  orders and may differ in the last bits. The block precheck therefore
   also sends to the replay any point whose refined comparison lies within
-  a relative ``_SLACK`` of a decision boundary; a replay decides exactly,
-  so this only adds replays.
+  a relative ``kernels.ref.SLACK`` of a decision boundary; a replay
+  decides exactly, so this only adds replays.
 
 Not ported yet (ROADMAP step 7): the sharded drives
 (``init_sharded_states``, ``ingest_batch_sharded*``, ``resolve_placement``,
@@ -56,12 +58,12 @@ import torch
 
 from ..device import CUDA, DeviceLike, resolve_device
 from ..kernels import ops as _ops
+from ..kernels.ref import point_dist as _point_dist
 from .coreset import Coreset
 from .matroid import MatroidSpec
 from .solvers.matching import greedy_matching_slots
 
 _F32_MAX = float(torch.finfo(torch.float32).max)
-_SLACK = 2.0 ** -16  # relative band around a refined decision boundary
 _JIT_KINDS = ("uniform", "partition", "transversal")
 
 STEP_IMPLS = ("branchless", "reference")
@@ -101,10 +103,6 @@ def _dists_to_centers(x, centers, cvalid):
     diff = centers - x[None, :]
     d = torch.sqrt(torch.clamp_min(torch.sum(diff * diff, dim=-1), 0.0))
     return torch.where(cvalid, d, _F32_MAX)
-
-
-def _point_dist(x, y):
-    return torch.sqrt(torch.clamp_min(torch.sum((x - y) ** 2, dim=-1), 0.0))
 
 
 def _clamped(i: int, n: int) -> int:
@@ -436,26 +434,16 @@ class _Scan:
         current state (reference ``_block_precheck``). Returns host arrays
         (active bool[B], forced int[B]): an inactive valid point's whole
         effect is ``n_seen += 1`` and ``overflow += forced``."""
-        st, cv = self.st, self.cvalid_dev()
-        dmin_e, z1, _second, z2, third_e, margin = _ops.center_precheck(
-            xb, st.centers, cv, force=self.force, device=self.dev)
-        z1, z2 = z1.long(), z2.long()
-        d1e = torch.where(cv[z1], _point_dist(st.centers[z1], xb), _F32_MAX)
-        d2e = torch.where(cv[z2], _point_dist(st.centers[z2], xb), _F32_MAX)
-        z = torch.where(d2e < d1e, z2, z1)
-        dmin = torch.minimum(d1e, d2e)
-        thr = float(self._thr_new())
-        # replay: an exact candidate tie, a third center within the
-        # kernel's margin, the open threshold; and the rounding band
-        flags = ((d1e == d2e) | ((third_e - dmin_e) <= 2.0 * margin)
-                 | (dmin > thr)
-                 | ((d1e - d2e).abs() <= _SLACK * dmin)
-                 | ((dmin - thr).abs() <= _SLACK * thr))
+        st = self.st
+        x1 = r2 = None
         if self.diameter:
-            r2 = float(np.float32(2.0) * self.R)
-            d1 = _point_dist(xb, st.x1[None, :])
-            flags |= (d1 > r2) | ((d1 - r2).abs() <= _SLACK * r2)
-        z, flags = torch.stack((z, flags.long())).cpu().numpy()
+            x1, r2 = st.x1, float(np.float32(2.0) * self.R)
+        # replay: an exact candidate tie, a third center within the
+        # precheck's margin, the open threshold (and the R update); and the
+        # rounding band (kernels.ref.block_precheck)
+        z, flags = _ops.block_precheck(
+            xb, st.centers, self.cvalid_dev(), x1, float(self._thr_new()),
+            r2, force=self.force, device=self.dev).cpu().numpy()
         flags = flags.astype(bool)
 
         k, h, tab = self.k, self.h, self._count_tables()
@@ -578,7 +566,7 @@ def ingest_batch_donated(
     gives the state of one pass, bit for bit. ``block_size > 1`` is the
     blocked scan, the same state as ``block_size=1``. Points run on the
     state's device; ``force`` picks the precheck's path
-    (``ops.center_precheck``: None, "ref" or "exact"), which changes no
+    (``ops.block_precheck``: None, "ref" or "exact"), which changes no
     decision.
     """
     n = int(points.shape[0])

@@ -4,7 +4,9 @@ Reference: ``repro/kernels/ops.py`` (``pairwise_sqdist`` :40,
 ``pairwise_dist`` :48, ``_pdist_e2`` :52, ``center_precheck`` :67,
 ``gmm_update`` :117, ``ssd_intra_chunk`` :127, ``flash_attention_fwd``
 :144); ``flash_attention_bwd`` is ``repro/kernels/flash.py:219``, which
-the reference's ops never exposes.
+the reference's ops never exposes; ``block_precheck`` is the device half
+of ``repro/core/streaming.py:_block_precheck`` (:732), which the
+reference leaves to XLA's fusion around its precheck kernel.
 
 Dispatch: inputs are first moved to ``device`` (CUDA unless the caller asks
 for the CPU). A CPU tensor runs the plain version in ``ref.py``; a CUDA
@@ -148,6 +150,48 @@ def center_precheck(block, centers, cvalid, *, force: Optional[str] = None,
     e2 = _pdist_e2(block, centers, cvalid, per_row=True)
     margin = e2 / torch.maximum(stats[0], torch.sqrt(e2))
     return (*stats, margin)
+
+
+def block_precheck(xb, centers, cvalid, x1, thr: float, r2, *,
+                   force: Optional[str] = None, device: DeviceLike = CUDA):
+    """The streaming scan's block precheck (K3's fused route): which rows
+    of a block must replay the exact per-point step, and each row's
+    nearest center.
+
+    (B, d) points, (T, d) centers, (T,) bool valid mask, the open
+    threshold ``thr`` and, for the diameter variant, the first stream
+    point ``x1`` (d,) and ``r2`` = 2 R (both None for the radius variant)
+    -> one (2, B) int32 tensor, the kernel's own output: z, then the flag
+    as 0 or 1 (one copy takes both to the host).
+
+    Paths: by default the kernel for a CUDA tensor (one launch, counted
+    under ``center_precheck``) and ``ref.block_precheck`` over
+    ``center_precheck``'s plain matmul form for a CPU tensor; ``force=
+    "ref"`` or ``"exact"`` run ``ref.block_precheck`` over that path of
+    ``center_precheck`` on any device. The kernel sums in other orders
+    than torch, so its flags may differ from the plain path's within the
+    margin and the ``ref.SLACK`` band; a flag only decides a replay, and
+    the replay is exact, so every path gives the same scan state.
+    """
+    if force not in (None, "ref", "exact"):
+        raise ValueError(
+            f"unknown force={force!r}; expected None, 'ref' or 'exact'")
+    if (x1 is None) != (r2 is None):
+        raise ValueError("x1 and r2 go together (the diameter variant)")
+    dev = resolve_device(device)
+    xb, centers, cvalid = (
+        torch.as_tensor(t, device=dev) for t in (xb, centers, cvalid)
+    )
+    if x1 is not None:
+        x1 = torch.as_tensor(x1, device=dev)
+    if force is None and not _use_ref(xb, None):
+        _no_silent_detach("block_precheck", xb, centers)
+        return _precheck.block_precheck(
+            xb, centers, cvalid, x1, thr, _ref.SLACK * thr,
+            0.0 if r2 is None else r2, 0.0 if r2 is None else _ref.SLACK * r2)
+    stats = center_precheck(xb, centers, cvalid, force=force, device=dev)
+    z, flags = _ref.block_precheck(xb, centers, cvalid, x1, thr, r2, stats)
+    return torch.stack((z, flags.to(torch.int32)))
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,

@@ -3,10 +3,12 @@
 Reference: ``repro/kernels/ref.py`` (``pairwise_sqdist``, ``gmm_update``,
 the precheck oracles ``_nearest_stats`` :31, ``center_precheck`` :59,
 ``center_precheck_matmul`` :79, ``ssd_intra_chunk`` :132,
-``ssd_reference_scan`` :162 and ``flash_attention_fwd`` :196), and the
+``ssd_reference_scan`` :162 and ``flash_attention_fwd`` :196), the
 backward of ``repro/kernels/flash.py`` (``flash_attention_bwd`` :219),
 which has no jnp oracle there (its test differentiates the dense
-formula). These are
+formula), and the block precheck that the reference jits around its
+precheck kernel (``repro/core/streaming.py:_block_precheck`` :732, up to
+its count tables). These are
 the CPU path of ``ops`` and the oracle that the CUDA/Triton kernels are
 held against on the card (``force="ref"``).
 """
@@ -115,8 +117,58 @@ def center_precheck_matmul(
                                   cvalid))
 
 
+SLACK = 2.0 ** -16  # relative band around a refined decision boundary
+
+
+def point_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The per-point distance of the streaming scan: sqrt(max(sum((x -
+    y)^2), 0)) over the last axis."""
+    return torch.sqrt(torch.clamp_min(torch.sum((x - y) ** 2, dim=-1), 0.0))
+
+
+def block_precheck(
+    block: torch.Tensor,  # (B, d)
+    centers: torch.Tensor,  # (T, d)
+    cvalid: torch.Tensor,  # (T,) bool
+    x1,  # (d,) first stream point (diameter variant), or None (radius)
+    thr: float,  # the open threshold
+    r2,  # 2 R (diameter variant), or None
+    stats,  # ops.center_precheck(block, centers, cvalid) on any path
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device half of the streaming scan's block precheck (reference
+    ``repro/core/streaming.py:_block_precheck``), the plain version of K3's
+    fused route. Returns (z int32 (B,), flags bool (B,)): each row's
+    nearest center and whether the exact per-point step must replay it.
+
+    The two candidates of the precheck are refined with the per-point
+    arithmetic; a row replays on an exact candidate tie, a third center
+    within twice the precheck's margin, the open threshold (dmin > thr)
+    and, for the diameter variant, the R-update trigger (d(x, x1) > r2).
+    On the card the refinement's (B, d) reductions and the per-point
+    step's (T, d) ones may differ in the last bits, so a row within a
+    relative ``SLACK`` of any of those boundaries replays too: a replay
+    decides exactly, so this only adds replays."""
+    dmin_e, z1, _second, z2, third_e, margin = stats
+    z1, z2 = z1.long(), z2.long()
+    d1e = torch.where(cvalid[z1], point_dist(centers[z1], block), _F32_MAX)
+    d2e = torch.where(cvalid[z2], point_dist(centers[z2], block), _F32_MAX)
+    z = torch.where(d2e < d1e, z2, z1)
+    dmin = torch.minimum(d1e, d2e)
+    flags = ((d1e == d2e) | ((third_e - dmin_e) <= 2.0 * margin)
+             | (dmin > thr)
+             | ((d1e - d2e).abs() <= SLACK * dmin)
+             | ((dmin - thr).abs() <= SLACK * thr))
+    if x1 is not None:
+        d1 = point_dist(block, x1[None, :])
+        flags |= (d1 > r2) | ((d1 - r2).abs() <= SLACK * r2)
+    return z.to(torch.int32), flags
+
+
 NEG_INF = -1e30
 _CHUNK_ELEMS = 2**28  # f32 elements of one temporary of the chunked oracles
+
+
+BF16_P_TILE = 64  # kv rows a step of K4's tensor-core route
 
 
 def flash_attention_fwd(
@@ -124,6 +176,7 @@ def flash_attention_fwd(
     k: torch.Tensor,  # (BH, Skv, hd)
     v: torch.Tensor,  # (BH, Skv, hd)
     causal: bool = True,
+    bf16_p: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense-softmax attention, the plain version of K4. Returns (o in q's
     dtype, lse (BH, Sq) f32).
@@ -133,6 +186,12 @@ def flash_attention_fwd(
     ``repro/models/attention.py:69-70``'s: m + log(max(l, 1e-30)) where l > 0,
     else -1e30. q rows are walked in chunks so that one (BH, rows, Skv) f32
     score block stays near 1 GB; a chunk changes no row's formula.
+
+    ``bf16_p``: round P to bf16 before P V as K4's tensor-core route does
+    (the JAX model does too, ``repro/models/attention.py:56-58``): an
+    online softmax over 64-key tiles, P = exp(s - m) against the running
+    max of its tile, l and the product summed in f32. Off by default: the
+    Pallas kernel keeps P in f32.
     """
     bh, sq, hd = q.shape
     skv = k.shape[1]
@@ -151,15 +210,42 @@ def flash_attention_fwd(
             qpos = torch.arange(r0, r1, device=q.device)
             s = torch.where((qpos[:, None] >= kpos[None, :])[None], s,
                             NEG_INF)
-        m = torch.amax(s, dim=-1, keepdim=True)
-        p = torch.exp(s - m)
+        if bf16_p:
+            m, l, acc = _online_softmax_bf16_p(s, vf)
+        else:
+            m = torch.amax(s, dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            l = torch.sum(p, dim=-1, keepdim=True)
+            acc = torch.einsum("bqk,bkh->bqh", p, vf)
+            del p
         del s
-        l = torch.sum(p, dim=-1, keepdim=True)
-        o[:, r0:r1] = (torch.einsum("bqk,bkh->bqh", p, vf)
-                       / torch.clamp_min(l, 1e-30)).to(q.dtype)
+        o[:, r0:r1] = (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
         lse[:, r0:r1] = torch.where(
             l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), NEG_INF)[..., 0]
     return o, lse
+
+
+def _online_softmax_bf16_p(s, vf):
+    """(m, l, P V) of scores s (BH, rows, Skv) over 64-key tiles, P
+    rounded to bf16 against each tile's running max (K4's tensor-core
+    arithmetic)."""
+    bh, rows, skv = s.shape
+    m = torch.full((bh, rows, 1), NEG_INF, dtype=torch.float32,
+                   device=s.device)
+    l = torch.zeros((bh, rows, 1), dtype=torch.float32, device=s.device)
+    acc = torch.zeros((bh, rows, vf.shape[-1]), dtype=torch.float32,
+                      device=s.device)
+    for k0 in range(0, skv, BF16_P_TILE):
+        st = s[:, :, k0:k0 + BF16_P_TILE]
+        m_new = torch.maximum(m, torch.amax(st, dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * corr + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum(
+            "bqk,bkh->bqh", p.to(torch.bfloat16).float(),
+            vf[:, k0:k0 + BF16_P_TILE])
+        m = m_new
+    return m, l, acc
 
 
 def flash_attention_bwd(
@@ -170,6 +256,7 @@ def flash_attention_bwd(
     lse: torch.Tensor,  # (BH, Sq) f32
     do: torch.Tensor,  # (BH, Sq, hd)
     causal: bool = True,
+    bf16_p: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense-recompute backward of attention, the plain version of K5.
     Returns (dq, dk, dv) in the inputs' dtypes.
@@ -180,6 +267,10 @@ def flash_attention_bwd(
     all in f32. q rows are walked in chunks as in ``flash_attention_fwd``,
     so one (BH, rows, Skv) f32 block stays near 1 GB; dk and dv sum the
     chunks in f32.
+
+    ``bf16_p``: round P and dS to bf16 as the operands of dv = P^T do,
+    dq = dS k and dk = dS^T q, as K5's tensor-core route does (the sums
+    stay f32). Off by default: the Pallas kernels keep P and dS in f32.
     """
     bh, sq, hd = q.shape
     skv = k.shape[1]
@@ -204,10 +295,14 @@ def flash_attention_bwd(
                             NEG_INF)
         p = torch.exp(s - lse[:, r0:r1, None].to(f32))
         del s
-        dv += torch.einsum("bqk,bqh->bkh", p, doc)
         dp = torch.einsum("bqh,bkh->bqk", doc, vf)
         ds = p * (dp - dsum[:, r0:r1, None]) * scale
-        del p, dp
+        del dp
+        if bf16_p:
+            p = p.to(torch.bfloat16).to(f32)
+            ds = ds.to(torch.bfloat16).to(f32)
+        dv += torch.einsum("bqk,bqh->bkh", p, doc)
+        del p
         dq[:, r0:r1] = torch.einsum("bqk,bkh->bqh", ds, kf).to(q.dtype)
         dk += torch.einsum("bqk,bqh->bkh", ds, qc)
     return dq, dk.to(k.dtype), dv.to(v.dtype)

@@ -11,7 +11,9 @@ import torch
 
 from repro_torch.device import disable_tf32
 from repro_torch.core import MatroidSpec, streaming
-from repro_torch.kernels import flash, gmm_step, ops, pdist, precheck, ssd
+from repro_torch.kernels import (
+    flash, gmm_step, ops, pdist, precheck, ref, ssd,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -26,8 +28,13 @@ PDIST_SHAPES = [
 PDIST_SELF_SHAPES = [(300, 5000), (327, 5000), (1408, 5000), (70, 33),
                      (65, 20)]
 GMM_SHAPES = [(16, 4), (100, 25), (1025, 7), (64, 128), (3, 300), (4097, 129)]
+# then K3's edges: T = 257 (tau 256) at the main path's d, a row tile
+# cut short (B < 16) with d off the chunk, several panels of 256 valid
+# centers, d past one cluster's 16 x 256 columns
 PRECHECK_SHAPES = [(8, 5, 4), (37, 17, 7), (128, 33, 100), (200, 129, 25),
-                   (128, 257, 100), (128, 65, 5000), (1, 1, 1), (33, 70, 17)]
+                   (128, 257, 100), (128, 65, 5000), (1, 1, 1), (33, 70, 17),
+                   (128, 257, 5000), (5, 65, 4999), (70, 700, 40),
+                   (20, 3, 9000)]
 # (BH, Sq, Skv, hd, causal): tests/test_kernels.py's FLASH_SHAPES, then
 # hd in {64, 112, 128, 256} with S off the 64-row tile, Sq != Skv, one row;
 # then the edges of the bf16 tensor-core tiles: S off the 128-row tile (129,
@@ -156,15 +163,19 @@ def _check_precheck(x, c, cv):
     return got
 
 
-@pytest.mark.parametrize("B,T,d", PRECHECK_SHAPES)
-def test_precheck_kernel_vs_plain(cuda, B, T, d):
-    rng = np.random.default_rng(B * 100 + T)
+def _precheck_inputs(cuda, B, T, d, seed=0):
+    rng = np.random.default_rng(B * 100 + T + seed)
     x = torch.as_tensor(rng.normal(size=(B, d)) * 3, dtype=torch.float32,
                         device=cuda)
     c = torch.as_tensor(rng.normal(size=(T, d)) * 3, dtype=torch.float32,
                         device=cuda)
     cv = torch.as_tensor(rng.random(T) > 0.2, device=cuda)
-    _check_precheck(x, c, cv)
+    return x, c, cv
+
+
+@pytest.mark.parametrize("B,T,d", PRECHECK_SHAPES)
+def test_precheck_kernel_vs_plain(cuda, B, T, d):
+    _check_precheck(*_precheck_inputs(cuda, B, T, d))
 
 
 def test_precheck_kernel_first_index_ties(cuda):
@@ -198,6 +209,150 @@ def test_precheck_kernel_all_invalid_and_one_valid(cuda):
         assert torch.equal(got[i], want[i])
     assert torch.equal(got[1], torch.full_like(got[1], 37))
     assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+
+def _check_block_precheck(x, c, cv, x1, thr, r2):
+    """K3's fused route against ``ref.block_precheck`` on the plain path:
+    one launch a call, two calls bit-identical, z equal on every row where
+    both flags are off, and a flag that differs only where the plain
+    path's comparison lies within 2 margins (the third center) or within
+    2 SLACK (the refined comparisons) of its boundary. Returns the rows
+    whose flag is off on both paths."""
+    before = precheck.launches
+    out = ops.block_precheck(x, c, cv, x1, thr, r2)
+    again = ops.block_precheck(x, c, cv, x1, thr, r2)
+    torch.cuda.synchronize()
+    assert precheck.launches == before + 2
+    assert out.dtype == torch.int32 and out.shape == (2, x.shape[0])
+    assert torch.equal(out, again)
+    assert bool(torch.all((out[1] == 0) | (out[1] == 1)))
+    z, f = out[0], out[1] != 0
+    plain = ops.block_precheck(x, c, cv, x1, thr, r2, force="ref")
+    zr, fr = plain[0], plain[1] != 0
+    assert precheck.launches == before + 2
+    dmin_e, z1, _, z2, third_e, margin = ops.center_precheck(
+        x, c, cv, force="ref")
+    d1e = torch.where(cv[z1.long()], ref.point_dist(c[z1.long()], x),
+                      ref._F32_MAX)
+    d2e = torch.where(cv[z2.long()], ref.point_dist(c[z2.long()], x),
+                      ref._F32_MAX)
+    dmin = torch.minimum(d1e, d2e)
+    off = ~f & ~fr
+    assert torch.equal(z[off], zr[off])
+    slack = 2 * ref.SLACK
+    near = (((third_e - dmin_e) - 2 * margin).abs() <= 2 * margin) | (
+        (d1e - d2e).abs() <= slack * dmin) | ((dmin - thr).abs() <= slack * thr)
+    if x1 is not None:
+        d1 = ref.point_dist(x, x1[None, :])
+        near |= (d1 - r2).abs() <= slack * r2
+    assert bool(torch.all(near[f != fr]))
+    return off
+
+
+@pytest.mark.parametrize("B,T,d", PRECHECK_SHAPES)
+@pytest.mark.parametrize("variant", ["radius", "diameter"])
+def test_block_precheck_kernel_vs_plain(cuda, B, T, d, variant):
+    """Thresholds at the median of the plain path's nearest distance (and
+    of d(x, x1)), so rows fall on both sides of every boundary."""
+    x, c, cv = _precheck_inputs(cuda, B, T, d)
+    dmin = ops.center_precheck(x, c, cv, force="exact")[0]
+    thr = float(torch.quantile(dmin[dmin < 1e30], 0.5)) if bool(
+        torch.any(dmin < 1e30)) else 1.0
+    x1 = r2 = None
+    if variant == "diameter":
+        x1 = x[0].clone()
+        r2 = float(torch.quantile(ref.point_dist(x, x1[None, :]), 0.5))
+    _check_block_precheck(x, c, cv, x1, thr, r2)
+
+
+@pytest.mark.parametrize("T", [1, 65, 257])
+def test_precheck_kernel_repeats_bit_for_bit(cuda, T):
+    x, c, cv = _precheck_inputs(cuda, 128, T, 5000, seed=1)
+    a = ops.center_precheck(x, c, cv)
+    b = ops.center_precheck(x, c, cv)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    thr = float(a[0][a[0] < 1e30].median()) if bool(
+        torch.any(a[0] < 1e30)) else 1.0
+    p = ops.block_precheck(x, c, cv, x[3], thr, 10.0)
+    q = ops.block_precheck(x, c, cv, x[3], thr, 10.0)
+    assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("B,T,d", [(128, 257, 5000), (128, 400, 5000),
+                                   (70, 700, 40)])
+def test_precheck_multi_panel_repeats_bit_for_bit(cuda, B, T, d):
+    """More than 127 valid centers take several panels; the leader's
+    distance tiles share the ring with the next panel's stages. Many calls
+    of both routes, back to back, give one result."""
+    x, c, _ = _precheck_inputs(cuda, B, T, d, seed=2)
+    cv = torch.ones(T, dtype=torch.bool, device=cuda)
+    thr = float(ops.center_precheck(x, c, cv, force="exact")[0].median())
+    stats = [torch.stack([t.float() for t in
+                          precheck.center_precheck_stats(x, c, cv)])
+             for _ in range(200)]
+    fused = [ops.block_precheck(x, c, cv, x[1], thr, 2 * thr)
+             for _ in range(200)]
+    torch.cuda.synchronize()
+    for runs in (stats, fused):
+        assert all(torch.equal(r, runs[0]) for r in runs[1:])
+    _check_precheck(x, c, cv)
+    _check_block_precheck(x, c, cv, x[1], thr, 2 * thr)
+
+
+def test_precheck_is_one_kernel_launch(cuda):
+    """Each route is one kernel on the card and nothing else: no scratch
+    fill, no second pass, no torch op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, c, cv = _precheck_inputs(cuda, 128, 65, 5000)
+    x1 = x[0].clone()
+    for fn in (lambda: precheck.center_precheck_stats(x, c, cv),
+               lambda: precheck.block_precheck(x, c, cv, None, 1.0, 0.0,
+                                               0.0, 0.0),
+               lambda: precheck.block_precheck(x, c, cv, x1, 1.0, 0.0,
+                                               2.0, 0.0)):
+        fn()  # builds, plans
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and "precheck_kernel" in names[0], names
+    plan = precheck.last_plan
+    # the main path's shape runs in one wave: every cluster resident at once
+    assert plan["S"] == 16 and plan["chunk"] == 320 and plan["tiles"] == 8
+    assert plan["max_active_clusters"] >= plan["tiles"]
+
+
+def test_block_precheck_ties_and_invalid_centers(cuda):
+    """Duplicated centers tie exactly (the flag is on, z is the first
+    column); all centers invalid (every flag on, z = 0); one valid center
+    not at column 0 (z is that center, the flag as the plain path's)."""
+    rng = np.random.default_rng(3)
+    base = torch.as_tensor(rng.normal(size=(3, 64)), dtype=torch.float32,
+                           device=cuda)
+    c = base[torch.as_tensor([2, 0, 1, 0, 2, 1, 0] * 10, device=cuda)]
+    c = c.contiguous()
+    x = (base[torch.as_tensor([0, 1, 2] * 40, device=cuda)]
+         + 0.3 * torch.as_tensor(rng.normal(size=(120, 64)),
+                                 dtype=torch.float32, device=cuda))
+    cv = torch.ones(c.shape[0], dtype=torch.bool, device=cuda)
+    cv[1] = False
+    z, f = ops.block_precheck(x, c, cv, None, 100.0, None)
+    zr, fr = ops.block_precheck(x, c, cv, None, 100.0, None, force="exact")
+    assert bool(torch.all(f == 1)) and torch.equal(fr, f)
+    assert torch.equal(z, zr)
+    cv[:] = False
+    z, f = ops.block_precheck(x, c, cv, None, 100.0, None)
+    assert bool(torch.all(f == 1)) and not bool(torch.any(z))
+    cv[37] = True
+    z, f = ops.block_precheck(x, c, cv, x[5], 100.0, 1e6)
+    zr, fr = ops.block_precheck(x, c, cv, x[5], 100.0, 1e6, force="ref")
+    assert torch.equal(z, torch.full_like(z, 37)) and torch.equal(f, fr)
 
 
 def test_blocked_scan_equals_per_point_on_the_card(cuda):
@@ -399,6 +554,49 @@ def test_flash_bwd_kernel_vs_plain(cuda, bh, sq, skv, hd, causal, dtype):
         tol = 1e-4 if dtype == torch.float32 else 1e-2
         err = float((g.float() - w.float()).abs().max())
         assert err <= tol * float(w.float().abs().max()), err
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |t| (8 significant bits)."""
+    a = t.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+# the main paths' head widths (zamba2-7b 112, smollm-135m 64) and edges of
+# the tensor-core tiles
+FLASH_LIKE_SHAPES = [(8, 1024, 1024, 112, True), (4, 512, 512, 64, True),
+                     (2, 255, 129, 40, True), (2, 129, 300, 112, True),
+                     (2, 129, 255, 256, False)]
+
+
+@pytest.mark.parametrize("bh,sq,skv,hd,causal", FLASH_LIKE_SHAPES)
+def test_flash_bf16_kernels_vs_plain_like_for_like(cuda, bh, sq, skv, hd,
+                                                   causal):
+    """K4 and K5's bf16 tensor-core routes against the plain versions with
+    P (and dS) rounded to bf16 as the kernels round them
+    (``ref.flash_attention_fwd/_bwd(bf16_p=True)``): every output element
+    within one bf16 spacing of the plain one (both round their f32 result
+    to bf16 once, so a result near a rounding boundary may land on either
+    side) plus 2e-3 of the output's largest entry, where the f32-P plain
+    versions need the 1e-2 gates above."""
+    q, k, v = _flash_inputs(cuda, bh, sq, skv, hd, torch.bfloat16)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    o_r, lse_r = ref.flash_attention_fwd(q, k, v, causal=causal, bf16_p=True)
+    assert flash.last_route["fwd"] == "wgmma"
+    scale = float(o_r.float().abs().max())
+    assert bool(torch.all((o.float() - o_r.float()).abs()
+                          <= _bf16_ulp(o_r) + 2e-3 * scale))
+    torch.testing.assert_close(lse, lse_r, rtol=1e-4, atol=1e-4)
+    do = torch.as_tensor(np.random.default_rng(bh + sq).normal(
+        size=(bh, sq, hd)), device=cuda).to(torch.bfloat16)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   bf16_p=True)
+    assert flash.last_route["bwd"] == "wgmma"
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        assert bool(torch.all((g.float() - w.float()).abs()
+                              <= _bf16_ulp(w) + 2e-3 * scale))
 
 
 @pytest.mark.parametrize("hd", [64, 112])

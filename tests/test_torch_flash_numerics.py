@@ -148,3 +148,22 @@ def test_tc_forward_is_as_close_to_the_jax_bf16_attention(
     err_tc = np.abs(o_tc - want).max()
     err_plain = np.abs(o_plain.numpy() - want).max()
     assert err_tc <= err_plain, (err_tc, err_plain)
+
+
+@pytest.mark.parametrize("bh,sq,skv,hd,causal", SHAPES)
+def test_plain_bf16_p_option_is_the_tc_arithmetic(bh, sq, skv, hd, causal):
+    """``ref.flash_attention_fwd/_bwd(bf16_p=True)``, the plain versions'
+    like-for-like option, is the tensor-core arithmetic of the helpers
+    above, up to f32 summation order."""
+    q, k, v, do = _inputs(bh, sq, skv, hd)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o, lse = ref.flash_attention_fwd(qf, kf, vf, causal=causal, bf16_p=True)
+    o_tc, lse_tc = tc_fwd(q, k, v, causal)
+    assert _rel_err(o, o_tc) <= 1e-5
+    torch.testing.assert_close(lse, lse_tc, rtol=1e-5, atol=1e-5)
+    o_r, lse_r = ref.flash_attention_fwd(q, k, v, causal=causal)
+    got = ref.flash_attention_bwd(qf, kf, vf, o_r.float(), lse_r,
+                                  do.float(), causal=causal, bf16_p=True)
+    want = tc_bwd(q, k, v, o_r, lse_r, do, causal)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= 1e-5

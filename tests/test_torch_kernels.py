@@ -193,11 +193,14 @@ def test_center_precheck_all_invalid_centers(force):
     assert torch.equal(z2, torch.zeros(4, dtype=torch.int32))
 
 
-def _kernel_top3(d: np.ndarray, lanes: int = 32):
-    """csrc/precheck.cu's reduction on the host: per lane, columns lane,
-    lane + 32, ... inserted in ascending order into a lexicographic
-    (value, column) top-3; the lane lists merged by xor butterfly; then
-    the masking rule of _nearest_stats."""
+def _kernel_top3(d: np.ndarray, lanes: int = 32, panel: int = 127):
+    """csrc/precheck.cu's reduction on the host: the valid columns (below
+    float32 max) compacted in ascending order and cut into panels of 127;
+    per panel and lane, the panel's columns lane, lane + 32, ... inserted
+    in ascending order into a lexicographic (value, column) top-3; the
+    lane lists merged by xor butterfly; the panel's list merged into the
+    row's running list; then the first three invalid columns at float32
+    max; then the masking rule of _nearest_stats."""
     B, T = d.shape
     inf, fmax = np.float32(np.inf), np.float32(np.finfo(np.float32).max)
 
@@ -208,23 +211,31 @@ def _kernel_top3(d: np.ndarray, lanes: int = 32):
 
     out = []
     for r in range(B):
-        tops = [[(inf, T)] * 3 for _ in range(lanes)]
-        for lane in range(lanes):
-            for t in range(lane, T, lanes):
-                insert(tops[lane], d[r, t], t)
-        off = lanes // 2
-        while off:
-            tops = [sorted(tops[i] + tops[i ^ off])[:3]
-                    for i in range(lanes)]
-            off //= 2
-        (v1, c1), (v2, c2), (v3, _c3) = tops[0]
+        cols = [t for t in range(T) if d[r, t] < fmax]
+        run = [(inf, T)] * 3
+        for p0 in range(0, len(cols), panel):
+            pcols = cols[p0:p0 + panel]
+            tops = [[(inf, T)] * 3 for _ in range(lanes)]
+            for lane in range(lanes):
+                for i in range(lane, len(pcols), lanes):
+                    insert(tops[lane], d[r, pcols[i]], pcols[i])
+            off = lanes // 2
+            while off:
+                tops = [sorted(tops[i] + tops[i ^ off])[:3]
+                        for i in range(lanes)]
+                off //= 2
+            for v, c in tops[0]:
+                insert(run, v, c)
+        for t in [t for t in range(T) if d[r, t] >= fmax][:3]:
+            insert(run, fmax, t)
+        (v1, c1), (v2, c2), (v3, _c3) = run
         sec = min(v2, fmax)
         out.append((v1, c1, sec, c2 if sec < fmax else 0,
                     min(v3, fmax) if sec < fmax else fmax))
     return [np.array(col) for col in zip(*out)]
 
 
-@pytest.mark.parametrize("T", [1, 2, 3, 5, 33, 70])
+@pytest.mark.parametrize("T", [1, 2, 3, 5, 33, 70, 257, 600])
 def test_kernel_reduction_rule_matches_nearest_stats(T):
     """The kernel's top-3 rule gives exactly _nearest_stats' results on
     tie-heavy rows: few distinct values, invalid columns, T not a multiple
@@ -243,12 +254,20 @@ def test_kernel_reduction_rule_matches_nearest_stats(T):
 
 
 def test_precheck_splits():
-    """d is cut into chunks of whole 16-wide steps, enough for about 264
-    first-pass blocks, and the chunks cover d exactly once."""
-    assert precheck.splits(128, 65, 5000) == (32, 160)
-    assert precheck.splits(128, 257, 5000) == (14, 368)
-    assert precheck.splits(8, 5, 4) == (1, 16)
-    assert precheck.splits(3, 2, 0) == (1, 16)
-    for B, T, d in [(128, 65, 5000), (1, 1, 1), (200, 129, 25), (37, 17, 7)]:
-        S, chunk = precheck.splits(B, T, d)
-        assert chunk % 16 == 0 and (S - 1) * chunk < d <= S * chunk
+    """A cluster takes ceil(d / 256) blocks along d, at most 16; each block
+    a chunk of whole 32-column stages; the chunks cover d, and only the
+    last blocks can be empty."""
+    assert precheck.cluster_split(5000) == (16, 320)
+    assert precheck.cluster_split(2048) == (8, 256)
+    assert precheck.cluster_split(100) == (1, 128)
+    assert precheck.cluster_split(300) == (2, 160)
+    assert precheck.cluster_split(4) == (1, 32)
+    assert precheck.cluster_split(0) == (1, 32)
+    for d in (1, 7, 25, 256, 257, 4100, 4999, 5000, 20000):
+        S, chunk = precheck.cluster_split(d)
+        assert 1 <= S <= precheck.MAX_SPLIT and chunk % 32 == 0
+        assert S * chunk >= d and (d == 0 or chunk < d + 32)
+        sizes = [max(0, min(d, (s + 1) * chunk) - s * chunk)
+                 for s in range(S)]
+        assert sum(sizes) == d
+        assert sizes == sorted(sizes, reverse=True)
