@@ -12,7 +12,9 @@ exits non-zero:
                compiles the GMM step, with their seconds and ptxas lines;
                ``cuobjdump -sass`` counts the tensor-core instructions of
                the flash libraries (``HGMMA`` for wgmma, ``HMMA`` for
-               mma.sync), which must be there.
+               mma.sync), which must be there; a ``RecompileWatch``
+               counts the builds as compile events (K2's first launch must
+               report one).
 3. ``data``    songs-sim at the paper's Songs widths (n = 237,698,
                dim = 5000, 16 genres, rank ~89), generated on the card.
 4. ``kernels`` every kernel against its plain PyTorch version on the card,
@@ -47,7 +49,30 @@ exits non-zero:
                card could take for the same work; K3's two routes with
                their device time per launch and cluster shape; the GMM
                loop alone.
-8. ``lm``      the serving path of the LM stack at zamba2-7b's full width
+8. ``engines`` the batched final-stage engines on the solve's own
+               coreset (m rows, songs-sim genres and caps, k, D from K1):
+               ``_final_solve`` with ``engine="jit_sum"`` and ``"auto"``
+               (which must run jit_sum) selects what ``engine="host"``
+               selects; a batch of 32 sum queries (k 4..k, caps at most the
+               genre caps, allow masks dropping ~25% of the rows, gamma 0 or
+               0.01) through ``JitSumBatchEngine`` equals the host engine
+               query for query, or diverges first at a printed float tie
+               (batch synced, median of 3, beside the host loop and B = 1);
+               16 transversal queries (genre + up to two labels, gamma 3)
+               against the host engine under the ``TransversalMatroid``;
+               16 star and 16 tree ``jit_greedy`` queries equal to the same
+               engine on the CPU; ``solve_stacked`` over 4 lanes (cosine and
+               raw-Euclidean D, two sets of caps each) bit-identical to
+               per-lane solves. The phase runs under ``obs`` spans and a
+               ``RecompileWatch``: runs 2 and 3 of the timed batch compile
+               nothing (vacuous while no engine path compiles: eager
+               PyTorch reaches no nvcc, Triton or dynamo compile there);
+               profiles of the batch stopped after its greedy seed and
+               after one sweep give kernels per v-step and the busy share.
+               Launch counts are read around the phase, which
+               runs after the stream and the timing, so it leaves no state
+               in their numbers.
+9. ``lm``      the serving path of the LM stack at zamba2-7b's full width
                (81 Mamba2 layers, one shared attention block applied 13
                times, bf16, random weights from ``LM.init`` at ``--seed``):
                (a) K4 (flash forward) and K6 (SSD intra-chunk) against
@@ -76,7 +101,7 @@ exits non-zero:
                beside their plain versions, their bounds and (K4)
                ``scaled_dot_product_attention``, with K4's route (bf16:
                the tensor cores), TFLOP/s and kernel / library ratio.
-9. ``train``   the training path at smollm-135m's full width and depth
+10. ``train``   the training path at smollm-135m's full width and depth
                (bf16, random weights, batch 16 x 2,048, diverse selection
                on): (a) K5 (flash backward) against its plain version at
                test shapes, and K5 and K4 at one layer's own inputs,
@@ -162,6 +187,10 @@ BLOCK = 128  # the streaming scan's block size on the main path
 INGEST_BATCH = 16_384
 PREFIX = 2048
 TIE_RTOL = 1e-5
+ENGINE_QUERIES, ENGINE_TV_QUERIES, ENGINE_GREEDY_QUERIES = 32, 16, 16
+ENGINE_K_MIN = 4
+ENGINE_TV_GAMMA = 3  # labels a row: wikipedia-sim, dmmc_paper.py:20-22
+ENGINE_LANES = 4
 
 
 def emit(obj) -> None:
@@ -199,14 +228,15 @@ def bound_ms(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_profile(fn, count: str = "") -> dict:
+def device_profile(fn, count: str = "", scope: str = "") -> dict:
     """Run ``fn`` once under ``torch.profiler`` and read the card's kernel
     events: their summed time, the span from the first kernel's start to
     the last one's end, the host wall time of the window (the profiler
     adds host overhead to it), the busy share of the span, the kernels
     with the most time, and how many of the device events are copies or
-    fills (``Memcpy``/``Memset``), how many kernels, and (``count``) how
-    many events have that string in their name."""
+    fills (``Memcpy``/``Memset``), how many kernels, (``count``) how
+    many events have that string in their name, and (``scope``) how many
+    host events are that ``record_function`` scope."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -218,7 +248,14 @@ def device_profile(fn, count: str = "") -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a record_function range also shows on the device timeline (a user
+    # annotation spanning its kernels): count it as a scope, not a kernel
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    scopes = {e.name for e in host if getattr(e, "is_user_annotation", False)}
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in scopes]
+    scoped = sum(1 for e in host if e.name == scope) if scope else None
     if not kernels:
         return dict(wall_ms=wall * 1e3, device_ms=None,
                     note="the profiler showed no device events")
@@ -239,7 +276,7 @@ def device_profile(fn, count: str = "") -> dict:
                 kernels=len(kernels), copies=copies,
                 launches=len(kernels) - copies,
                 counted=(sum(v[1] for n, v in by_name.items() if count in n)
-                         if count else None),
+                         if count else None), scope_count=scoped,
                 top=[dict(name=n[:80], ms=v[0], count=v[1]) for n, v in top])
 
 
@@ -265,7 +302,10 @@ def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
+    from repro_torch import obs
     from repro_torch.kernels import _build, ops
+
+    watch = obs.RecompileWatch()  # the builds are the port's compile events
 
     def build(name: str) -> float:
         t0 = time.perf_counter()
@@ -291,9 +331,15 @@ def phase_build() -> None:
     for name, ops_ in TENSOR_CORE_SASS.items():
         check(sum(sass[name][op] for op in ops_) > 0,
               f"{name}: no {' or '.join(ops_)} in its SASS: {sass[name]}")
+    events = watch.by_source()
+    watch.close()
+    # nvcc reports only a build it ran (a library already on disk is no
+    # event); K2's first launch in a process always compiles or loads
+    check(events.get("triton", 0) >= 1,
+          f"K2's first launch reported no Triton compile event: {events}")
     emit(dict(phase="build", nvcc_s=nvcc_s, nvcc_wall_s=nvcc_wall_s,
               triton_first_compile_s=triton_s, tensor_core_sass=sass,
-              ptxas=ptxas))
+              compile_events=events, ptxas=ptxas))
 
 
 def _tensor_core_sass(lib_path: str) -> dict:
@@ -708,6 +754,381 @@ def phase_solve(points, x_norm, cats, caps, spec, k: int, tau: int):
     )
     emit(out)
     return sol, launches
+
+
+def _engine_ctx(D, spec, cats, caps, device):
+    """A SolveContext over one coreset matrix, with the host oracle the
+    host engine needs (per-query caps applied)."""
+    import numpy as np
+    from repro_torch.core import PartitionMatroid, TransversalMatroid
+    from repro_torch.core.solvers import SolveContext
+
+    if spec.kind == "transversal":
+        matroid = TransversalMatroid(cats, spec.num_categories)
+        return SolveContext(D=D, spec=spec, cats=cats, device=device,
+                            matroid_fn=lambda s: matroid)
+    return SolveContext(
+        D=D, spec=spec, cats=cats, caps=caps, device=device,
+        matroid_fn=lambda s: PartitionMatroid(
+            cats, caps if s.caps is None else np.asarray(s.caps)))
+
+
+def _sum_specs(rng, m: int, n: int, k_max: int, caps):
+    """n sum queries: k in [4, k_max], caps at most ``caps`` (None: the
+    context's), an allow mask dropping ~25% of the rows, gamma 0 or 0.01."""
+    import numpy as np
+    from repro_torch.core.solvers import SolveSpec
+
+    out = []
+    for _ in range(n):
+        qcaps = None if caps is None else tuple(
+            int(c) for c in rng.integers(1, np.asarray(caps) + 1))
+        out.append(SolveSpec(
+            k=int(rng.integers(ENGINE_K_MIN, k_max + 1)), variant="sum",
+            gamma=float(rng.choice([0.0, 0.01])), caps=qcaps,
+            allow=rng.random(m) >= 0.25))
+    return out
+
+
+def _jit_sum_rows(ctx, specs, max_sweeps: int) -> list:
+    """Queries through the batched sum solver, stopped after
+    ``max_sweeps`` sweeps (0: the greedy seed); their selections."""
+    import torch
+    from repro_torch.core.solvers import jit_sum
+    from repro_torch.core.solvers.matching import cats_onehot
+
+    dev = jit_sum.engine_device(ctx)
+    B = len(specs)
+    kmax = jit_sum.bucket_pow2(max(s.k for s in specs))
+    allow, ks, gammas = jit_sum.pad_query_arrays(ctx, specs, B)
+    put = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    if ctx.spec.kind == "transversal":
+        oh = cats_onehot(ctx.cats, ctx.spec.num_categories)
+        sel, nsel, _ = jit_sum.solve_sum_batch_transversal(
+            put(ctx.D), put(oh), put(allow), put(ks), put(gammas),
+            kmax=kmax, max_sweeps=max_sweeps)
+    else:
+        cats1, caps = jit_sum.partition_arrays(ctx, specs, B)
+        sel, nsel, _ = jit_sum.solve_sum_batch(
+            put(ctx.D), put(cats1), put(caps), put(allow), put(ks),
+            put(gammas), kmax=kmax, max_sweeps=max_sweeps)
+    sel, nsel = sel.cpu().tolist(), nsel.cpu().tolist()
+    return [row[:n] for row, n in zip(sel, nsel)]
+
+
+def _sweep_min_margin(D, matroid, idxs, gamma: float, X) -> float:
+    """Replay one host local-search sweep from X (``local_search_sum``'s
+    loop, in float64) and return the smallest relative margin of any swap
+    test it makes: |new_div - threshold| / div."""
+    import numpy as np
+
+    D = np.asarray(D, np.float64)
+    X = list(X)
+    inside = set(X)
+    div = D[np.ix_(X, X)].sum() / 2.0
+    row = {u: D[u, X].sum() for u in X}
+    best = np.inf
+    for v in idxs:
+        if v in inside:
+            continue
+        dv = D[v, X].sum()
+        for u in list(X):
+            new_div = div - row[u] + dv - D[u, v]
+            thr = max(div * (1.0 + gamma), div)
+            best = min(best, abs(new_div - thr) / max(abs(div), 1e-30))
+            if new_div <= thr:
+                continue
+            Xm = [w for w in X if w != u] + [v]
+            if not matroid.is_independent(Xm):
+                continue
+            X, div = Xm, new_div
+            inside.discard(u)
+            inside.add(v)
+            row = {w: D[w, X].sum() for w in X}
+            break
+    return float(best)
+
+
+def _sum_divergence(ctx, spec, got, want) -> dict:
+    """Where the batched engine's selection first leaves the host's: the
+    first sweep count s (0: the greedy seed) after which the two differ,
+    and whether that stage's decision was a float tie (two greedy gains,
+    or a swap test and its threshold, within TIE_RTOL)."""
+    import numpy as np
+    from repro_torch.core.solvers import local_search_sum
+
+    matroid = ctx.matroid_fn(spec)
+    idxs = spec.candidate_idxs(ctx.size)
+    D = np.asarray(ctx.D, np.float64)
+    prev = None
+    for s in range(65):
+        host, _v, _n = local_search_sum(ctx.D, matroid, spec.k, idxs,
+                                        gamma=spec.gamma, max_sweeps=s)
+        jit = _jit_sum_rows(ctx, [spec], s)[0]
+        if host != jit:
+            break
+        prev = host
+    else:  # pragma: no cover - equal at every stage, so equal at the end
+        return dict(stage=None, tie=False, got=got, want=want)
+    if s == 0:
+        i = next((i for i, (a, b) in enumerate(zip(host, jit)) if a != b),
+                 min(len(host), len(jit)))
+        if i == min(len(host), len(jit)):  # one stopped early: not a tie
+            return dict(stage=0, margin=None, tie=False, got=got, want=want)
+        pre = host[:i]
+        gain = [D[v, pre].sum() if pre else D[v].sum()
+                for v in (host[i], jit[i])]
+        margin = abs(gain[0] - gain[1]) / max(abs(gain[0]), abs(gain[1]))
+    else:
+        margin = _sweep_min_margin(D, matroid, idxs, spec.gamma, prev)
+    return dict(stage=s, margin=margin, tie=bool(margin <= TIE_RTOL),
+                got=got, want=want)
+
+
+def _greedy_divergence(D, got, want, variant: str) -> dict:
+    """At the first slot where two greedy selections differ, whether the
+    two picks' objectives (float64, over the common prefix) tie."""
+    import numpy as np
+    from repro_torch.core import diversity
+
+    i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    pre = list(want[:i])
+    if i >= min(len(got), len(want)):
+        return dict(slot=i, tie=False)
+    D = np.asarray(D, np.float64)
+    if not pre:
+        vals = [D[got[i]].sum(), D[want[i]].sum()]
+    else:
+        vals = [diversity(D[np.ix_(pre + [v], pre + [v])], variant)
+                for v in (got[i], want[i])]
+    margin = abs(vals[0] - vals[1]) / max(abs(vals[0]), abs(vals[1]))
+    return dict(slot=i, margin=margin, tie=bool(margin <= TIE_RTOL))
+
+
+def _median_s(fn, reps: int = 3, after_first=None) -> tuple:
+    """(median seconds, the results) of ``reps`` runs of ``fn``, each
+    synced (the engines return host arrays, so a run ends in a device
+    sync); ``after_first`` is called between the first run and the
+    second."""
+    times, outs = [], []
+    for i in range(reps):
+        if i == 1 and after_first is not None:
+            after_first()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), outs
+
+
+def _compare_sum(ctx, specs, got, want, what: str) -> dict:
+    """Each batched selection equal to the host engine's (in order), or
+    diverging first at a printed tie."""
+    diverged = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        ga, gb = a.local_indices.tolist(), b.local_indices.tolist()
+        if ga == gb:
+            check(a.value == b.value, f"{what} query {i}: equal selections, "
+                  f"values {a.value} != {b.value}")
+            continue
+        div = _sum_divergence(ctx, specs[i], ga, gb)
+        diverged.append(dict(query=i, **div))
+        check(div["tie"], f"{what} query {i}: the engines diverge without a "
+              f"tie: {div}")
+    return dict(queries=len(specs), equal=len(specs) - len(diverged),
+                diverged_at_tie=diverged)
+
+
+def phase_engines(points, x_norm, sol, cats, caps, spec, k: int,
+                  seed: int) -> dict:
+    """The batched final-stage engines on the solve's own coreset (see the
+    module docstring, phase 8)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import MatroidSpec, coreset_distance_matrix
+    from repro_torch.core.solve import _final_solve
+    from repro_torch.core.solvers import (
+        JIT_SUM, SolveSpec, get_engine, partition_by_engine, select_engine,
+        solve_stacked,
+    )
+    from repro_torch.kernels import ops
+
+    dev = x_norm.device
+    rng = np.random.default_rng(seed + 18)
+    sub = np.asarray(sol.coreset_indices, np.int64)
+    m = sub.size
+    cats_sub = np.asarray(cats, np.int32)[sub]
+    watch = obs.RecompileWatch()
+    buf = obs.default_buffer()
+    buf.clear()
+    host = get_engine("host_local_search")
+    out = dict(phase="engines", m=m, k=k)
+    ops.reset_launches()
+
+    # 1. the final stage: jit_sum and auto on the card select as host does
+    with obs.span("engines.final_stage", cat="chip_smoke"):
+        rows = x_norm.index_select(0, torch.as_tensor(sub, device=dev))
+        D = coreset_distance_matrix(rows, device=dev)  # K1
+        ctx = _engine_ctx(D, spec, cats_sub, caps, dev)
+        check(select_engine(ctx, SolveSpec(k=k)).name == "jit_sum",
+              "engine='auto' does not resolve to jit_sum on the card")
+        picks = {}
+        for eng in ("jit_sum", "auto", "host"):
+            buf_n = len(buf.drain())
+            idx, val = _final_solve(x_norm, cats, spec, caps, k, sub, "sum",
+                                    engine=eng)
+            ran = [s.args["engine"] for s in buf.drain()[buf_n:]
+                   if s.name == "final_solve"]
+            picks[eng] = dict(indices=idx, value=val, engine=ran[-1])
+        check(picks["auto"]["engine"] == "jit_sum",
+              f"engine='auto' ran {picks['auto']['engine']}")
+        final_same = picks["jit_sum"]["indices"] == picks["host"]["indices"]
+        final_div = None
+        if not final_same:
+            loc = lambda ix: np.searchsorted(sub, ix).tolist()  # noqa: E731
+            final_div = _sum_divergence(
+                ctx, SolveSpec(k=k), loc(picks["jit_sum"]["indices"]),
+                loc(picks["host"]["indices"]))
+            check(final_div["tie"], f"final stage: jit_sum and host diverge "
+                  f"without a tie: {final_div}")
+        check(picks["auto"]["indices"] == picks["jit_sum"]["indices"],
+              "engine='auto' and engine='jit_sum' select other indices")
+        out["final_stage"] = dict(
+            same_as_host=final_same, divergence=final_div,
+            engines={e: p["engine"] for e, p in picks.items()},
+            diversity=picks["jit_sum"]["value"])
+
+    # 2. a batch of 32 sum queries against the host engine
+    with obs.span("engines.sum_batch", cat="chip_smoke"):
+        specs = _sum_specs(rng, m, ENGINE_QUERIES, k, caps)
+        groups = partition_by_engine(ctx, specs, engine="auto")
+        check(groups == {"jit_sum": list(range(len(specs)))},
+              f"auto routed the batch as {groups}")
+        # runs 2 and 3 of the median are the steady-state window: the
+        # same batch again must compile nothing and select the same
+        batch_s, runs = _median_s(lambda: JIT_SUM.solve_batch(ctx, specs),
+                                  after_first=watch.reset)
+        steady = watch.total()
+        check(steady == 0, f"a second identical batch compiled: "
+              f"{watch.by_key()}")
+        got = runs[0]
+        check(all(a.local_indices.tolist() == b.local_indices.tolist()
+                  for again in runs[1:] for a, b in zip(got, again)),
+              "a repeated batch differs")
+        one_s, _ = _median_s(lambda: JIT_SUM.solve_batch(ctx, specs[:1]))
+        t0 = time.perf_counter()
+        want = host.solve_batch(ctx, specs)
+        host_s = time.perf_counter() - t0
+        sum_cmp = _compare_sum(ctx, specs, got, want, "sum batch")
+        # kernels a v-step: one sweep's launches less the greedy seed's
+        seed = device_profile(lambda: _jit_sum_rows(ctx, specs, 0))
+        prof = device_profile(lambda: _jit_sum_rows(ctx, specs, 1),
+                              scope="solver/jit_sum/sweep")
+        check(prof.get("scope_count") == 1,
+              f"the profiled batch ran no sweep: {prof}")
+        out["sum_batch"] = dict(
+            B=len(specs), jit_sum_s=batch_s, jit_sum_b1_s=one_s,
+            host_loop_s=host_s, host_per_query_s=host_s / len(specs),
+            speedup=host_s / batch_s, steady_state_recompiles=steady,
+            kernels_per_v_step=(prof.get("launches", 0)
+                                - seed.get("launches", 0)) / m,
+            busy_share_of_span=prof.get("busy_share_of_span"),
+            busy_share_of_wall=prof.get("busy_share_of_wall"),
+            profiled_device_ms=prof.get("device_ms"),
+            profiled_wall_ms=prof.get("wall_ms"), **sum_cmp)
+        for name, secs in (("jit_sum", batch_s), ("host_local_search",
+                                                  host_s)):
+            obs.histogram("chip_smoke.engines.batch_s",
+                          engine=name).observe(secs)
+
+    # 3. a transversal view of the coreset: genre + up to two labels
+    with obs.span("engines.transversal", cat="chip_smoke"):
+        h = spec.num_categories
+        cats_tv = np.full((m, ENGINE_TV_GAMMA), -1, np.int32)
+        cats_tv[:, 0] = cats_sub[:, 0]
+        for j in range(1, ENGINE_TV_GAMMA):
+            extra = rng.random(m) < 0.5
+            cats_tv[extra, j] = rng.integers(0, h, int(extra.sum()))
+        tv_spec = MatroidSpec("transversal", num_categories=h,
+                              gamma=ENGINE_TV_GAMMA)
+        ctx_tv = _engine_ctx(D, tv_spec, cats_tv, None, dev)
+        tv_specs = _sum_specs(rng, m, ENGINE_TV_QUERIES, min(k, h), None)
+        tv_s, (got,) = _median_s(
+            lambda: JIT_SUM.solve_batch(ctx_tv, tv_specs), reps=1)
+        t0 = time.perf_counter()
+        want = host.solve_batch(ctx_tv, tv_specs)
+        host_tv_s = time.perf_counter() - t0
+        out["transversal"] = dict(
+            B=len(tv_specs), h=h, gamma=ENGINE_TV_GAMMA, jit_sum_s=tv_s,
+            host_loop_s=host_tv_s,
+            **_compare_sum(ctx_tv, tv_specs, got, want, "transversal"))
+
+    # 4. jit_greedy: star and tree on the card against the CPU run
+    with obs.span("engines.greedy", cat="chip_smoke"):
+        greedy = get_engine("jit_greedy")
+        ctx_cpu = _engine_ctx(D, spec, cats_sub, caps, "cpu")
+        res = {}
+        for variant in ("star", "tree"):
+            g_specs = [dataclasses.replace(s, variant=variant, gamma=0.0)
+                       for s in _sum_specs(rng, m, ENGINE_GREEDY_QUERIES, k,
+                                           caps)]
+            g_s, (got,) = _median_s(
+                lambda: greedy.solve_batch(ctx, g_specs), reps=1)
+            t0 = time.perf_counter()
+            want = greedy.solve_batch(ctx_cpu, g_specs)
+            cpu_s = time.perf_counter() - t0
+            diverged = []
+            for i, (a, b) in enumerate(zip(got, want)):
+                ga, gb = a.local_indices.tolist(), b.local_indices.tolist()
+                if ga != gb:
+                    dv = _greedy_divergence(D, ga, gb, variant)
+                    diverged.append(dict(query=i, **dv))
+                    check(dv["tie"], f"jit_greedy {variant} query {i}: card "
+                          f"and CPU diverge without a tie: {dv}")
+            res[variant] = dict(B=len(g_specs), card_s=g_s, cpu_s=cpu_s,
+                                equal=len(g_specs) - len(diverged),
+                                diverged_at_tie=diverged)
+        out["greedy"] = res
+
+    # 5. stacked lanes: cosine and raw-Euclidean D, two sets of caps each
+    with obs.span("engines.stacked", cat="chip_smoke"):
+        raw = points.index_select(0, torch.as_tensor(sub, device=dev))
+        D_raw = coreset_distance_matrix(raw, device=dev)  # K1
+        tight = np.maximum(1, np.asarray(caps) // 2).astype(np.int32)
+        lanes = []
+        for Dl in (D, D_raw):
+            for lane_caps in (np.asarray(caps, np.int32), tight):
+                lctx = _engine_ctx(Dl, spec, cats_sub, lane_caps, dev)
+                lanes.append((lctx, _sum_specs(rng, m, 8, k, None)))
+        stacked_s, (stacked,) = _median_s(lambda: solve_stacked(lanes),
+                                          reps=1)
+        t0 = time.perf_counter()
+        per_lane = [JIT_SUM.solve_batch(lctx, ls) for lctx, ls in lanes]
+        per_lane_s = time.perf_counter() - t0
+        for t, (a_sols, b_sols) in enumerate(zip(stacked, per_lane)):
+            for i, (a, b) in enumerate(zip(a_sols, b_sols)):
+                check(a.local_indices.tolist() == b.local_indices.tolist()
+                      and a.value == b.value,
+                      f"stacked lane {t} row {i} differs from its per-lane "
+                      f"solve: {a} != {b}")
+        out["stacked"] = dict(lanes=len(lanes), rows=sum(
+            len(ls) for _c, ls in lanes), stacked_s=stacked_s,
+            per_lane_s=per_lane_s, bit_identical=True)
+
+    launches = ops.launch_counts()
+    check(launches["pairwise_sqdist"] >= 2, "K1 was not launched")
+    spans = [s for s in buf.drain() if s.name.startswith("engines.")]
+    out.update(
+        launches=launches, spans=len(spans),
+        metrics_series=len(obs.metrics_snapshot()),
+        recompiles_by_key=watch.by_key(),
+        span_s={s.name: s.dur_us / 1e6 for s in spans})
+    watch.close()
+    emit(out)
+    return dict(launches=launches)
 
 
 def _assert_states_equal(a, b, what: str) -> None:
@@ -1830,15 +2251,20 @@ def main() -> int:
                                 args.tau)
     stream = phase_stream(points, x_norm, cats, caps, spec, args.k, args.tau)
     times = phase_timing(x_norm, sol, args.k * args.tau, stream["st"])
+    # after the stream and the timing, so no state it leaves behind is in
+    # their numbers
+    engines = phase_engines(points, x_norm, sol, cats, caps, spec, args.k,
+                            args.seed)
     del points, x_norm, cats, stream["st"]
     torch.cuda.empty_cache()
     lm = phase_lm(args.seed)
     torch.cuda.empty_cache()  # the zamba2 weights went with phase_lm
     train = phase_train(args.seed)
 
-    # launches: the sum over the three main paths, each read around its own
-    # run (per path beside it)
+    # launches: the sum over the main paths, each read around its own run
+    # (per path beside it)
     per_path = {name: dict(sequential=launches[name],
+                           engines=engines["launches"][name],
                            streaming=stream["launches"][name],
                            lm=lm["launches"][name],
                            train=train["launches"][name])

@@ -6,13 +6,14 @@ Reference: ``repro/core/__init__.py``. Ported so far:
     seq_coreset_host, extract_host          -- sequential construction (Alg. 1)
     seq_coreset, extraction_mask, compress  -- SeqCoreset on the device
     rank_in_group, partition_extract_mask   -- device EXTRACT masks
-    coreset_distance_matrix, final_solve    -- final stage (K1 + host solvers)
+    coreset_distance_matrix, final_solve    -- final stage (K1 + engines)
     local_search_sum, exhaustive_best       -- final-stage solvers (4.4)
-    SolverEngine, register_engine, ...      -- solver-engine registry
+    SolverEngine, register_engine, ...      -- solver-engine registry (host
+                                               and batched engines)
     init_stream_state, ingest_batch, ...    -- streaming scan (Alg. 2, K3)
     solve_dmmc                              -- end-to-end entry point
                                                (sequential, streaming)
-    diversity, VARIANTS                     -- Table-1 objectives (host)
+    diversity, torch_diversity, VARIANTS    -- Table-1 objectives
 """
 from .coreset import (
     Coreset,
@@ -30,6 +31,7 @@ from .diversity import (
     diversity_of_points,
     f_of_k,
     farness_lower_bound,
+    torch_diversity,
 )
 from .final_solve import SubsetMatroidView, coreset_distance_matrix, final_solve
 from .gmm import GMMResult, gmm, gmm_fixed, gmm_radius
@@ -80,7 +82,7 @@ __all__ = [
     "extraction_mask", "seq_coreset", "seq_coreset_host",
     "partition_extract_mask", "rank_in_group",
     "VARIANTS", "Variant", "diversity", "diversity_of_points", "f_of_k",
-    "farness_lower_bound", "SubsetMatroidView", "coreset_distance_matrix",
+    "farness_lower_bound", "torch_diversity", "SubsetMatroidView", "coreset_distance_matrix",
     "final_solve", "GMMResult", "gmm", "gmm_fixed", "gmm_radius",
     "GeneralMatroid", "Matroid", "MatroidSpec", "PartitionMatroid",
     "TransversalMatroid", "UniformMatroid", "make_host_matroid",

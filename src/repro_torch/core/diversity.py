@@ -1,12 +1,13 @@
 """Diversity objectives of Table 1 and their combinatorics.
 
-Reference: the host half of ``repro/core/diversity.py``: ``f_of_k``,
+Reference: ``repro/core/diversity.py``: ``f_of_k``,
 ``farness_lower_bound``, the TSP and bipartition helpers, ``diversity``
-(:197) and ``diversity_of_points``. These numpy versions are the
+(:197) and ``diversity_of_points``, numpy versions that are the
 solver-facing oracles (exact for small k, with clearly-flagged heuristics
-for NP-hard evaluations beyond exact thresholds). The torch twins of
-``sum_div``/``star_div``/``tree_div``/``jnp_diversity`` come with the
-batched engines.
+for NP-hard evaluations beyond exact thresholds); and the torch twins of
+the jnp objectives ``sum_div``, ``star_div``, ``tree_div`` (:57-86) and
+``jnp_diversity`` (:92, here ``torch_diversity``), which the batched
+greedy engine evaluates on the device.
 """
 from __future__ import annotations
 
@@ -51,6 +52,53 @@ def farness_lower_bound(delta: float, k: int, variant: Variant) -> float:
     if variant == "bipartition":
         return delta / (2 * (k + 1))
     raise ValueError(variant)
+
+
+# --------------------------------------------------------------------------
+# torch objectives on a distance matrix D: (..., k, k), batched over the
+# leading dims. Sums accumulate in float64 and round once to D's dtype,
+# so the result rarely depends on the reduction order the device or the
+# batch shape picks (the float64 sum is exact while the f32 terms span
+# fewer than about 29 - log2(terms) binary orders of magnitude).
+# --------------------------------------------------------------------------
+
+
+def sum_div(D: torch.Tensor) -> torch.Tensor:
+    return (D.sum((-2, -1), dtype=torch.float64) / 2.0).to(D.dtype)
+
+
+def star_div(D: torch.Tensor) -> torch.Tensor:
+    return D.sum(-1, dtype=torch.float64).min(-1).values.to(D.dtype)
+
+
+def tree_div(D: torch.Tensor) -> torch.Tensor:
+    """MST weight via Prim's algorithm, O(k^2): k - 1 fixed steps, each
+    adding the cheapest vertex outside the tree (first index on ties)."""
+    k = D.shape[-1]
+    in_tree = torch.zeros(D.shape[:-1], dtype=torch.bool, device=D.device)
+    in_tree[..., 0] = True
+    best = D[..., 0, :]
+    total = torch.zeros(D.shape[:-2], dtype=torch.float64, device=D.device)
+    for _ in range(k - 1):
+        masked = torch.where(in_tree, torch.inf, best)
+        j = masked.argmin(-1, keepdim=True)
+        total = total + masked.gather(-1, j)[..., 0]
+        in_tree = in_tree.scatter(-1, j, True)
+        row = D.gather(-2, j[..., None].expand(*j.shape[:-1], 1, k))
+        best = torch.minimum(best, row[..., 0, :])
+    return total.to(D.dtype)
+
+
+_TORCH_OBJECTIVES = {"sum": sum_div, "star": star_div, "tree": tree_div}
+
+
+def torch_diversity(D: torch.Tensor, variant: Variant) -> torch.Tensor:
+    """Twin of the reference's ``jnp_diversity``."""
+    if variant not in _TORCH_OBJECTIVES:
+        raise ValueError(
+            f"{variant} is NP-hard to evaluate; use host diversity() instead"
+        )
+    return _TORCH_OBJECTIVES[variant](D)
 
 
 # --------------------------------------------------------------------------

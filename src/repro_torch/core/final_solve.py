@@ -8,7 +8,8 @@ matrix over the coreset is a small, reusable object:
     X, val = final_solve(D, matroid, k, variant)    # host solver, reads D only
 
 The coreset rows stay on the device; only the (m, m) matrix crosses to the
-host.
+host. The batched engines (``engine="jit_sum"``, or ``"auto"``, which
+resolves to it for the sum variant) take D back to ``device``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import CUDA, DeviceLike, resolve_device
 from ..kernels import ops as kernel_ops
 from .diversity import Variant
@@ -73,15 +75,24 @@ def final_solve(
     engine: str = "host",
     cats: Optional[np.ndarray] = None,
     caps: Optional[np.ndarray] = None,
+    device: DeviceLike = CUDA,
 ) -> tuple[list[int], float]:
     """Best independent k-subset of ``idxs`` under ``variant``, reading only D.
 
     Dispatches through the ``core.solvers`` registry. ``engine="host"`` is
     the paper's dispatch (sum -> AMT local search, footnote 5; others ->
     exhaustive search, exact on the coreset); ``engine="auto"`` picks the
-    best registered engine with the host-parity guarantee; any registered
-    engine name forces that engine. Returns (selected local indices,
-    canonical float64 diversity value).
+    registered engine of highest static priority with the host-parity
+    guarantee (pass ``cats``/``caps`` so the batched engines are
+    eligible); any registered engine name forces that engine.
+    On the card ``auto`` is slower than ``"host"`` until a sweep is
+    captured as a CUDA graph or made a kernel: on the songs-sim coreset
+    (m = 327, k = 22, one H100) ``jit_sum`` took 0.92–0.96 s for one query
+    against ~0.03 s for the host engine, and 0.82–1.22 s for 32 queries
+    against the host's 0.89–1.02 s (``PERF.md`` §5). The batched engines
+    run on ``device``. Returns (selected local indices, canonical float64
+    diversity value); the engine that ran is the ``engine`` argument of
+    the ``final_solve`` span (``obs.default_buffer()``).
     """
     ctx = SolveContext(
         D=np.asarray(D),
@@ -89,6 +100,7 @@ def final_solve(
         cats=None if cats is None else np.asarray(cats, np.int32),
         caps=None if caps is None else np.asarray(caps, np.int32),
         matroid_fn=lambda _spec: matroid,
+        device=device,
     )
     # idxs passes through as an explicit candidate order: host solvers'
     # tie-breaks are visit-order dependent, so the sequence (duplicates
@@ -101,5 +113,7 @@ def final_solve(
         eng = select_engine(ctx, spec)
     else:
         eng = resolve_engine(engine, ctx, spec)
-    sol = eng.solve_one(ctx, spec)
+    with obs.span("final_solve", cat="solve", engine=eng.name, k=k,
+                  m=ctx.size):
+        sol = eng.solve_one(ctx, spec)
     return [int(i) for i in sol.local_indices], float(sol.value)

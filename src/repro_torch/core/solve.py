@@ -74,6 +74,7 @@ def _final_solve(
     X, val = final_solve(
         Dsub, view, k, variant, gamma=gamma, engine=engine,
         cats=None if cats is None else np.asarray(cats)[sub], caps=caps,
+        device=pts_norm.device,
     )
     return [int(sub[i]) for i in X], val
 
@@ -100,7 +101,14 @@ def solve_dmmc(
 
     ``points`` may be a numpy array or a tensor; it is moved to ``device``
     (no copy if it is already there). ``engine`` names a ``core.solvers``
-    registry engine for the final stage ("host" = the paper's dispatch).
+    registry engine for the final stage ("host" = the paper's dispatch;
+    "auto" = the parity engine of highest static priority, ``jit_sum``
+    for the sum variant, which runs on ``device`` too).
+    On the card ``auto`` is slower than ``"host"`` until a sweep is
+    captured as a CUDA graph or made a kernel: on the songs-sim coreset
+    (m = 327, k = 22, one H100) ``jit_sum`` took 0.92–0.96 s for one query
+    against ~0.03 s for the host engine, and 0.82–1.22 s for 32 queries
+    against the host's 0.89–1.02 s (``PERF.md`` §5).
     ``force="ref"`` runs the plain PyTorch versions of the kernels.
     ``setting="streaming"`` takes ``tau`` and the uniform, partition and
     transversal matroids.

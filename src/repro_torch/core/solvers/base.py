@@ -1,8 +1,9 @@
 """Solver-engine protocol + registry for the final-stage DMMC solve.
 
-Reference: ``repro/core/solvers/base.py``, without ``partition_by_engine``
-(the serving layer's batch router, the only user of ``obs`` there), which
-comes with the serving slice.
+Reference: ``repro/core/solvers/base.py``. ``SolveContext`` carries one
+field more, ``device``: where the batched engines put D and the query
+tensors (CUDA by default, like every entry point of the port).
+``selection_value`` stays the host float64 evaluator.
 
 The paper's split (§4.4) makes the final solver a small, swappable
 component: it only ever sees the coreset distance matrix. This module is
@@ -38,6 +39,8 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from ... import obs
+from ...device import CUDA, DeviceLike
 from ..diversity import VARIANTS, Variant, diversity
 from ..matroid import Matroid, MatroidSpec
 
@@ -96,9 +99,9 @@ class SolveContext:
     """Everything engines may need about the coreset being solved on.
 
     ``matroid_fn`` builds the host oracle for a request (applying
-    per-request caps); jit engines instead read ``cats``/``caps``
-    directly. ``cats`` may be None when the caller only has a host oracle
-    (then only host engines are eligible).
+    per-request caps); batched engines instead read ``cats``/``caps``
+    directly, on ``device``. ``cats`` may be None when the caller only
+    has a host oracle (then only host engines are eligible).
     """
 
     D: np.ndarray  # (m, m) distances
@@ -106,6 +109,7 @@ class SolveContext:
     cats: Optional[np.ndarray] = None  # (m, gamma) int32, -1 padded
     caps: Optional[np.ndarray] = None  # default partition caps
     matroid_fn: Optional[Callable[[SolveSpec], Matroid]] = None
+    device: DeviceLike = CUDA  # where the batched engines run
 
     def __post_init__(self):
         if self.cats is not None:
@@ -302,6 +306,15 @@ def select_engine(
     it is argmin of ``estimate(engine, batch_size, kmax, m)`` — host
     engines win tiny batches where dispatch dominates, jit engines win at
     scale, and the crossover is measured rather than asserted.
+
+    On the card ``auto`` is slower than ``"host"`` until a sweep is
+    captured as a CUDA graph or made a kernel: on the songs-sim coreset
+    (m = 327, k = 22, one H100) ``jit_sum`` took 0.92–0.96 s for one query
+    against ~0.03 s for the host engine, and 0.82–1.22 s for 32 queries
+    against the host's 0.89–1.02 s (``PERF.md`` §5). The cost model's
+    seeds are the reference's CPU priors, not calibrated for the card,
+    and route the same wrong way (at B = 1 they price ``jit_sum`` below
+    the host engine).
     """
     cands = _auto_candidates(ctx, spec, hint=hint)
     if cost_model is None or len(cands) == 1:
@@ -314,6 +327,75 @@ def select_engine(
         B=batch_size, kmax=spec.k, m=ctx.size,
     )
     return get_engine(winner)
+
+
+def partition_by_engine(
+    ctx: SolveContext,
+    specs: Sequence[SolveSpec],
+    *,
+    engine: str = "auto",
+    hints: Optional[Sequence[Optional[str]]] = None,
+    cost_model=None,
+    batch_size: Optional[int] = None,
+    stacked: bool = False,
+) -> dict[str, list[int]]:
+    """Split a batch into per-engine groups (engine name -> spec indices).
+
+    ``engine="auto"`` applies the auto policy per request (honoring
+    per-request hints); any other name forces every request through that
+    engine (raising if one is ineligible).
+
+    With a ``cost_model``, auto requests are first grouped by their
+    *candidate set* (hint-pinned requests bypass this), and each group is
+    routed as a unit: the model sees the group's true batch size ``B``
+    and its max ``k``, so ten concurrent B=1 callers coalesced into one
+    group route like one B=10 batch — per-request argmin would always see
+    B=1 and never cross over to the amortizing batched engines.
+    ``batch_size`` overrides the B the model sees (a micro-batch
+    coalescer partitions per caller for admission but routes with the
+    merged group's size); ``stacked=True`` marks the decision as priced
+    for a cross-tenant stacked launch in the audit ring. Decisions are
+    recorded in the model's audit ring and counted under
+    ``solve.dispatch.cost_routed``. ``cost_model=None`` (the default, and
+    what the offline ``solve_dmmc``/``final_solve`` entry points use) keeps
+    the static priority policy. On the card, see ``select_engine``: both
+    the static policy and the uncalibrated seeds favour ``jit_sum`` where
+    the host engine is faster.
+    """
+    groups: dict[str, list[int]] = {}
+    undecided: dict[tuple[str, ...], list[int]] = {}
+    for i, s in enumerate(specs):
+        if engine == "auto":
+            h = hints[i] if hints is not None else None
+            cands = _auto_candidates(ctx, s, hint=h)
+            if cost_model is None or len(cands) == 1:
+                groups.setdefault(cands[0].name, []).append(i)
+            else:
+                key = tuple(e.name for e in cands)
+                undecided.setdefault(key, []).append(i)
+        else:
+            e = resolve_engine(engine, ctx, s)
+            groups.setdefault(e.name, []).append(i)
+    reg = obs.default_registry()
+    for names, idxs in undecided.items():
+        kmax = max(specs[i].k for i in idxs)
+        B = len(idxs) if batch_size is None else max(batch_size, len(idxs))
+        winner, ests = cost_model.choose(names, B=B, kmax=kmax, m=ctx.size)
+        cost_model.record_decision(
+            engine=winner, candidates=ests, B=B, kmax=kmax, m=ctx.size,
+            stacked=stacked,
+        )
+        reg.counter("solve.dispatch.cost_routed", engine=winner).inc(
+            len(idxs)
+        )
+        groups.setdefault(winner, []).extend(idxs)
+    for idxs in groups.values():
+        idxs.sort()
+    for name, idxs in groups.items():
+        reg.counter(
+            "solve.dispatch.requests", engine=name, requested=engine
+        ).inc(len(idxs))
+    return groups
 
 
 def coverage_matrix() -> dict[tuple[str, str], list[str]]:

@@ -6,7 +6,9 @@ library, compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``ctypes``. A library's file name carries a hash of its source, of the
 headers in ``csrc/`` (``*.cuh``, which a source may include) and of the
 flags, so an edited source or header is rebuilt and an unchanged one is
-reused. A failed build raises; nothing falls back to another path. There
+reused. Each build (a cache miss) is a compile event of ``obs.torchprof``
+(``report_compile("nvcc", seconds)``). A failed build raises; nothing
+falls back to another path. There
 is no Pallas-compat layer to port: ``repro/kernels/compat.py`` only papers
 over Pallas API drift.
 """
@@ -17,7 +19,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from ..obs.torchprof import report_compile
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -55,6 +60,7 @@ def library(name: str) -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -66,5 +72,6 @@ def library(name: str) -> ctypes.CDLL:
                 f"{proc.returncode}\n{proc.stdout}"
             )
         os.replace(tmp, out)
+        report_compile("nvcc", time.perf_counter() - t0)
     _libs[name] = ctypes.CDLL(str(out))
     return _libs[name]

@@ -20,11 +20,17 @@ own tie rule. The second stage over the (gn,) block maxima is
 the reference wrapper: deterministic, no float atomics.
 
 ``triton`` is imported inside the launching function, so this module
-imports on a host without it. The plain version is ``ref.gmm_update``.
+imports on a host without it. The plain version is ``ref.gmm_update``. A
+launch after which Triton's cache holds one more kernel (the first of a
+specialisation) is a compile event of ``obs.torchprof``.
 """
 from __future__ import annotations
 
+import time
+
 import torch
+
+from ..obs.torchprof import report_compile
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
 
@@ -81,6 +87,16 @@ def _get_kernel():
     return _kernel
 
 
+def _cached_kernels(fn) -> int:
+    """Number of compiled specialisations in a Triton ``JITFunction``'s
+    cache: ``device_caches`` (device -> (kernel cache, ...)) in Triton
+    3.2 and later, ``cache`` (device -> kernel cache) before."""
+    caches = getattr(fn, "device_caches", None)
+    if caches is not None:
+        return sum(len(c[0]) for c in caches.values())
+    return sum(len(c) for c in getattr(fn, "cache", {}).values())
+
+
 def block_d(d: int) -> int:
     """d-tile width for a row width d: a power of two in [16, 128]."""
     return max(16, min(BLOCK_D_MAX, 1 << max(d - 1, 0).bit_length()))
@@ -117,6 +133,8 @@ def gmm_update(
     bv = torch.empty((gn,), dtype=torch.float32, device=dev)
     bi = torch.empty((gn,), dtype=torch.int32, device=dev)
     kernel = _get_kernel()
+    cached = _cached_kernels(kernel)
+    t0 = time.perf_counter()
     with torch.cuda.device(dev):
         kernel[(gn,)](
             x, z, min_dist, valid.view(torch.uint8), new_min, bv, bi,
@@ -125,5 +143,7 @@ def gmm_update(
             num_warps=NUM_WARPS, num_stages=NUM_STAGES,
         )
     launches += 1
+    if _cached_kernels(kernel) > cached:
+        report_compile("triton", time.perf_counter() - t0)
     blk = torch.argmax(bv)
     return new_min, bi[blk], bv[blk]

@@ -239,13 +239,20 @@ def test_final_solve_host_matches_jax(variant, kind):
 
 
 def test_registry_has_only_host_engines():
-    assert [e.name for e in registered_engines()] == [
-        "host_local_search", "host_exhaustive"
-    ]
+    """The registry holds the reference's engines: the two host engines
+    and, since the batched engines were ported, ``jit_sum`` and
+    ``jit_greedy``, with the reference's order and coverage."""
+    import repro.core.solvers as jsolvers
+
+    names = [e.name for e in registered_engines()]
+    assert names == [e.name for e in jsolvers.registered_engines()]
+    assert names == ["jit_sum", "jit_greedy", "host_local_search",
+                     "host_exhaustive"]
     cov = coverage_matrix()
+    assert cov == jsolvers.coverage_matrix()
     for (variant, _kind), names in cov.items():
-        assert names == (["host_local_search"] if variant == "sum"
-                         else ["host_exhaustive"])
+        host = "host_local_search" if variant == "sum" else "host_exhaustive"
+        assert names[-1] == host
 
 
 def test_convert_round_trips():

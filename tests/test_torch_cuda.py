@@ -664,3 +664,106 @@ def test_pipeline_selects_on_k2_as_on_the_plain_path(cuda):
         assert ops.launch_counts()["gmm_update"] == cfg.selector_tau
         assert torch.equal(b["tokens"], b_r["tokens"])
         assert torch.equal(b["domains"], b_r["domains"])
+
+
+# --------------------------------------------------------------------------
+# the batched final-stage engines and the observability guard on the card
+# --------------------------------------------------------------------------
+
+
+def _engine_ctx(device, kind, m=48, h=4, seed=0):
+    from repro_torch.core.matroid import TransversalMatroid, make_host_matroid
+    from repro_torch.core.solvers import SolveContext
+
+    rng = np.random.default_rng(seed)
+    P = rng.normal(size=(m, 6))
+    D = np.sqrt(((P[:, None] - P[None]) ** 2).sum(-1)).astype(np.float32)
+    if kind == "transversal":
+        cats = np.full((m, 2), -1, np.int32)
+        cats[:, 0] = rng.integers(0, h, m)
+        extra = rng.random(m) < 0.4
+        cats[extra, 1] = rng.integers(0, h, int(extra.sum()))
+        spec = MatroidSpec("transversal", num_categories=h, gamma=2)
+        return SolveContext(D=D, spec=spec, cats=cats, device=device,
+                            matroid_fn=lambda s: TransversalMatroid(cats, h))
+    cats = rng.integers(0, h, (m, 1)).astype(np.int32)
+    caps = np.full(h, 3, np.int32)
+    spec = MatroidSpec("partition", num_categories=h, gamma=1)
+    return SolveContext(
+        D=D, spec=spec, cats=cats, caps=caps, device=device,
+        matroid_fn=lambda s: make_host_matroid(spec, cats, caps, m, s.k))
+
+
+def _engine_specs(variant, m, n=8, seed=1):
+    from repro_torch.core.solvers import SolveSpec
+
+    rng = np.random.default_rng(seed)
+    return [SolveSpec(k=int(rng.integers(2, 9)), variant=variant,
+                      gamma=float(rng.choice([0.0, 0.01])),
+                      allow=rng.random(m) < 0.8) for _ in range(n)]
+
+
+@pytest.mark.parametrize("engine,variant", [("jit_sum", "sum"),
+                                            ("jit_greedy", "star"),
+                                            ("jit_greedy", "tree")])
+@pytest.mark.parametrize("kind", ["partition", "transversal"])
+def test_batched_engines_on_the_card_equal_the_cpu(cuda, engine, variant,
+                                                   kind):
+    """The batched engines sum the selection's distances exactly before
+    one rounding, so the card's run decides as the CPU's does."""
+    import dataclasses
+
+    from repro_torch.core.solvers import get_engine
+
+    ctx = _engine_ctx(cuda, kind)
+    specs = _engine_specs(variant, ctx.size)
+    got = get_engine(engine).solve_batch(ctx, specs)
+    want = get_engine(engine).solve_batch(
+        dataclasses.replace(ctx, device="cpu"), specs)
+    for a, b in zip(got, want):
+        assert a.local_indices.tolist() == b.local_indices.tolist()
+        assert a.value == b.value
+
+
+def test_stacked_lanes_on_the_card_equal_per_lane_solves(cuda):
+    import dataclasses
+
+    from repro_torch.core.solvers import JIT_SUM, solve_stacked
+
+    lanes = []
+    for t in range(3):
+        ctx = _engine_ctx(cuda, "partition", seed=10 + t)
+        lanes.append((ctx, _engine_specs("sum", ctx.size, n=1 + 3 * t,
+                                         seed=t)))
+    stacked = solve_stacked(lanes)
+    for (ctx, specs), sols in zip(lanes, stacked):
+        per_lane = JIT_SUM.solve_batch(ctx, specs)
+        cpu = JIT_SUM.solve_batch(dataclasses.replace(ctx, device="cpu"),
+                                  specs)
+        for a, b, c in zip(sols, per_lane, cpu):
+            assert a.local_indices.tolist() == b.local_indices.tolist()
+            assert a.local_indices.tolist() == c.local_indices.tolist()
+            assert a.value == b.value == c.value
+
+
+def test_obs_guard_raises_during_cuda_graph_capture(cuda):
+    from repro_torch import obs
+
+    reg = obs.MetricsRegistry()
+    c = reg.counter("captured")
+    buf = obs.TraceBuffer(capacity=4)
+    x = torch.ones(8, device=cuda)
+    y = x * 2  # warm up outside the capture
+    torch.cuda.synchronize()
+    with pytest.raises(obs.TracerLeakError):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            y = x * 2
+            c.inc()
+    with pytest.raises(obs.TracerLeakError):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            with buf.span("captured"):
+                y = x + 1
+    torch.cuda.synchronize()
+    assert c.value == 0 and buf.drain() == []
+    c.inc()  # outside the capture: host-side as ever
+    assert c.value == 1 and y.shape == x.shape

@@ -35,7 +35,11 @@ def test_port_files_exist():
     for f in ("models/model.py", "models/mamba.py", "serve/engine.py",
               "kernels/flash.py", "kernels/ssd.py", "train/optimizer.py",
               "train/train_state.py", "train/checkpoint.py",
-              "data/pipeline.py", "data/songs.py", "launch/train.py"):
+              "data/pipeline.py", "data/songs.py", "launch/train.py",
+              "obs/metrics.py", "obs/tracing.py", "obs/export.py",
+              "obs/torchprof.py", "core/solvers/jit_sum.py",
+              "core/solvers/jit_greedy.py", "core/solvers/stacked.py",
+              "core/solvers/cost_model.py", "core/solvers/matching.py"):
         assert f"src/repro_torch/{f}" in names
 
 
