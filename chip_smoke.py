@@ -72,7 +72,35 @@ exits non-zero:
                Launch counts are read around the phase, which
                runs after the stream and the timing, so it leaves no state
                in their numbers.
-9. ``lm``      the serving path of the LM stack at zamba2-7b's full width
+9. ``serve``   songs-sim served through ``DiversityService(metric=
+               "cosine", block_size=128)`` on the card, launch counts set
+               to 0 before it and read after its main path: ``warmup(d)``
+               (builds K3's and K1's libraries); tenants ``default``
+               (the genre caps), ``tight`` (caps halved, floor 1; it
+               shares ``default``'s entry when the keys are equal, which
+               the line prints) and ``uniform``; the first half in
+               batches of 16,384 host rows through ``ingest``, the rest
+               through ``submit`` while a second thread runs
+               ``query_batch`` on ``default``, then ``flush()``. Checks:
+               the published snapshot (``src_idx``, the epoch triple)
+               equals ``ingest_batch_donated`` called directly on the
+               same batches (each normalized on the card); every
+               concurrent answer names an epoch published before it
+               returned; ``min_epoch=flush()`` answers from the newest
+               epoch; 32 sum queries select with ``engine="auto"`` what
+               ``"host"`` selects, and ``host`` what ``final_solve``
+               selects on the snapshot's coreset; each tenant's D within
+               K1's tolerance of the plain pdist on its entry's points; a
+               second batch on one epoch launches no K1; K1's launches
+               equal the cache's builds; the first ingest after warmup
+               compiles nothing. Printed: ingest points/s through
+               ``ingest`` and ``submit`` + ``flush`` beside the
+               ``stream`` phase's, publish latency, materializations,
+               staleness p50/p99, K1 build seconds per tenant,
+               ``query_batch`` seconds at B = 1 and 32 for ``auto`` and
+               ``host`` (median of 3), the cost model's last decisions,
+               and whether the snapshot equals the ``stream`` phase's.
+10. ``lm``     the serving path of the LM stack at zamba2-7b's full width
                (81 Mamba2 layers, one shared attention block applied 13
                times, bf16, random weights from ``LM.init`` at ``--seed``):
                (a) K4 (flash forward) and K6 (SSD intra-chunk) against
@@ -101,7 +129,7 @@ exits non-zero:
                beside their plain versions, their bounds and (K4)
                ``scaled_dot_product_attention``, with K4's route (bf16:
                the tensor cores), TFLOP/s and kernel / library ratio.
-10. ``train``   the training path at smollm-135m's full width and depth
+11. ``train``   the training path at smollm-135m's full width and depth
                (bf16, random weights, batch 16 x 2,048, diverse selection
                on): (a) K5 (flash backward) against its plain version at
                test shapes, and K5 and K4 at one layer's own inputs,
@@ -1131,6 +1159,312 @@ def phase_engines(points, x_norm, sol, cats, caps, spec, k: int,
     return dict(launches=launches)
 
 
+def _serve_queries(rng, n: int, k_max: int, caps, genres: int) -> list:
+    """n sum queries as the ``engines`` phase draws them (k in [4, k_max],
+    caps at most the genre caps, gamma 0 or 0.01), with a category filter
+    of 3/4 of the genres in place of its row mask on every other one."""
+    import numpy as np
+    from repro_torch.serve.diversity import DiversityQuery
+
+    out = []
+    for i in range(n):
+        allowed = None if i % 2 == 0 else frozenset(
+            int(g) for g in rng.choice(genres, genres * 3 // 4,
+                                       replace=False))
+        out.append(DiversityQuery(
+            k=int(rng.integers(ENGINE_K_MIN, k_max + 1)),
+            caps=tuple(int(c) for c in rng.integers(1, np.asarray(caps) + 1)),
+            allowed_cats=allowed, gamma=float(rng.choice([0.0, 0.01]))))
+    return out
+
+
+def phase_serve(points, cats, caps, spec, k: int, tau: int, seed: int,
+                st_stream, stream_points_per_s: float) -> dict:
+    """songs-sim served through ``DiversityService`` (module docstring,
+    phase 9)."""
+    import threading
+    import types
+
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import (
+        MatroidSpec,
+        PartitionMatroid,
+        epoch_fingerprint,
+        epoch_stats,
+        final_solve,
+        geometry,
+        ingest_batch_donated,
+        init_stream_state,
+        snapshot_coreset,
+    )
+    from repro_torch.core.compose import compact_coreset
+    from repro_torch.core.final_solve import coreset_distance_matrix
+    from repro_torch.kernels import ops
+    from repro_torch.serve.diversity import (
+        DistanceCache,
+        DiversityQuery,
+        DiversityService,
+    )
+
+    t_phase = time.perf_counter()
+    # songs-sim on the host once, outside every timed window: a client's
+    # batches arrive on the host
+    P = points.cpu().numpy()
+    C = np.asarray(cats, np.int32).reshape(-1, 1)
+    n, d = P.shape
+    half = n // 2
+    first = [(a, min(half, a + INGEST_BATCH))
+             for a in range(0, half, INGEST_BATCH)]
+    rest = [(a, min(n, a + INGEST_BATCH)) for a in range(half, n, INGEST_BATCH)]
+    stream_cs = snapshot_coreset(st_stream)
+    stream_src = stream_cs.src_idx[stream_cs.valid].cpu().numpy()
+
+    # the cache's K1 builds on the card, each timed (synced)
+    builds = []
+
+    def k1_build(pts):
+        t0 = time.perf_counter()
+        D = coreset_distance_matrix(pts, device="cuda", host=False)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        return D
+
+    reg = obs.MetricsRegistry()
+    watch = obs.RecompileWatch()
+    history: dict[int, float] = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    svc = DiversityService(
+        spec, k, tau=tau, caps=caps, metric="cosine", block_size=BLOCK,
+        registry=reg, device="cuda",
+        cache=DistanceCache(k1_build, registry=reg, device="cuda"))
+    rt, fe = svc.runtime, svc.frontend
+    rt.on_publish = lambda snap: history.__setitem__(snap.epoch,
+                                                     snap.published_at)
+    t0 = time.perf_counter()
+    warm = svc.warmup(d=d)
+    warmup_s = time.perf_counter() - t0
+    warmup_events = watch.by_source()
+    tight_caps = np.maximum(np.asarray(caps) // 2, 1).astype(np.int32)
+    tenants = dict(default=fe.default_tenant,
+                   tight=fe.register_tenant("tight", caps=tight_caps),
+                   uniform=fe.register_tenant("uniform",
+                                              spec=MatroidSpec("uniform")))
+    tight_shares = tenants["tight"].key == tenants["default"].key
+    watch.reset()
+
+    # the first half through ingest()
+    ingest_s, first_ingest_events = 0.0, None
+    for a, b in first:
+        t0 = time.perf_counter()
+        svc.ingest(P[a:b], C[a:b])
+        torch.cuda.synchronize()
+        ingest_s += time.perf_counter() - t0
+        if first_ingest_events is None:
+            first_ingest_events = watch.by_source()
+    check(not first_ingest_events,
+          f"the first ingest after warmup compiled: {first_ingest_events}")
+    e_half = rt.refresh().epoch
+
+    # the rest through submit() while a second thread queries `default`
+    loop, loop_errors, stop = [], [], threading.Event()
+    loop_qs = [DiversityQuery(k=k)] * 4
+
+    def query_loop():
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                rs = fe.query_batch(loop_qs, engine="host")
+                loop.append((rs[0].epoch, time.monotonic(),
+                             time.perf_counter() - t0))
+        except BaseException as exc:  # surfaced by the check below
+            loop_errors.append(exc)
+
+    th = threading.Thread(target=query_loop, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    for a, b in rest:
+        rt.submit(P[a:b], C[a:b])
+    e_flush = fe.flush()
+    submit_s = time.perf_counter() - t0
+    stop.set()
+    th.join(120.0)
+    check(not th.is_alive() and not loop_errors,
+          f"the query loop failed: {loop_errors}")
+    check(len(loop) > 0, "the query loop answered nothing")
+    for e, t_ans, _dt in loop:
+        check(e in history and history[e] <= t_ans,
+              f"a concurrent answer named epoch {e}, unpublished when it "
+              f"was answered")
+    fresh = fe.query_batch([DiversityQuery(k=k)], min_epoch=e_flush,
+                           engine="host")[0]
+    newest = rt.latest()
+    check(fresh.epoch == newest.epoch >= e_flush,
+          f"min_epoch=flush() answered epoch {fresh.epoch}, newest "
+          f"{newest.epoch}")
+
+    # each tenant once on the newest epoch (K1 per cold key), then a
+    # second batch on the same epoch: no K1
+    per_tenant = {}
+    for name in tenants:
+        nb = len(builds)
+        t0 = time.perf_counter()
+        r = fe.query(DiversityQuery(k=k), tenant=name, engine="host")
+        per_tenant[name] = dict(
+            query_s=time.perf_counter() - t0, from_cache=r.from_cache,
+            k1_build_s=builds[-1] if len(builds) > nb else None,
+            size=r.coreset_size, diversity=r.diversity)
+    b0, k1_0 = svc.cache.stats.builds, ops.launch_counts()["pairwise_sqdist"]
+    for name in tenants:
+        fe.query_batch(loop_qs, tenant=name, engine="host")
+    check(svc.cache.stats.builds == b0
+          and ops.launch_counts()["pairwise_sqdist"] == k1_0,
+          "a second batch on the same epoch launched K1")
+
+    # query_batch at B = 1 and 32, auto and host (synced, median of 3)
+    qs = _serve_queries(np.random.default_rng(seed + 9), ENGINE_QUERIES, k,
+                        caps, int(np.asarray(caps).size))
+    timing, answers = {}, {}
+    for B in (1, ENGINE_QUERIES):
+        for engine in ("auto", "host"):
+            s, outs = _median_s(
+                lambda: fe.query_batch(qs[:B], engine=engine))
+            timing[f"{engine}_b{B}_s"] = s
+            answers[(engine, B)] = outs[0]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    main_path_s = time.perf_counter() - t_phase
+    check(launches["center_precheck"] >= -(-n // BLOCK),
+          f"K3 launched {launches['center_precheck']} times on the serve "
+          f"path")
+    check(launches["pairwise_sqdist"] == svc.cache.stats.builds >= 2,
+          f"K1 launches {launches['pairwise_sqdist']} != cache builds "
+          f"{svc.cache.stats.builds}")
+    auto_engines = sorted({r.engine
+                           for r in answers[("auto", ENGINE_QUERIES)]})
+
+    # checks off the counted path: the direct scan of the same batches,
+    # each step of a batch timed on its own (synced): the runtime's
+    # finite check, the copy to the card, the normalization, the scan
+    # and the fingerprint
+    snap = rt.latest()
+    st = init_stream_state(d, 1, spec, k, tau, device="cuda")
+    steps = dict(finite_check_s=0.0, copy_s=0.0, normalize_s=0.0,
+                 scan_s=0.0, fingerprint_s=0.0)
+
+    def timed(step, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[step] += time.perf_counter() - t0
+        return out
+
+    t0 = time.perf_counter()
+    for a, b in first + rest:
+        m = b - a
+        pad = -m % BLOCK
+        pts, cts = P[a:b], C[a:b]
+        timed("finite_check_s", lambda: bool(np.isfinite(pts).all()))
+        if pad:
+            pts = np.concatenate([pts, np.zeros((pad, d), np.float32)])
+            cts = np.concatenate([cts, np.full((pad, 1), -1, np.int32)])
+        x = timed("copy_s", lambda: torch.as_tensor(pts, device="cuda"))
+        pn = timed("normalize_s",
+                   lambda: geometry.normalize_for_metric(x, "cosine"))
+        st = timed("scan_s", lambda: ingest_batch_donated(
+            st, pn, cts, np.arange(m + pad) < m, spec, caps, k, tau,
+            base_index=a, block_size=BLOCK))
+        timed("fingerprint_s", lambda: epoch_fingerprint(st))
+    direct_s = time.perf_counter() - t0
+    _, _, direct_src = compact_coreset(snapshot_coreset(st))
+    triple = [int(v) for v in epoch_stats(rt.state)]
+    direct_triple = [int(v) for v in epoch_stats(st)]
+    check(np.array_equal(snap.src_idx, direct_src),
+          "the published snapshot is not the direct scan's")
+    check(triple == direct_triple,
+          f"epoch triple {triple} != the direct scan's {direct_triple}")
+    same_as_stream = bool(np.array_equal(snap.src_idx, stream_src))
+    stream_diff = None if same_as_stream else dict(
+        served=len(snap.src_idx), stream=len(stream_src),
+        only_served=sorted(set(snap.src_idx.tolist())
+                           - set(stream_src.tolist()))[:8],
+        only_stream=sorted(set(stream_src.tolist())
+                           - set(snap.src_idx.tolist()))[:8])
+
+    # auto against host on the same entry, query for query
+    t_def = tenants["default"]
+    entry = svc.cache.lookup(t_def.key, snap.fingerprint)
+    ctx = fe._solve_context(t_def, snap, entry)
+    specs = [fe._solve_spec(entry, q) for q in qs]
+
+    def sols(rs):
+        return [types.SimpleNamespace(local_indices=r.local_indices,
+                                      value=r.diversity) for r in rs]
+
+    auto_vs_host = _compare_sum(ctx, specs,
+                                sols(answers[("auto", ENGINE_QUERIES)]),
+                                sols(answers[("host", ENGINE_QUERIES)]),
+                                "serve auto vs host")
+    # host against core.final_solve on the snapshot's coreset
+    D = coreset_distance_matrix(snap.points, device="cuda")
+    fs_sel, fs_val = final_solve(D, PartitionMatroid(snap.cats[:, 0], caps),
+                                 k, "sum", engine="host", device="cuda")
+    check(fresh.local_indices.tolist() == fs_sel
+          and fresh.diversity == fs_val,
+          f"host selects {fresh.local_indices.tolist()}, final_solve "
+          f"{fs_sel}")
+    # each tenant's D against the plain pdist on its entry's points
+    k1_err = {}
+    for name, t in tenants.items():
+        e = svc.cache.lookup(t.key, snap.fingerprint)
+        check(e is not None and e.D.is_cuda, f"{name}: no entry on the card")
+        pts = torch.as_tensor(e.points, device="cuda")
+        want = ops.pairwise_sqdist(pts, pts, force="ref", device=pts.device)
+        got = e.D * e.D
+        k1_err[name] = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=1e-4, atol=1e-4)),
+              f"{name}: entry D off the plain pdist by {k1_err[name]}")
+    stale = reg.histogram("serve.epoch.staleness_s")
+    publish = reg.histogram("serve.epoch.publish_latency_s")
+    loop_s = sorted(dt for _e, _t, dt in loop)
+    svc.close()
+    watch.close()
+    emit(dict(
+        phase="serve", n=n, dim=d, k=k, tau=tau, block_size=BLOCK,
+        batch=INGEST_BATCH, metric="cosine", warmup=warm, warmup_s=warmup_s,
+        warmup_compile_events=warmup_events,
+        first_ingest_compile_events=first_ingest_events or {},
+        tight_shares_default_entry=tight_shares,
+        ingest_points_per_s=half / ingest_s, ingest_s=ingest_s,
+        submit_flush_points_per_s=(n - half) / submit_s,
+        submit_flush_s=submit_s,
+        stream_phase_points_per_s=stream_points_per_s,
+        epochs_published=rt.epochs_published, epoch_half=e_half,
+        epoch_flush=e_flush, newest_epoch=newest.epoch,
+        materializations=rt.snapshot_materializations,
+        publish_latency_s=publish.describe(),
+        staleness_s=dict(p50=stale.quantile(0.5), p99=stale.quantile(0.99),
+                         count=stale.count),
+        concurrent_queries=dict(
+            batches=len(loop), queries_a_batch=len(loop_qs),
+            epochs_seen=sorted({e for e, _t, _dt in loop}),
+            median_s=loop_s[len(loop_s) // 2], max_s=loop_s[-1]),
+        per_tenant=per_tenant, k1_builds_s=builds,
+        k1_entry_max_abs_err=k1_err, query_batch=timing,
+        auto_engines=auto_engines, auto_vs_host=auto_vs_host,
+        cost_model_decisions=fe.cost_model.decisions()[-8:],
+        coreset_size=snap.size, epoch_triple=triple,
+        snapshot_equals_direct_scan=True, direct_scan_s=direct_s,
+        direct_scan_steps_s=steps,
+        snapshot_equals_stream_phase=same_as_stream,
+        stream_phase_difference=stream_diff, launches=launches,
+        cache=svc.cache.stats.snapshot(), main_path_s=main_path_s,
+        seconds=time.perf_counter() - t_phase))
+    return dict(launches=launches)
+
+
 def _assert_states_equal(a, b, what: str) -> None:
     import torch
     from repro_torch.core import StreamState
@@ -1289,7 +1623,7 @@ def phase_stream(points, x_norm, cats, caps, spec, k: int, tau: int) -> dict:
         k3_cluster=precheck.last_plan, k3_main_path=k3_lines,
         k3_fused_main_path=fused_lines,
     ))
-    return dict(st=st_a, launches=launches,
+    return dict(st=st_a, launches=launches, points_per_s=n / stream_s,
                 k3_err=max(line["max_abs_err"] for line in k3_lines))
 
 
@@ -2255,6 +2589,8 @@ def main() -> int:
     # their numbers
     engines = phase_engines(points, x_norm, sol, cats, caps, spec, args.k,
                             args.seed)
+    serve = phase_serve(points, cats, caps, spec, args.k, args.tau,
+                        args.seed, stream["st"], stream["points_per_s"])
     del points, x_norm, cats, stream["st"]
     torch.cuda.empty_cache()
     lm = phase_lm(args.seed)
@@ -2266,6 +2602,7 @@ def main() -> int:
     per_path = {name: dict(sequential=launches[name],
                            engines=engines["launches"][name],
                            streaming=stream["launches"][name],
+                           serve=serve["launches"][name],
                            lm=lm["launches"][name],
                            train=train["launches"][name])
                 for name in launches}

@@ -77,7 +77,9 @@ def solution_from_arrays(arrays: Mapping[str, Any]) -> DMMCSolution:
 def stream_state_from_arrays(
     arrays: Mapping[str, Any], *, device: DeviceLike = CUDA
 ) -> streaming.StreamState:
-    """A scan state from the reference's ``state_to_arrays`` dict."""
+    """A scan state from the reference's ``state_to_arrays`` dict: one
+    state, or a stacked shard state (every field with a leading shard
+    axis), which ``core.streaming.ingest_batch_sharded`` continues."""
     return streaming.state_from_arrays(arrays, device=device)
 
 

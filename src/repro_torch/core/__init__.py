@@ -11,6 +11,9 @@ Reference: ``repro/core/__init__.py``. Ported so far:
     SolverEngine, register_engine, ...      -- solver-engine registry (host
                                                and batched engines)
     init_stream_state, ingest_batch, ...    -- streaming scan (Alg. 2, K3)
+    init_sharded_states, ingest_batch_sharded, resolve_placement
+                                            -- single-card sharded drives
+    union_coresets, snapshot_at_epoch, ...  -- composition (§3)
     solve_dmmc                              -- end-to-end entry point
                                                (sequential, streaming)
     diversity, torch_diversity, VARIANTS    -- Table-1 objectives
@@ -48,6 +51,7 @@ from .matroid import (
 )
 from .solve import DMMCSolution, solve_dmmc
 from .streaming import (
+    PLACEMENTS,
     STEP_IMPLS,
     StreamState,
     default_slot_cap,
@@ -55,12 +59,25 @@ from .streaming import (
     epoch_stats,
     ingest_batch,
     ingest_batch_donated,
+    ingest_batch_sharded,
+    ingest_batch_sharded_donated,
+    init_sharded_states,
     init_stream_state,
+    mesh_device_count,
+    resolve_placement,
     snapshot_coreset,
     state_from_arrays,
     state_to_arrays,
     stream_coreset,
     stream_coreset_host,
+)
+from .compose import (
+    compact_coreset,
+    merge_stream_states,
+    snapshot_at_epoch,
+    snapshot_shards,
+    union_coresets,
+    unstack_shards,
 )
 from .solvers import (
     SolveContext,
@@ -90,7 +107,11 @@ __all__ = [
     "default_slot_cap", "epoch_fingerprint", "epoch_stats", "ingest_batch",
     "ingest_batch_donated", "init_stream_state", "snapshot_coreset",
     "state_from_arrays", "state_to_arrays", "stream_coreset",
-    "stream_coreset_host", "SolveContext", "SolveSpec",
+    "stream_coreset_host", "PLACEMENTS", "ingest_batch_sharded",
+    "ingest_batch_sharded_donated", "init_sharded_states",
+    "mesh_device_count", "resolve_placement", "compact_coreset",
+    "merge_stream_states", "snapshot_at_epoch", "snapshot_shards",
+    "union_coresets", "unstack_shards", "SolveContext", "SolveSpec",
     "SolverEngine", "coverage_matrix", "exhaustive_best", "get_engine",
     "greedy_init", "local_search_sum", "register_engine",
     "registered_engines", "select_engine", "selection_value",

@@ -27,9 +27,11 @@ from .solvers import SolveContext, SolveSpec, resolve_engine, select_engine
 
 
 def coreset_distance_matrix(
-    points, *, force: Optional[str] = None, device: DeviceLike = CUDA
-) -> np.ndarray:
-    """(m, d) -> (m, m) f32 Euclidean distances via the tiled pdist kernel.
+    points, *, force: Optional[str] = None, device: DeviceLike = CUDA,
+    host: bool = True,
+):
+    """(m, d) -> (m, m) f32 Euclidean distances via the tiled pdist kernel:
+    a host array, or (``host=False``) the tensor on ``device``.
 
     ``sqrt(max(., 0))`` stays outside the kernel, as in the reference, and
     so does the diagonal: the matmul form leaves cancellation noise there
@@ -39,7 +41,8 @@ def coreset_distance_matrix(
     dev = resolve_device(device)
     pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
     d2 = kernel_ops.pairwise_sqdist(pts, pts, force=force, device=dev)
-    return torch.sqrt(torch.clamp_min(d2, 0.0)).cpu().numpy()
+    D = torch.sqrt(torch.clamp_min(d2, 0.0))
+    return D.cpu().numpy() if host else D
 
 
 class SubsetMatroidView(Matroid):

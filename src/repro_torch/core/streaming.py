@@ -29,10 +29,10 @@ How the JAX control flow became PyTorch:
   per-point scan; both give the same state.
 - The reference has two per-point steps: the branchless masked one, which
   exists so that ``vmap``/``shard_map`` lanes skip branches, and the
-  cond-ladder ``reference`` one. On a single placement in eager PyTorch
-  both reduce to the same real branches, so this module implements the
-  Alg.-2 semantics once and accepts both names in ``STEP_IMPLS``. The
-  masked form comes with the batched-lanes drive.
+  cond-ladder ``reference`` one. In eager PyTorch both reduce to the same
+  real branches, and the sharded drive runs its lanes one after another
+  on those branches, so this module implements the Alg.-2 semantics once
+  and accepts both names in ``STEP_IMPLS``.
 - The restructure merge visits the live delegates of dead centers only, in
   ascending (center, slot) order; HANDLE writes only to kept centers, so
   that list is fixed before the loop.
@@ -44,10 +44,17 @@ How the JAX control flow became PyTorch:
   a relative ``kernels.ref.SLACK`` of a decision boundary; a replay
   decides exactly, so this only adds replays.
 
-Not ported yet (ROADMAP step 7): the sharded drives
-(``init_sharded_states``, ``ingest_batch_sharded*``, ``resolve_placement``,
-``mesh_device_count``, ``ingest_batch_sharded_mapped``) and the masked step
-of batched lanes. General matroids use ``stream_coreset_host`` (numpy).
+The single-card sharded drives (reference :1036–1145):
+``init_sharded_states`` stacks S empty states along a leading shard
+axis; ``ingest_batch_sharded[_donated]`` drives the S lanes of that stack
+one after another over the same ``_Scan`` (each lane is a view of the
+stacked tensors, updated in place), so each shard's state is the state of
+``ingest_batch`` on its sub-stream alone, bit for bit. The reference's
+``vmap`` runs the lanes as one program; a single K3 launch across lanes
+is later work (ROADMAP §2). ``resolve_placement`` picks the drive; the
+``shard_map`` drive (``ingest_batch_sharded_mapped``) comes with
+``torch.distributed`` (ROADMAP step 11). General matroids use
+``stream_coreset_host`` (numpy).
 """
 from __future__ import annotations
 
@@ -581,6 +588,124 @@ def ingest_batch(st0: StreamState, *args, **kwargs) -> StreamState:
     is left as it was, as with the reference's non-donated call."""
     st = StreamState(*(t.clone() for t in st0))
     return ingest_batch_donated(st, *args, **kwargs)
+
+
+def init_sharded_states(
+    num_shards: int,
+    d: int,
+    gamma: int,
+    spec: MatroidSpec,
+    k: int,
+    tau: int,
+    *,
+    slot_cap: Optional[int] = None,
+    device: DeviceLike = CUDA,
+) -> StreamState:
+    """``num_shards`` empty scan states stacked along a leading shard axis
+    on ``device`` -- the carry of ``ingest_batch_sharded``."""
+    st = init_stream_state(d, gamma, spec, k, tau, slot_cap=slot_cap,
+                           device=device)
+    return StreamState(*(
+        t.unsqueeze(0).repeat((num_shards,) + (1,) * t.dim()) for t in st))
+
+
+def shard_lane(sts: StreamState, s: int) -> StreamState:
+    """Shard ``s`` of a stacked state, as views: writes to the lane land
+    in the stacked tensors."""
+    return StreamState(*(t[s] for t in sts))
+
+
+def ingest_batch_sharded_donated(
+    sts: StreamState,  # stacked: every field has a leading shard axis S
+    points,  # (S, m, d)
+    cats,  # (S, m, gamma)
+    valid,  # (S, m)
+    src,  # (S, m) global stream indices
+    spec: MatroidSpec,
+    caps,
+    k: int,
+    tau: int,
+    *,
+    variant: str = "radius",
+    eps: float = 0.5,
+    c_const: int = 32,
+    block_size: int = 128,
+    step_impl: str = "branchless",
+    force: Optional[str] = None,
+) -> StreamState:
+    """Every shard runs its own Alg.-2 scan over its row of the batch, in
+    place (the stacked state passed in is consumed). Per-shard results are
+    bit-identical to ``ingest_batch`` on that shard's sub-stream alone
+    (paper §3: coresets of a partition compose by union)."""
+    S = sts.cvalid.shape[0]
+    points = torch.as_tensor(points, dtype=torch.float32,
+                             device=sts.centers.device)
+    if points.dim() != 3 or points.shape[0] != S:
+        raise ValueError(f"points must be (S={S}, m, d), got "
+                         f"{tuple(points.shape)}")
+    cats = _host(cats, np.int32).reshape(S, points.shape[1], -1)
+    valid = _host(valid, bool).reshape(S, -1)
+    src = _host(src, np.int32).reshape(S, -1)
+    for s in range(S):
+        _ingest_core(shard_lane(sts, s), points[s], cats[s], valid[s],
+                     src[s], spec, caps, k, tau, variant, eps, c_const,
+                     block_size, step_impl, force)
+    return sts
+
+
+def ingest_batch_sharded(sts: StreamState, *args, **kwargs) -> StreamState:
+    """``ingest_batch_sharded_donated`` on a copy of the stacked state."""
+    return ingest_batch_sharded_donated(
+        StreamState(*(t.clone() for t in sts)), *args, **kwargs)
+
+
+PLACEMENTS = ("auto", "vmap", "shard_map", "pipeline")
+
+
+def resolve_placement(placement: str, num_shards: int,
+                      device: DeviceLike = CUDA) -> str:
+    """Resolve the sharded-ingest drive (reference ``resolve_placement``).
+
+    ``vmap``      the batch dealt row by row round-robin over a stacked
+                  state on one device, its lanes driven in turn;
+    ``pipeline``  whole batches dealt round-robin over a list of per-shard
+                  states (on one card they all live on that card); each
+                  ingest is the plain blocked scan of one shard;
+    ``shard_map`` per-device shard groups: raises ``NotImplementedError``
+                  until ``torch.distributed`` comes (ROADMAP step 11).
+
+    ``auto``: ``vmap`` for one shard, ``pipeline`` on the CPU, otherwise
+    ``vmap`` (a one-card machine never reaches ``shard_map``).
+    """
+    if placement not in PLACEMENTS:
+        raise ValueError(
+            f"placement must be one of {PLACEMENTS}, got {placement!r}")
+    if placement == "shard_map":
+        raise NotImplementedError(
+            "placement='shard_map' (per-device shard groups) comes with "
+            "torch.distributed in ROADMAP step 11; use 'vmap' or "
+            "'pipeline'")
+    if placement != "auto":
+        return placement
+    if num_shards <= 1:
+        return "vmap"
+    if torch.device(device).type == "cpu":
+        return "pipeline"
+    return "vmap"
+
+
+def mesh_device_count(num_shards: int,
+                      n_devices: Optional[int] = None) -> int:
+    """Largest device count <= ``n_devices`` (default: the visible cards,
+    at least 1) that divides ``num_shards``: each device must own an equal,
+    whole number of shard states."""
+    if n_devices is None:
+        n_devices = (torch.cuda.device_count()
+                     if torch.cuda.is_available() else 1)
+    nd = max(1, min(int(n_devices), int(num_shards)))
+    while num_shards % nd:
+        nd -= 1
+    return nd
 
 
 def stream_coreset(

@@ -11,6 +11,11 @@ reused. Each build (a cache miss) is a compile event of ``obs.torchprof``
 falls back to another path. There
 is no Pallas-compat layer to port: ``repro/kernels/compat.py`` only papers
 over Pallas API drift.
+
+Thread-safe: the serving runtime's ingest worker and query callers can
+reach a library's first use at once. A per-name lock lets one thread
+build while the others wait, and the temporary output is named by
+process and thread, so two threads never write one file.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -33,6 +39,13 @@ NVCC_FLAGS = [
 
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}  # source name -> nvcc/ptxas output
+_locks: dict[str, threading.Lock] = {}
+_locks_mu = threading.Lock()
+
+
+def _lock(name: str) -> threading.Lock:
+    with _locks_mu:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def _nvcc() -> str:
@@ -47,8 +60,16 @@ def _nvcc() -> str:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (builds on first use)."""
-    if name in _libs:
-        return _libs[name]
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock(name):
+        if name not in _libs:
+            _libs[name] = _build(name)
+    return _libs[name]
+
+
+def _build(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise RuntimeError(f"no CUDA source csrc/{name}.cu")
@@ -59,7 +80,8 @@ def library(name: str) -> ctypes.CDLL:
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -73,5 +95,4 @@ def library(name: str) -> ctypes.CDLL:
             )
         os.replace(tmp, out)
         report_compile("nvcc", time.perf_counter() - t0)
-    _libs[name] = ctypes.CDLL(str(out))
-    return _libs[name]
+    return ctypes.CDLL(str(out))

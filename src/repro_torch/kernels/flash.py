@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import LAUNCH_MU, _build
 
 launches = 0  # K4 launches since the last reset (see ops.reset_launches)
 bwd_launches = 0  # K5 launches (one dq and one dk/dv kernel each)
@@ -127,8 +127,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     )
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError {err}")
-    launches += 1
-    last_route["fwd"] = _route("flash_fwd", (q, k, v, o))
+    route = _route("flash_fwd", (q, k, v, o))
+    with LAUNCH_MU:
+        launches += 1
+        last_route["fwd"] = route
     return o, lse
 
 
@@ -186,6 +188,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"flash backward kernel launch failed: cudaError {err}")
-    bwd_launches += 1
-    last_route["bwd"] = _route("flash_bwd", (q, k, v, do, dq, dk, dv))
+    route = _route("flash_bwd", (q, k, v, do, dq, dk, dv))
+    with LAUNCH_MU:
+        bwd_launches += 1
+        last_route["bwd"] = route
     return dq, dk, dv

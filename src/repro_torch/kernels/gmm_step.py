@@ -31,6 +31,7 @@ import time
 import torch
 
 from ..obs.torchprof import report_compile
+from . import LAUNCH_MU
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
 
@@ -142,7 +143,8 @@ def gmm_update(
             BLOCK_N=BLOCK_N, BLOCK_D=block_d(d),
             num_warps=NUM_WARPS, num_stages=NUM_STAGES,
         )
-    launches += 1
+    with LAUNCH_MU:
+        launches += 1
     if _cached_kernels(kernel) > cached:
         report_compile("triton", time.perf_counter() - t0)
     blk = torch.argmax(bv)

@@ -35,6 +35,7 @@ from . import precheck as _precheck
 from . import ref as _ref
 from . import ssd as _ssd
 from ..device import CUDA, DeviceLike, resolve_device
+from . import LAUNCH_MU
 
 # op name -> (wrapper module, name of its launch counter)
 _KERNELS = {"pairwise_sqdist": (_pdist, "launches"),
@@ -248,9 +249,12 @@ def ssd_intra_chunk(xbar, loga, B, C, *, force: Optional[str] = None,
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per op since the last ``reset_launches``."""
-    return {name: getattr(mod, attr) for name, (mod, attr) in _KERNELS.items()}
+    with LAUNCH_MU:
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launches() -> None:
-    for mod, attr in _KERNELS.values():
-        setattr(mod, attr, 0)
+    with LAUNCH_MU:
+        for mod, attr in _KERNELS.values():
+            setattr(mod, attr, 0)

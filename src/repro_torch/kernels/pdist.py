@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import LAUNCH_MU, _build
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
 last_route: str | None = None  # "sym" or "full"
@@ -91,6 +91,7 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"pdist kernel launch failed: cudaError {err}")
-    launches += 1
-    last_route, last_splits = ("sym" if sym else "full"), splits
+    with LAUNCH_MU:
+        launches += 1
+        last_route, last_splits = ("sym" if sym else "full"), splits
     return out

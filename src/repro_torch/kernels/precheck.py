@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import LAUNCH_MU, _build
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
 last_plan: dict = {}  # the split of the latest launch (see _plan)
@@ -146,8 +146,9 @@ def center_precheck_stats(block: torch.Tensor, centers: torch.Tensor,
         dmin.data_ptr(), z.data_ptr(), second.data_ptr(), z2.data_ptr(),
         third.data_ptr(), B, T, d, plan["S"], plan["chunk"], dev.index,
         torch.cuda.current_stream(dev).cuda_stream))
-    launches += 1
-    last_plan = plan
+    with LAUNCH_MU:
+        launches += 1
+        last_plan = plan
     return dmin, z, second, z2, third
 
 
@@ -171,6 +172,7 @@ def block_precheck(block: torch.Tensor, centers: torch.Tensor,
         None if x1 is None else x1.data_ptr(), out.data_ptr(), B, T, d,
         plan["S"], plan["chunk"], thr, slack_thr, r2, slack_r2, dev.index,
         torch.cuda.current_stream(dev).cuda_stream))
-    launches += 1
-    last_plan = plan
+    with LAUNCH_MU:
+        launches += 1
+        last_plan = plan
     return out

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import LAUNCH_MU, _build
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
 last_route: str | None = None  # "shared_bc" or "per_cell"
@@ -120,6 +120,7 @@ def ssd_intra_chunk(xbar: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
     )
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: cudaError {err}")
-    launches += 1
-    last_route = "shared_bc" if shared else "per_cell"
+    with LAUNCH_MU:
+        launches += 1
+        last_route = "shared_bc" if shared else "per_cell"
     return y, state

@@ -767,3 +767,52 @@ def test_obs_guard_raises_during_cuda_graph_capture(cuda):
     assert c.value == 0 and buf.drain() == []
     c.inc()  # outside the capture: host-side as ever
     assert c.value == 1 and y.shape == x.shape
+
+
+def test_service_on_the_card_equals_the_cpu(cuda):
+    """``DiversityService`` on the card: ingest and submit launch K3, a
+    cold tenant entry launches K1 once (a warm one none), the entry's D
+    stays on the card, and the stream, its epochs and the host engine's
+    selections equal the same service on the CPU."""
+    from repro_torch.serve.diversity import DiversityQuery, DiversityService
+
+    rng = np.random.default_rng(0)
+    base = rng.normal(size=(12, 64)) * 3.0
+    P = (base[rng.integers(0, 12, 3000)]
+         + 0.05 * rng.normal(size=(3000, 64))).astype(np.float32)
+    cats = rng.integers(0, 4, (3000, 1)).astype(np.int32)
+    caps = np.full(4, 3, np.int32)
+    spec = MatroidSpec("partition", num_categories=4, gamma=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        svc = DiversityService(spec, 6, tau=16, caps=caps, device=dev)
+        svc.frontend.register_tenant("cos", metric="cosine")
+        ops.reset_launches()
+        for off in range(0, 1500, 500):
+            svc.ingest(P[off:off + 500], cats[off:off + 500])
+        for off in range(1500, 3000, 500):
+            svc.runtime.submit(P[off:off + 500], cats[off:off + 500])
+        epoch = svc.runtime.flush()
+        qs = [DiversityQuery(k=kk) for kk in (3, 6)]
+        res = {t: svc.frontend.query_batch(qs, tenant=t, engine="host",
+                                           min_epoch=epoch)
+               for t in ("default", "cos")}
+        launches = ops.launch_counts()
+        svc.frontend.query_batch(qs, tenant="cos", engine="host")
+        warm = ops.launch_counts()
+        entry = svc.cache.lookup(svc.frontend.tenants.get("cos").key,
+                                 svc.runtime.fingerprint)
+        out[dev] = (svc, epoch, res, launches, warm, entry)
+        svc.close()
+    svc, epoch, res, launches, warm, entry = out["cuda"]
+    csvc, cepoch, cres, _, _, _ = out["cpu"]
+    assert launches["center_precheck"] >= 3000 // 128
+    assert launches["pairwise_sqdist"] == svc.cache.stats.builds == 2
+    assert warm == launches  # the warm entry launched nothing
+    assert entry.D.is_cuda
+    assert epoch == cepoch
+    assert svc.runtime.fingerprint == csvc.runtime.fingerprint
+    assert np.array_equal(svc.snapshot()[2], csvc.snapshot()[2])
+    for t in res:
+        for a, b in zip(res[t], cres[t]):
+            assert a.indices.tolist() == b.indices.tolist(), t

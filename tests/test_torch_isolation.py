@@ -39,7 +39,12 @@ def test_port_files_exist():
               "obs/metrics.py", "obs/tracing.py", "obs/export.py",
               "obs/torchprof.py", "core/solvers/jit_sum.py",
               "core/solvers/jit_greedy.py", "core/solvers/stacked.py",
-              "core/solvers/cost_model.py", "core/solvers/matching.py"):
+              "core/solvers/cost_model.py", "core/solvers/matching.py",
+              "core/compose.py", "serve/diversity/__init__.py",
+              "serve/diversity/query.py", "serve/diversity/cache.py",
+              "serve/diversity/tenants.py", "serve/diversity/faults.py",
+              "serve/diversity/runtime.py", "serve/diversity/frontend.py",
+              "serve/diversity/service.py"):
         assert f"src/repro_torch/{f}" in names
 
 

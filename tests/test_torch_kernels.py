@@ -271,3 +271,63 @@ def test_precheck_splits():
                  for s in range(S)]
         assert sum(sizes) == d
         assert sizes == sorted(sizes, reverse=True)
+
+
+def test_library_builds_once_from_many_threads(tmp_path, monkeypatch):
+    """Threads reaching a library's first use at once (the serving
+    runtime's ingest worker and query callers) run the compiler once,
+    share the loaded library and leave no temporary file behind."""
+    import sys
+    import threading
+    import types
+
+    from repro_torch import obs
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "fake.cu").write_text("// a source\n")
+    runs = tmp_path / "runs"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\nimport sys, time\n"
+        f"open({str(runs)!r}, 'a').write('x')\n"
+        "time.sleep(0.3)\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').close()\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "ctypes",
+                        types.SimpleNamespace(CDLL=lambda path: object()))
+    monkeypatch.setattr(_build, "_libs", {})
+    watch = obs.RecompileWatch()
+    n_threads = 8
+    barrier = threading.Barrier(n_threads)
+    got, errors = [], []
+
+    def use():
+        try:
+            barrier.wait()
+            got.append(_build.library("fake"))
+        except BaseException as exc:  # pragma: no cover - surfaced below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=use) for _ in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(30.0)
+        assert not any(th.is_alive() for th in threads)
+        assert not errors
+        assert len(got) == n_threads and all(g is got[0] for g in got)
+        assert runs.read_text() == "x"  # one compiler run
+        assert watch.by_source() == {"nvcc": 1}
+        built = sorted(p.name for p in (tmp_path / "build").iterdir())
+        assert len(built) == 1 and built[0].endswith(".so")
+    finally:
+        sys.setswitchinterval(interval)
+        watch.close()
