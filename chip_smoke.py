@@ -100,7 +100,43 @@ exits non-zero:
                ``query_batch`` seconds at B = 1 and 32 for ``auto`` and
                ``host`` (median of 3), the cost model's last decisions,
                and whether the snapshot equals the ``stream`` phase's.
-10. ``lm``     the serving path of the LM stack at zamba2-7b's full width
+10. ``durable`` songs-sim (the ``serve`` phase's batches) served by a
+               ``ReplicaSet`` on the card: a primary and one hot standby,
+               each with its own write-ahead log and checkpoints
+               (``checkpoint_every=4, keep=2``) in a ``tempfile.mkdtemp()``
+               directory (its free space printed; removed at the end),
+               through the coalescing frontend, tenants ``default`` and
+               ``uniform``, launch counts set to 0 before it. The batches
+               go in through ``rs.submit`` while 8 threads run
+               ``rs.query_batch`` (4 sum queries each, both tenants); a
+               seeded ``FaultRule(site="worker.loop", kind="crash")`` kills
+               the primary's worker half-way, and the set fails over to
+               the standby (a read of the dead primary before the
+               promotion is retried, and counted). Checks: the crash fired,
+               ``last_failover`` names the promotion, ``n_offered`` is n
+               and every acknowledged batch applied; the promoted
+               primary's snapshot (``src_idx``, epoch triple) equals the
+               ``serve`` phase's direct scan; every concurrent answer
+               names an epoch published before it returned; 32 host
+               queries from 8 threads through the coalescer select what a
+               single caller's direct path selects, query for query, on
+               one epoch, with groups of more than one call on average;
+               ``IntegrityAuditor`` is clean, and a swapped-in entry whose
+               ``D`` on the card, then whose ``D_host``, is off by +10 is
+               a ``pdist`` violation; ``HealthMonitor.probe()`` is
+               healthy; after ``rs.close()``, ``DiversityService.restore``
+               of the promoted replica's directory, as closed and then
+               with its newest checkpoint torn (the older checkpoint and
+               the log's tail), equals the direct scan, launches K3 at
+               least once a replayed block and answers as the promoted
+               primary did. Printed: durable ingest points/s beside the
+               ``serve`` phase's, WAL bytes, append seconds (crc + write)
+               a batch, compactions, checkpoints with bytes and save ms,
+               standby lag, failover seconds, restore seconds, coalescing
+               (groups, calls a group, queue wait p50/p99, stacked
+               solves, stale reads) and ``query_batch`` latency under
+               coalescing beside the ``serve`` phase's direct path.
+11. ``lm``     the serving path of the LM stack at zamba2-7b's full width
                (81 Mamba2 layers, one shared attention block applied 13
                times, bf16, random weights from ``LM.init`` at ``--seed``):
                (a) K4 (flash forward) and K6 (SSD intra-chunk) against
@@ -129,7 +165,7 @@ exits non-zero:
                beside their plain versions, their bounds and (K4)
                ``scaled_dot_product_attention``, with K4's route (bf16:
                the tensor cores), TFLOP/s and kernel / library ratio.
-11. ``train``   the training path at smollm-135m's full width and depth
+12. ``train``   the training path at smollm-135m's full width and depth
                (bf16, random weights, batch 16 x 2,048, diverse selection
                on): (a) K5 (flash backward) against its plain version at
                test shapes, and K5 and K4 at one layer's own inputs,
@@ -1462,6 +1498,387 @@ def phase_serve(points, cats, caps, spec, k: int, tau: int, seed: int,
         stream_phase_difference=stream_diff, launches=launches,
         cache=svc.cache.stats.snapshot(), main_path_s=main_path_s,
         seconds=time.perf_counter() - t_phase))
+    # the durable phase serves the same batches and holds its replicas to
+    # this direct scan
+    return dict(launches=launches, P=P, C=C, spans=first + rest,
+                direct_src=direct_src, direct_triple=direct_triple,
+                ingest_points_per_s=half / ingest_s,
+                submit_flush_points_per_s=(n - half) / submit_s,
+                query_batch=timing,
+                concurrent_median_s=loop_s[len(loop_s) // 2])
+
+
+DURABLE_QUERY_THREADS, DURABLE_QUERIES = 8, 4
+DURABLE_CKPT_EVERY, DURABLE_KEEP = 4, 2
+
+
+def _timed_method(obj, name: str, log: list) -> None:
+    """Wrap ``obj.name`` so each call appends its seconds to ``log``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log.append(time.perf_counter() - t0)
+
+    setattr(obj, name, timed)
+
+
+def phase_durable(spec, caps, k: int, tau: int, seed: int, serve: dict,
+                  stream_points_per_s: float) -> dict:
+    """songs-sim served by a primary and a hot standby with logs and
+    checkpoints, through the coalescing frontend (module docstring,
+    phase 10)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import MatroidSpec, epoch_stats
+    from repro_torch.kernels import ops
+    from repro_torch.serve.diversity import (
+        DiversityQuery,
+        DiversityService,
+        DurabilityConfig,
+        FaultPlan,
+        FaultPolicy,
+        FaultRule,
+        HealthMonitor,
+        IntegrityAuditor,
+        ReplicaSet,
+        list_checkpoints,
+    )
+    from repro_torch.serve.diversity import runtime as runtime_mod
+
+    t_phase = time.perf_counter()
+    P, C, spans = serve["P"], serve["C"], serve["spans"]
+    n = P.shape[0]
+    genres = int(np.asarray(caps).size)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_durable-")
+    saves = []  # (seconds, bytes) of each checkpoint file written
+    save_checkpoint = runtime_mod.save_checkpoint
+
+    def timed_save(path, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = save_checkpoint(path, *args, **kwargs)
+        saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+        return out
+
+    runtime_mod.save_checkpoint = timed_save
+    try:
+        free = shutil.disk_usage(tmp)
+        reg = obs.MetricsRegistry()
+        crash_at = len(spans) // 2
+        plan = FaultPlan(seed, [FaultRule(site="worker.loop", kind="crash",
+                                          after=crash_at, times=1)])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        rs = ReplicaSet.create(
+            spec, k, tau=tau, caps=caps, metric="cosine", block_size=BLOCK,
+            dir=tmp, n_standbys=1, registry=reg, faults=plan,
+            fault_policy=FaultPolicy(max_worker_restarts=0),
+            durability=DurabilityConfig(dir="",
+                                        checkpoint_every=DURABLE_CKPT_EVERY,
+                                        keep=DURABLE_KEEP),
+            device="cuda")
+        rs.register_tenant("uniform", spec=MatroidSpec("uniform"))
+        replicas = [rs.primary] + rs.standbys
+        # every publication of either replica, by epoch: the earliest
+        # publish stamp (taken before the snapshot is visible)
+        published: dict[int, float] = {}
+        pub_mu = threading.Lock()
+
+        def on_publish(snap):
+            with pub_mu:
+                t = published.get(snap.epoch, math.inf)
+                published[snap.epoch] = min(t, snap.published_at)
+
+        appends = {r.name: [] for r in replicas}
+        compactions = {r.name: [] for r in replicas}
+        for r in replicas:
+            r.runtime.on_publish = on_publish
+            _timed_method(r.runtime._wal, "append", appends[r.name])
+            _timed_method(r.runtime._wal, "compact", compactions[r.name])
+
+        # 8 query threads on both tenants while the stream goes in
+        rng = np.random.default_rng(seed + 10)
+        thread_qs = []
+        for i in range(DURABLE_QUERY_THREADS):
+            if i % 2 == 0:
+                thread_qs.append(("default", _serve_queries(
+                    rng, DURABLE_QUERIES, k, caps, genres)))
+            else:
+                thread_qs.append(("uniform", [
+                    DiversityQuery(k=int(rng.integers(ENGINE_K_MIN, k + 1)))
+                    for _ in range(DURABLE_QUERIES)]))
+        answers, retried, errors = [], [], []
+        ans_mu = threading.Lock()
+        stop = threading.Event()
+
+        def query_loop(tenant, qs):
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    rs_ = rs.query_batch(qs, tenant=tenant)
+                except RuntimeError as exc:
+                    # between the primary's death and the promotion a
+                    # read of the dead primary raises; a client retries
+                    if plan.fired("worker.loop") and (
+                            "ingest worker failed" in str(exc)
+                            or "closed" in str(exc)):
+                        with ans_mu:
+                            retried.append(repr(exc))
+                        continue
+                    errors.append(exc)
+                    return
+                except BaseException as exc:  # surfaced by the check below
+                    errors.append(exc)
+                    return
+                t_ans = time.monotonic()
+                with ans_mu:
+                    answers.append((rs_[0].epoch, t_ans,
+                                    time.perf_counter() - t0))
+
+        threads = [threading.Thread(target=query_loop, args=tq, daemon=True)
+                   for tq in thread_qs]
+        t0 = time.perf_counter()
+        for i, (a, b) in enumerate(spans):
+            rs.submit(P[a:b], C[a:b])
+            rs.observe_lag()
+            if i == 0:  # the readers start on the first published epoch
+                rs.flush()
+                for th in threads:
+                    th.start()
+        e_flush = rs.flush()
+        ingest_s = time.perf_counter() - t0
+        stop.set()
+        for th in threads:
+            th.join(300.0)
+        check(not any(th.is_alive() for th in threads) and not errors,
+              f"the durable query threads failed: {errors}")
+        check(len(answers) > 0, "the durable query threads answered nothing")
+        # the crash fired and the standby took over with every acked batch
+        check(plan.fired("worker.loop") == 1,
+              "the primary's crash did not fire")
+        fo = rs.last_failover
+        check(fo is not None and fo["promoted"] == "standby-0"
+              and rs.primary.name == "standby-0",
+              f"no promotion after the crash: {fo}")
+        prt = rs.primary.runtime
+        check(prt.n_offered == n and prt._applied_seq == rs.acked_seq
+              and rs.stats()["acked_batches"] == len(spans),
+              f"n_offered {prt.n_offered} != {n} or applied seq "
+              f"{prt._applied_seq} != acked {rs.acked_seq}")
+        snap = prt.latest()
+        triple = [int(v) for v in epoch_stats(prt.state)]
+        check(np.array_equal(snap.src_idx, serve["direct_src"])
+              and triple == serve["direct_triple"],
+              f"the promoted primary's snapshot is not the direct scan's "
+              f"(triple {triple} vs {serve['direct_triple']})")
+        check(not rs.standbys, "a standby remains after the failover")
+        for e, t_ans, _dt in answers:
+            check(published.get(e, math.inf) <= t_ans,
+                  f"a concurrent answer named epoch {e}, unpublished when "
+                  f"it was answered")
+
+        # coalesced against direct: 32 host queries from 8 threads, then
+        # the same 32 from one caller, on the same epoch
+        fe = rs.primary.frontend
+        groups0 = reg.counter("serve.coalesce.groups").value
+        calls = [(t, list(qs)) for t, qs in thread_qs]
+        co_out = [None] * len(calls)
+        barrier = threading.Barrier(len(calls))
+
+        def coalesced(i, tenant, qs):
+            barrier.wait()
+            co_out[i] = fe.query_batch(qs, tenant=tenant, engine="host")
+
+        cths = [threading.Thread(target=coalesced, args=(i, t, qs))
+                for i, (t, qs) in enumerate(calls)]
+        t0 = time.perf_counter()
+        for th in cths:
+            th.start()
+        for th in cths:
+            th.join(300.0)
+        coalesced_s = time.perf_counter() - t0
+        check(all(o is not None for o in co_out),
+              "a coalesced caller got no answer")
+        solo0 = reg.counter("serve.coalesce.solo").value
+        t0 = time.perf_counter()
+        direct = {t: fe.query_batch(
+            [q for tt, qs in calls if tt == t for q in qs], tenant=t,
+            engine="host") for t in ("default", "uniform")}
+        direct_s = time.perf_counter() - t0
+        check(reg.counter("serve.coalesce.solo").value == solo0 + 2,
+              "the single caller did not take the direct path")
+        pos = {"default": 0, "uniform": 0}
+        for (t, qs), out in zip(calls, co_out):
+            for q, got in zip(qs, out):
+                want = direct[t][pos[t]]
+                pos[t] += 1
+                check(got.indices.tolist() == want.indices.tolist()
+                      and got.diversity == want.diversity
+                      and got.epoch == want.epoch == e_flush,
+                      f"{t}: coalesced {got.indices.tolist()} (epoch "
+                      f"{got.epoch}) != direct {want.indices.tolist()} "
+                      f"(epoch {want.epoch})")
+        gcalls = reg.histogram("serve.coalesce.group_calls")
+        check(reg.counter("serve.coalesce.groups").value > 0
+              and gcalls.count and gcalls.sum / gcalls.count > 1.0,
+              f"no coalescing: {gcalls.describe()}")
+
+        # audit: clean; a swapped-in entry off by +10 on the card, then
+        # on the host, is a pdist violation; the entry goes back
+        aud = IntegrityAuditor(rs)
+        reports = aud.audit_once()
+        check(all(r.ok for r in reports),
+              f"audit: {[r.violations for r in reports]}")
+        cache = fe.cache
+        key = fe.default_tenant.key
+        entry = cache.lookup(key, snap.fingerprint)
+        check(entry is not None and entry.D.is_cuda,
+              "no default entry on the card")
+        caught = {}
+        for where in ("card", "host"):
+            bad = dataclasses.replace(
+                entry, D=entry.D + 10.0 if where == "card" else entry.D,
+                D_host=entry.D_host + 10.0 if where == "host"
+                else entry.D_host)
+            with cache._mu:
+                cache._entries[key] = bad
+            try:
+                viol = [v for r in aud.audit_once() for v in r.violations
+                        if v.startswith("pdist")]
+            finally:
+                with cache._mu:
+                    cache._entries[key] = entry
+            check(bool(viol), f"a corrupt D on the {where} went unseen")
+            caught[where] = viol[0]
+        check(all(r.ok for r in aud.audit_once()),
+              "the audit is not clean after the entry went back")
+        health = HealthMonitor(rs).probe()
+        check(health["healthy"], f"unhealthy after the failover: {health}")
+        want_q = [DiversityQuery(k=k)] + _serve_queries(
+            np.random.default_rng(seed + 11), 3, k, caps, genres)
+        promoted_ans = fe.query_batch(want_q, engine="host")
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        main_path_s = time.perf_counter() - t_phase
+        check(launches["center_precheck"] >= 1
+              and launches["pairwise_sqdist"] >= 1,
+              f"K3 or K1 not launched on the durable path: {launches}")
+
+        stats = rs.stats()
+        lag = reg.histogram("serve.replication.lag_batches")
+        failover_s = reg.histogram("serve.replication.failover_s")
+        wait = reg.histogram("serve.coalesce.queue_wait_s")
+        wal_bytes = reg.counter("serve.wal.bytes").value
+        ckpt_saved = reg.counter("serve.ckpt.saved").value
+        qlat = sorted(dt for _e, _t, dt in answers)
+        promoted_dir = os.path.join(tmp, "standby-0")
+        rs.close()
+        rs_saves = list(saves)  # the set's, its parting save included
+
+        # restore the promoted replica's directory, as closed, then with
+        # its newest checkpoint torn (the older one and the log's tail)
+        restores = []
+        for torn in (False, True):
+            if torn:
+                newest = list_checkpoints(promoted_dir)[-1]
+                with open(newest, "r+b") as f:
+                    f.truncate(64)
+            k3_0 = ops.launch_counts()["center_precheck"]
+            t0 = time.perf_counter()
+            svc = DiversityService.restore(promoted_dir, device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            rep = svc.runtime.restore_report
+            k3 = ops.launch_counts()["center_precheck"] - k3_0
+            rsnap = svc.runtime.latest()
+            rtriple = [int(v) for v in epoch_stats(svc.runtime.state)]
+            check(np.array_equal(rsnap.src_idx, serve["direct_src"])
+                  and rtriple == serve["direct_triple"],
+                  f"restore (torn={torn}) is not the direct scan")
+            check(rep["checkpoint"] is not None
+                  and svc.runtime.state.dp.is_cuda
+                  and (rep["replayed_batches"] >= 1 or not torn),
+                  f"restore (torn={torn}): {rep}")
+            blocks = sum(-(-int(b - a) // BLOCK) for a, b in spans
+                         [len(spans) - rep["replayed_batches"]:])
+            check(k3 >= blocks,
+                  f"K3 launched {k3} times restoring {blocks} blocks")
+            got_q = svc.query_batch(want_q, engine="host")
+            check([r.indices.tolist() for r in got_q]
+                  == [r.indices.tolist() for r in promoted_ans],
+                  f"the restored service (torn={torn}) selects otherwise")
+            restores.append(dict(
+                torn_newest=torn, checkpoint=os.path.basename(
+                    rep["checkpoint"]),
+                replayed_batches=rep["replayed_batches"],
+                replayed_points=rep["replayed_points"],
+                restore_s=rep["restore_s"], wall_s=wall_s,
+                k3_launches=k3, replayed_blocks=blocks))
+            svc.close()
+        launches = ops.launch_counts()
+    finally:
+        runtime_mod.save_checkpoint = save_checkpoint
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(dict(
+        phase="durable", n=n, dim=P.shape[1], k=k, tau=tau, block_size=BLOCK,
+        batch=INGEST_BATCH, batches=len(spans), replicas=2,
+        checkpoint_every=DURABLE_CKPT_EVERY, keep=DURABLE_KEEP,
+        tmp_free_bytes=free.free, crash_after_batches=crash_at,
+        durable_ingest_points_per_s=n / ingest_s, durable_ingest_s=ingest_s,
+        serve_ingest_points_per_s=serve["ingest_points_per_s"],
+        serve_submit_flush_points_per_s=serve["submit_flush_points_per_s"],
+        stream_phase_points_per_s=stream_points_per_s,
+        wal_bytes_written=wal_bytes,
+        wal_append_s={name: dict(batches=len(v), median=statistics.median(v),
+                                 max=max(v)) for name, v in appends.items()
+                      if v},
+        wal_compactions={name: dict(count=len(v), total_s=sum(v))
+                         for name, v in compactions.items()},
+        checkpoints=dict(saved=ckpt_saved, files=len(rs_saves),
+                         bytes=[b for _s, b in rs_saves],
+                         save_ms=[1e3 * s for s, _b in rs_saves]),
+        standby_lag_batches=dict(p50=lag.quantile(0.5), max=lag.describe()[
+            "max"], samples=lag.count),
+        failover=dict(failover_s=failover_s.describe()["max"],
+                      reason=fo["reason"], applied_seq=fo["applied_seq"],
+                      acked_seq=fo["acked_seq"],
+                      drained_calls=fo["drained_calls"]),
+        restores=restores,
+        coalesce=dict(groups=reg.counter("serve.coalesce.groups").value,
+                      groups_in_check=reg.counter(
+                          "serve.coalesce.groups").value - groups0,
+                      calls_per_group=gcalls.sum / gcalls.count,
+                      queue_wait_s=dict(p50=wait.quantile(0.5),
+                                        p99=wait.quantile(0.99)),
+                      stacked_solves=reg.counter(
+                          "serve.coalesce.stacked_solves").value,
+                      solo=reg.counter("serve.coalesce.solo").value,
+                      stale_reads=reg.counter(
+                          "serve.replication.stale_reads").value,
+                      coalesced_32_s=coalesced_s, direct_32_s=direct_s),
+        query_batch_under_coalescing_s=dict(
+            batches=len(qlat), queries_a_batch=DURABLE_QUERIES,
+            threads=DURABLE_QUERY_THREADS, p50=qlat[len(qlat) // 2],
+            p99=qlat[min(len(qlat) - 1, int(0.99 * len(qlat)))],
+            max=qlat[-1], epochs_seen=len({e for e, _t, _d in answers}),
+            retried_during_failover=len(retried)),
+        serve_direct_query_batch_s=serve["query_batch"],
+        serve_concurrent_median_s=serve["concurrent_median_s"],
+        audit=dict(replicas=len(reports), checks=aud.total_checks,
+                   caught_card=caught["card"], caught_host=caught["host"]),
+        health=dict(healthy=health["healthy"], primary=health["primary"]),
+        acked_batches=stats["acked_batches"], launches=launches,
+        main_path_s=main_path_s, seconds=time.perf_counter() - t_phase))
     return dict(launches=launches)
 
 
@@ -2591,7 +3008,9 @@ def main() -> int:
                             args.seed)
     serve = phase_serve(points, cats, caps, spec, args.k, args.tau,
                         args.seed, stream["st"], stream["points_per_s"])
-    del points, x_norm, cats, stream["st"]
+    durable = phase_durable(spec, caps, args.k, args.tau, args.seed, serve,
+                            stream["points_per_s"])
+    del points, x_norm, cats, stream["st"], serve["P"]
     torch.cuda.empty_cache()
     lm = phase_lm(args.seed)
     torch.cuda.empty_cache()  # the zamba2 weights went with phase_lm
@@ -2603,6 +3022,7 @@ def main() -> int:
                            engines=engines["launches"][name],
                            streaming=stream["launches"][name],
                            serve=serve["launches"][name],
+                           durable=durable["launches"][name],
                            lm=lm["launches"][name],
                            train=train["launches"][name])
                 for name in launches}

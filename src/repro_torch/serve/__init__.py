@@ -2,7 +2,7 @@
 diversity service (``serve.diversity``: ``DiversityService``,
 ``StreamRuntime``, ``QueryFrontend``).
 
-Reference: ``repro/serve/__init__.py``. The diversity service's
-durability, coalescing, health, replication and audit modules come with
-ROADMAP step 10.
+Reference: ``repro/serve/__init__.py``. The diversity service carries
+the reference's durability (write-ahead log, checkpoints, restore), query
+coalescing, health, replication and audit.
 """

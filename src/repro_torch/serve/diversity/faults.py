@@ -1,11 +1,8 @@
 """Deterministic fault-injection harness for the serving stack.
 
 Reference: ``repro/serve/diversity/faults.py`` (numpy and threading
-only; the port keeps its own copy). It comes before the rest of ROADMAP
-step 10 because the runtime's supervised worker builds a ``FaultPolicy``
-on its default path. Of the sites below, the port's runtime has
-``worker.loop`` and ``worker.ingest``; the WAL, checkpoint, replication
-and health sites come with their modules (step 10).
+only; the port keeps its own copy). Every site below is instrumented in
+the port as in the reference.
 
 Chaos testing only earns its keep when a failure reproduces: a fault
 plan here is a *seeded schedule*, not a random monkey. Every

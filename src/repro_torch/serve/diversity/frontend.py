@@ -18,17 +18,21 @@ live device state:
            solve: an nvcc or Triton build or a dynamo frame reported
            through ``obs.torchprof.RecompileWatch``); hints opt into
            non-parity engines; the matrix is fetched, and maybe built,
-           once a batch; ``deadline_s`` degrades or sheds.
+           once a batch; ``deadline_s`` degrades or sheds;
+  coalesce under concurrency, ``query_batch`` calls from any threads and
+           tenants merge through an adaptive micro-batch window
+           (``coalesce.Coalescer``, on by default as in the reference)
+           into shared batched solves, stacked across tenants into one
+           call where the engine can (``core/solvers/stacked.py``). A
+           coalesced answer equals the caller's direct-path answer: a
+           different dispatch, not an approximation. A solo caller
+           bypasses the window. ``drain_pending``/``adopt_pending`` move
+           parked calls to a promoted replica on failover.
 
-Every call takes the direct path, which the reference defines as
-byte-for-byte the answers of its coalescing path. The micro-batch
-coalescer (``coalesce.py``, ``drain_pending``/``adopt_pending``) comes with
-ROADMAP step 10: ``coalesce=`` with ``enabled`` true raises
-``NotImplementedError``.
-
-Two threads now launch kernels: the runtime's worker (K3) and query
-callers (K1 on a cold entry). Both use the default CUDA stream, so a
-query's K1 queues behind the worker's scan.
+Several threads launch kernels: the runtime's worker (K3), the
+coalescer's dispatchers and query callers (K1 on a cold entry, the
+batched engines). All use the default CUDA stream, so a query's K1
+queues behind the worker's scan.
 
 Thread-safe: any number of threads may query while the worker ingests.
 """
@@ -49,11 +53,13 @@ from ...core.solvers import (
     CostModel,
     SolveContext,
     SolveSpec,
+    bucket_pow2,
     get_engine,
     partition_by_engine,
 )
 from ...obs.torchprof import RecompileWatch
 from .cache import CoresetEntry, DistanceCache
+from .coalesce import CoalesceConfig, Coalescer, PendingCall
 from .query import DiversityQuery, QueryResult, candidate_mask
 from .runtime import EpochSnapshot, StreamRuntime
 from .tenants import DEFAULT_TENANT, Tenant, TenantRegistry
@@ -70,12 +76,8 @@ class QueryFrontend:
         default_tenant: str = DEFAULT_TENANT,
         registry: Optional[obs.MetricsRegistry] = None,
         cost_model: Optional[CostModel] = None,
-        coalesce=None,
+        coalesce: Optional[CoalesceConfig] = None,
     ):
-        if coalesce is not None and getattr(coalesce, "enabled", True):
-            raise NotImplementedError(
-                "query coalescing comes with ROADMAP step 10 (coalesce.py); "
-                "every call takes the direct path, the same answers")
         self.runtime = runtime
         self.device = runtime.device
         # default to the runtime's registry: one serving stack counts in
@@ -97,7 +99,8 @@ class QueryFrontend:
         self._active_mu = threading.Lock()
         self._traffic_t0 = time.perf_counter()
         self._traffic_prev: dict[str, tuple[float, int]] = {}
-        self.coalescer = None
+        cfg = CoalesceConfig() if coalesce is None else coalesce
+        self.coalescer = Coalescer(self, cfg) if cfg.enabled else None
         self._closed = False
 
     # ------------------------------------------------------------------
@@ -332,7 +335,9 @@ class QueryFrontend:
         )[0]
 
     def active_calls(self) -> int:
-        """``query_batch`` calls currently inside the frontend."""
+        """``query_batch`` calls currently inside the frontend (counted
+        before the coalesce-or-direct choice; coalesced callers stay
+        counted while parked in the window)."""
         return self._active
 
     def query_batch(
@@ -356,7 +361,13 @@ class QueryFrontend:
         without it the newest published epoch answers at once.
         ``deadline_s`` arms deadline-aware admission (``degraded`` /
         ``shed`` results; ``serve.query.degraded`` / ``.shed`` /
-        ``.deadline_miss`` per tenant).
+        ``.deadline_miss`` per tenant); in the coalescer a deadline also
+        bounds the time spent waiting in the window.
+
+        Under concurrency, calls coalesce through the micro-batch window
+        (``coalesce.py``) into merged solves; the answers are the direct
+        path's. A solo caller bypasses the window and runs the direct
+        path inline.
         """
         queries = list(queries)
         if not queries:
@@ -370,6 +381,14 @@ class QueryFrontend:
             self._active += 1
         in_flight.inc()
         try:
+            co = self.coalescer
+            if co is not None and (self._active > 1 or co.backlog > 0):
+                return co.submit(
+                    t, queries, engine=engine, min_epoch=min_epoch,
+                    deadline_s=deadline_s,
+                )
+            if co is not None:
+                reg.counter("serve.coalesce.solo").inc()
             return self._query_batch_direct(
                 queries, tenant=t, engine=engine, min_epoch=min_epoch,
                 deadline_s=deadline_s,
@@ -388,7 +407,8 @@ class QueryFrontend:
         min_epoch: Optional[int] = None,
         deadline_s: Optional[float] = None,
     ) -> list[QueryResult]:
-        """The direct solve path (one caller, one tenant, one epoch)."""
+        """The direct solve path (one caller, one tenant, one epoch); the
+        coalescer's answers are defined against it."""
         reg = self.registry
         t_batch = time.perf_counter()
         deadline = None if deadline_s is None else t_batch + deadline_s
@@ -470,6 +490,12 @@ class QueryFrontend:
                 )
             for name, idxs in groups.items():
                 eng = get_engine(name)
+                self._note_window_cost(
+                    self.cost_model.estimate(
+                        name, B=len(idxs),
+                        kmax=max(specs[i].k for i in idxs), m=ctx.size,
+                    )
+                )
                 t1 = time.perf_counter()
                 c0 = self._compiles.total()
                 with obs.span(
@@ -524,6 +550,460 @@ class QueryFrontend:
         return results  # type: ignore[return-value]
 
     # ------------------------------------------------------------------
+    # coalesced execution (dispatcher thread)
+    # ------------------------------------------------------------------
+
+    def _solve_coalesced(self, calls: "list[PendingCall]") -> None:
+        """Execute one coalesced group (calls agreeing on tenant, engine,
+        and ``min_epoch``; see ``coalesce.Coalescer``).
+
+        Semantics per caller are exactly the direct path's: per-caller
+        engine partition (hints honored) and per-caller deadline
+        admission happen *before* merging; only then do admitted specs
+        merge into pow-2-``k``-bucketed ``(engine, bucket)`` batched
+        solves shared across callers. Cost-model routing sees the merged
+        batch size, so a swarm of B=1 callers routes like the one big
+        batch it actually is. The answers equal the direct path's because
+        auto/hinted routing only merges host-parity engines and a batched
+        engine's rows do not depend on the batch's other rows.
+        """
+        t: Tenant = calls[0].tenant
+        engine = calls[0].engine
+        min_epoch = calls[0].min_epoch
+        reg = self.registry
+        n_total = sum(len(c.queries) for c in calls)
+        with obs.trace(), obs.span(
+            "coalesce_group", cat="query", calls=len(calls), n=n_total,
+            engine=engine,
+        ):
+
+            def _shed_call(c, entry=None, cached=False, epoch=-1):
+                reg.counter(
+                    "serve.query.shed", tenant=t.name
+                ).inc(len(c.queries))
+                c.results = [
+                    self._shed_result(q, entry, cached, epoch, t.name)
+                    for q in c.queries
+                ]
+
+            # the group's epoch wait is bounded by its most patient
+            # caller; any deadline-free caller restores the default wait
+            kw = {}
+            if all(c.deadline is not None for c in calls):
+                kw["timeout"] = max(
+                    0.0,
+                    max(c.deadline for c in calls) - time.perf_counter(),
+                )
+            with obs.span(
+                "acquire_epoch", cat="query", min_epoch=min_epoch
+            ):
+                try:
+                    snap = self.runtime.acquire(min_epoch, **kw)
+                except TimeoutError:
+                    for c in calls:
+                        _shed_call(c)
+                    return
+            if min_epoch is not None:
+                now = time.perf_counter()
+                for c in calls:
+                    self._m_epoch_wait_s.observe(now - c.enq_t)
+            with obs.span(
+                "cache_entry", cat="query", tenant=t.name,
+                epoch=snap.epoch,
+            ):
+                entry, cached = self._entry(t, snap)
+            ctx = self._solve_context(t, snap, entry)
+            # per-caller plan: partition + admission before any merging
+            merged: dict[tuple[str, int], list] = {}
+            first = True
+            for c in calls:
+                c.from_cache = cached or not first
+                first = False
+                reg.counter(
+                    "serve.query.cache_hits" if c.from_cache
+                    else "serve.query.cache_misses",
+                    tenant=t.name,
+                ).inc()
+                c.results = [None] * len(c.queries)
+                c.specs = [self._solve_spec(entry, q) for q in c.queries]
+                groups = partition_by_engine(
+                    ctx,
+                    c.specs,
+                    engine=c.engine,
+                    hints=[q.engine_hint for q in c.queries],
+                    cost_model=self.cost_model,
+                    batch_size=n_total,
+                )
+                c.degraded = set()
+                shed_ix: set = set()
+                if c.deadline is not None:
+                    with obs.span("admit", cat="query"):
+                        groups, c.degraded, shed_ix = self._admit(
+                            ctx, c.specs, groups, t.name,
+                            c.deadline - time.perf_counter(),
+                        )
+                    if c.degraded:
+                        reg.counter(
+                            "serve.query.degraded", tenant=t.name
+                        ).inc(len(c.degraded))
+                    if shed_ix:
+                        reg.counter(
+                            "serve.query.shed", tenant=t.name
+                        ).inc(len(shed_ix))
+                for i in shed_ix:
+                    c.results[i] = self._shed_result(
+                        c.queries[i], entry, c.from_cache, snap.epoch,
+                        t.name,
+                    )
+                for name, idxs in groups.items():
+                    for i in idxs:
+                        kb = bucket_pow2(max(1, c.specs[i].k))
+                        merged.setdefault((name, kb), []).append((c, i))
+            # merged solves: one launch per (engine, k-bucket)
+            for (name, kb) in sorted(merged):
+                items = merged[(name, kb)]
+                eng = get_engine(name)
+                mspecs = [c.specs[i] for c, i in items]
+                self._note_window_cost(
+                    self.cost_model.estimate(
+                        name, B=len(items),
+                        kmax=max(s.k for s in mspecs), m=ctx.size,
+                    )
+                )
+                t1 = time.perf_counter()
+                c0 = self._compiles.total()
+                with obs.span(
+                    "solve", cat="query", engine=name, n=len(items),
+                    k_bucket=kb, coalesced_calls=len({
+                        id(c) for c, _ in items
+                    }),
+                ):
+                    sols = eng.solve_batch(ctx, mspecs)
+                with obs.span("device_sync", cat="query", engine=name):
+                    for (c, i), sol in zip(items, sols):
+                        loc = np.asarray(sol.local_indices, np.int64)
+                        c.results[i] = QueryResult(
+                            indices=entry.src_idx[loc],
+                            local_indices=loc,
+                            diversity=sol.value,
+                            variant=c.queries[i].variant,
+                            engine=sol.engine,
+                            coreset_size=entry.size,
+                            from_cache=c.from_cache,
+                            epoch=snap.epoch,
+                            tenant=t.name,
+                            degraded=i in c.degraded,
+                        )
+                dt = time.perf_counter() - t1
+                reg.histogram(
+                    "serve.solve.latency_s", tenant=t.name, engine=name
+                ).observe(dt)
+                reg.histogram(
+                    "serve.solve.batch_size", engine=name
+                ).observe(len(items))
+                if self._compiles.total() == c0:
+                    self.cost_model.observe(
+                        name, len(items), max(s.k for s in mspecs),
+                        ctx.size, dt,
+                    )
+            now = time.perf_counter()
+            for c in calls:
+                reg.histogram(
+                    "serve.query.latency_s", tenant=t.name
+                ).observe(now - c.enq_t)
+                reg.histogram(
+                    "serve.query.batch_size", tenant=t.name
+                ).observe(len(c.queries))
+                if c.deadline is not None and now > c.deadline:
+                    reg.counter(
+                        "serve.query.deadline_miss", tenant=t.name
+                    ).inc()
+
+    def _note_window_cost(self, est_s: float) -> None:
+        """Feed one merged launch's cost-model estimate to the adaptive
+        window controller (the S in its Little's-law target)."""
+        co = self.coalescer
+        if co is not None:
+            co.window.observe_solve(est_s)
+
+    def _solve_coalesced_stacked(
+        self, subs: "list[list[PendingCall]]"
+    ) -> None:
+        """Execute one cross-tenant wave: several single-tenant coalesced
+        sub-groups (each a ``_solve_coalesced``-shaped call list)
+        agreeing on ``(engine, min_epoch)``, solved together.
+
+        Per-caller semantics are the single-tenant path's -- engine
+        partition with hints, deadline admission, shed/degrade -- applied
+        per tenant lane before any merging. The merge then goes one step
+        further than ``_solve_coalesced``: admitted specs landing in the
+        same ``(engine, k-bucket)`` across *different tenants* stack
+        into ONE call (``core/solvers/stacked.py``) when the engine
+        supports it, because entries for different tenants over the same
+        stream differ only in their pdist matrix. Lanes the engine
+        cannot stack (transversal/general matroids, mismatched coreset
+        size or dtype, engines without the path) fall back to per-lane
+        solves inside the same wave. A lane whose cache-entry build
+        fails takes down only its own callers.
+        """
+        engine = subs[0][0].engine
+        min_epoch = subs[0][0].min_epoch
+        reg = self.registry
+        all_calls = [c for sub in subs for c in sub]
+        n_total = sum(len(c.queries) for c in all_calls)
+        with obs.trace(), obs.span(
+            "coalesce_stacked_group", cat="query", calls=len(all_calls),
+            n=n_total, tenants=len(subs), engine=engine,
+        ):
+
+            def _shed_call(c, entry=None, cached=False, epoch=-1):
+                reg.counter(
+                    "serve.query.shed", tenant=c.tenant.name
+                ).inc(len(c.queries))
+                c.results = [
+                    self._shed_result(
+                        q, entry, cached, epoch, c.tenant.name
+                    )
+                    for q in c.queries
+                ]
+
+            # the wave's epoch wait is bounded by its most patient
+            # caller; any deadline-free caller restores the default wait
+            kw = {}
+            if all(c.deadline is not None for c in all_calls):
+                kw["timeout"] = max(
+                    0.0,
+                    max(c.deadline for c in all_calls)
+                    - time.perf_counter(),
+                )
+            with obs.span(
+                "acquire_epoch", cat="query", min_epoch=min_epoch
+            ):
+                try:
+                    snap = self.runtime.acquire(min_epoch, **kw)
+                except TimeoutError:
+                    for c in all_calls:
+                        _shed_call(c)
+                    return
+            if min_epoch is not None:
+                now = time.perf_counter()
+                for c in all_calls:
+                    self._m_epoch_wait_s.observe(now - c.enq_t)
+            # per-tenant lane prep: cache entry + per-caller plan
+            lanes: list = []  # (tenant, ctx, entry, calls)
+            merged: dict[tuple[str, int], list] = {}
+            for sub in subs:
+                t: Tenant = sub[0].tenant
+                try:
+                    with obs.span(
+                        "cache_entry", cat="query", tenant=t.name,
+                        epoch=snap.epoch,
+                    ):
+                        entry, cached = self._entry(t, snap)
+                    ctx = self._solve_context(t, snap, entry)
+                except BaseException as e:  # noqa: BLE001 -- isolate the
+                    # failed lane; the rest of the wave proceeds
+                    for c in sub:
+                        c.error = e
+                    continue
+                lane_i = len(lanes)
+                lanes.append((t, ctx, entry, sub))
+                first = True
+                for c in sub:
+                    c.from_cache = cached or not first
+                    first = False
+                    reg.counter(
+                        "serve.query.cache_hits" if c.from_cache
+                        else "serve.query.cache_misses",
+                        tenant=t.name,
+                    ).inc()
+                    c.results = [None] * len(c.queries)
+                    c.specs = [
+                        self._solve_spec(entry, q) for q in c.queries
+                    ]
+                    groups = partition_by_engine(
+                        ctx,
+                        c.specs,
+                        engine=c.engine,
+                        hints=[q.engine_hint for q in c.queries],
+                        cost_model=self.cost_model,
+                        batch_size=n_total,
+                        stacked=True,
+                    )
+                    c.degraded = set()
+                    shed_ix: set = set()
+                    if c.deadline is not None:
+                        with obs.span("admit", cat="query"):
+                            groups, c.degraded, shed_ix = self._admit(
+                                ctx, c.specs, groups, t.name,
+                                c.deadline - time.perf_counter(),
+                            )
+                        if c.degraded:
+                            reg.counter(
+                                "serve.query.degraded", tenant=t.name
+                            ).inc(len(c.degraded))
+                        if shed_ix:
+                            reg.counter(
+                                "serve.query.shed", tenant=t.name
+                            ).inc(len(shed_ix))
+                    for i in shed_ix:
+                        c.results[i] = self._shed_result(
+                            c.queries[i], entry, c.from_cache,
+                            snap.epoch, t.name,
+                        )
+                    for name, idxs in groups.items():
+                        for i in idxs:
+                            kb = bucket_pow2(max(1, c.specs[i].k))
+                            merged.setdefault((name, kb), []).append(
+                                (lane_i, c, i)
+                            )
+
+            def _fan(lane_i, li, sols):
+                lt, _ctx, lentry, _sub = lanes[lane_i]
+                for (c, i), sol in zip(li, sols):
+                    loc = np.asarray(sol.local_indices, np.int64)
+                    c.results[i] = QueryResult(
+                        indices=lentry.src_idx[loc],
+                        local_indices=loc,
+                        diversity=sol.value,
+                        variant=c.queries[i].variant,
+                        engine=sol.engine,
+                        coreset_size=lentry.size,
+                        from_cache=c.from_cache,
+                        epoch=snap.epoch,
+                        tenant=lt.name,
+                        degraded=i in c.degraded,
+                    )
+
+            # merged launches: per (engine, k-bucket), stack the lanes
+            # the engine can take together; solve the rest per lane
+            for (name, kb) in sorted(merged):
+                items = merged[(name, kb)]
+                eng = get_engine(name)
+                per_lane: dict[int, list] = {}
+                for lane_i, c, i in items:
+                    per_lane.setdefault(lane_i, []).append((c, i))
+                stacks: dict[tuple, list[int]] = {}
+                solo: list[int] = []
+                for lane_i, li in per_lane.items():
+                    ctx = lanes[lane_i][1]
+                    if all(
+                        eng.stack_eligible(ctx, c.specs[i])
+                        for c, i in li
+                    ):
+                        sig = (ctx.size, str(ctx.D.dtype))
+                        stacks.setdefault(sig, []).append(lane_i)
+                    else:
+                        solo.append(lane_i)
+                # a lone stackable lane has nothing to amortize with
+                for sig in list(stacks):
+                    if len(stacks[sig]) < 2:
+                        solo.extend(stacks.pop(sig))
+                for sig, lis in stacks.items():
+                    lane_args = []
+                    parts = []
+                    for lane_i in lis:
+                        ctx = lanes[lane_i][1]
+                        li = per_lane[lane_i]
+                        lspecs = [c.specs[i] for c, i in li]
+                        lane_args.append((ctx, lspecs))
+                        parts.append(
+                            (len(lspecs), max(s.k for s in lspecs))
+                        )
+                    m = sig[0]
+                    rows = sum(b for b, _k in parts)
+                    self._note_window_cost(
+                        self.cost_model.estimate_stacked(name, parts, m)
+                    )
+                    t1 = time.perf_counter()
+                    c0 = self._compiles.total()
+                    with obs.span(
+                        "solve", cat="query", engine=name, n=rows,
+                        k_bucket=kb, stacked_tenants=len(lis),
+                        coalesced_calls=len({
+                            id(c)
+                            for lane_i in lis
+                            for c, _ in per_lane[lane_i]
+                        }),
+                    ):
+                        lane_sols = eng.solve_batch_stacked(lane_args)
+                    with obs.span(
+                        "device_sync", cat="query", engine=name
+                    ):
+                        for lane_i, sols in zip(lis, lane_sols):
+                            _fan(lane_i, per_lane[lane_i], sols)
+                    dt = time.perf_counter() - t1
+                    reg.counter("serve.coalesce.stacked_solves").inc()
+                    reg.counter(
+                        "serve.coalesce.stacked_rows"
+                    ).inc(rows)
+                    reg.histogram(
+                        "serve.coalesce.stacked_tenants"
+                    ).observe(len(lis))
+                    for lane_i in lis:
+                        reg.histogram(
+                            "serve.solve.latency_s",
+                            tenant=lanes[lane_i][0].name, engine=name,
+                        ).observe(dt)
+                    reg.histogram(
+                        "serve.solve.batch_size", engine=name
+                    ).observe(rows)
+                    if self._compiles.total() == c0:
+                        self.cost_model.observe(
+                            name, rows, max(k for _b, k in parts), m, dt
+                        )
+                for lane_i in solo:
+                    lt, ctx, _e, _sub = lanes[lane_i]
+                    li = per_lane[lane_i]
+                    lspecs = [c.specs[i] for c, i in li]
+                    self._note_window_cost(
+                        self.cost_model.estimate(
+                            name, B=len(li),
+                            kmax=max(s.k for s in lspecs), m=ctx.size,
+                        )
+                    )
+                    t1 = time.perf_counter()
+                    c0 = self._compiles.total()
+                    with obs.span(
+                        "solve", cat="query", engine=name, n=len(li),
+                        k_bucket=kb,
+                        coalesced_calls=len({id(c) for c, _ in li}),
+                    ):
+                        sols = eng.solve_batch(ctx, lspecs)
+                    with obs.span(
+                        "device_sync", cat="query", engine=name
+                    ):
+                        _fan(lane_i, li, sols)
+                    dt = time.perf_counter() - t1
+                    reg.histogram(
+                        "serve.solve.latency_s", tenant=lt.name,
+                        engine=name,
+                    ).observe(dt)
+                    reg.histogram(
+                        "serve.solve.batch_size", engine=name
+                    ).observe(len(li))
+                    if self._compiles.total() == c0:
+                        self.cost_model.observe(
+                            name, len(li), max(s.k for s in lspecs),
+                            ctx.size, dt,
+                        )
+            now = time.perf_counter()
+            for lt, _ctx, _e, sub in lanes:
+                for c in sub:
+                    reg.histogram(
+                        "serve.query.latency_s", tenant=lt.name
+                    ).observe(now - c.enq_t)
+                    reg.histogram(
+                        "serve.query.batch_size", tenant=lt.name
+                    ).observe(len(c.queries))
+                    if c.deadline is not None and now > c.deadline:
+                        reg.counter(
+                            "serve.query.deadline_miss", tenant=lt.name
+                        ).inc()
+
+    # ------------------------------------------------------------------
+    # freshness + observability
+    # ------------------------------------------------------------------
 
     def flush(self, *, timeout: Optional[float] = 120.0) -> int:
         """Barrier every submitted batch into a published epoch and return
@@ -559,8 +1039,8 @@ class QueryFrontend:
 
     def stats(self) -> dict:
         """One observability snapshot: the runtime's epoch counters, the
-        cache's ``CacheStats``, per-tenant traffic and the cost model's
-        state (``coalesce`` is None: no coalescer yet)."""
+        cache's ``CacheStats``, per-tenant traffic, the coalescer's window
+        and queue accounting and the cost model's state."""
         lat = self.runtime.latest()
         return {
             "epoch": 0 if lat is None else lat.epoch,
@@ -577,14 +1057,71 @@ class QueryFrontend:
             "cache": self.cache.stats.snapshot(),
             "active_calls": self.active_calls(),
             "tenant_traffic": self.tenant_traffic(),
-            "coalesce": None,
+            "coalesce": (
+                None if self.coalescer is None else self.coalescer.stats()
+            ),
             "cost_model": self.cost_model.snapshot(),
         }
 
+    def drain_pending(self) -> list:
+        """Failover support: stop this frontend's coalescer and return
+        every in-window ``PendingCall`` *un-failed* -- the callers stay
+        blocked on their events. The drainer (``ReplicaSet.failover``)
+        re-dispatches them on the promoted frontend via
+        ``adopt_pending``. Idempotent with ``close()``: after draining,
+        this frontend is closed."""
+        self._closed = True
+        self._compiles.close()
+        if self.coalescer is None:
+            return []
+        return self.coalescer.drain()
+
+    def adopt_pending(self, calls: list) -> int:
+        """Re-dispatch ``PendingCall``s drained from a failed peer
+        frontend on THIS frontend: remap each call's tenant to the local
+        registry (replica frontends register the same tenant names),
+        solve, and release the still-blocked caller. Calls drained from
+        ALL of the peer's dispatcher shards arrive here; they regroup by
+        ``(engine, min_epoch)`` and a multi-tenant group re-dispatches
+        as one stacked wave, exactly as the pool would have run it.
+        Returns the number of calls released."""
+        released = 0
+        waves: dict[tuple, dict[str, list]] = {}
+        for c in calls:
+            try:
+                c.tenant = self._resolve_tenant(c.tenant.name)
+            except BaseException as e:  # noqa: BLE001 -- fan the failure
+                # back to the blocked caller; adoption must release all
+                c.error = e
+                c.done.set()
+                released += 1
+                continue
+            waves.setdefault(
+                (c.engine, c.min_epoch), {}
+            ).setdefault(c.tenant.name, []).append(c)
+        for by_tenant in waves.values():
+            subs = list(by_tenant.values())
+            grp = [c for sub in subs for c in sub]
+            try:
+                if len(subs) == 1:
+                    self._solve_coalesced(subs[0])
+                else:
+                    self._solve_coalesced_stacked(subs)
+            except BaseException as e:  # noqa: BLE001
+                for c in grp:
+                    c.error = e
+            finally:
+                for c in grp:
+                    c.done.set()
+                    released += 1
+        return released
+
     def close(self) -> None:
-        """Stop counting compile events (idempotent). The runtime is owned
-        by the caller and is not touched."""
+        """Shut down the coalescer's dispatcher thread (idempotent). The
+        runtime is owned by the caller and is not touched."""
         if self._closed:
             return
         self._closed = True
         self._compiles.close()
+        if self.coalescer is not None:
+            self.coalescer.close()

@@ -20,11 +20,12 @@ and offers two ways to feed it and one way to read it:
 Batches arrive on the host, as a client's would. Each one is padded to a
 multiple of ``block_size`` with invalid rows, copied to the card once,
 checked there for NaN/Inf (``submit`` checks on the host, so the
-submitter gets the error), normalized there (``core.geometry.normalize_for_metric``) and scanned by
-``core.streaming.ingest_batch_donated``, which launches K3 (fused route)
-once a block. The fingerprint is one device reduction and one copy of
-three scalars (``epoch_fingerprint``); a publish gathers the valid
-coreset rows on the card before copying them (``compact_coreset``).
+submitter gets the error), write-ahead logged on a durable runtime,
+normalized on the card (``core.geometry.normalize_for_metric``) and
+scanned by ``core.streaming.ingest_batch_donated``, which launches K3
+(fused route) once a block. The fingerprint is one device reduction and
+one copy of three scalars (``epoch_fingerprint``); a publish gathers the
+valid coreset rows on the card before copying them (``compact_coreset``).
 
 Epoch semantics, as in the reference: epochs increase strictly from 1;
 a new epoch materializes only when the fingerprint moved (a forced
@@ -33,25 +34,38 @@ publishes when its queue drains and at least every ``publish_every``
 batches; ``flush()`` waits for every submitted batch, force-publishes and
 returns the epoch, which ``acquire(min_epoch=...)`` can wait for.
 
-Fault tolerance: ``fault_policy=FaultPolicy(...)`` supervises the worker
-(retry with capped backoff, quarantine to ``poison`` or truncate, respawn
-after a crash), ``faults=FaultPlan(...)`` arms the ``worker.loop`` and
-``worker.ingest`` injection sites. With the default policy a worker error
-truncates the stream and re-raises on the next ``submit``/``flush``.
+Fault tolerance, as in the reference:
 
-Not here yet (ROADMAP step 10): the write-ahead log, ``checkpoint`` and
-``restore``. ``durability=`` raises ``NotImplementedError`` rather than
-being ignored; so do ``checkpoint`` and ``restore``.
+* with ``durability=DurabilityConfig(dir)`` every accepted batch is
+  appended to a write-ahead log (``wal.py``) *before* it is enqueued or
+  applied, and the scan state is checkpointed every ``checkpoint_every``
+  applied batches (``checkpoint.py``); ``StreamRuntime.restore(dir,
+  device=...)`` rebuilds the stream bit for bit from the newest
+  checkpoint plus the log's tail, replayed in submission order (§3: the
+  state is a pure fold over the batches). The files are the reference's,
+  so either package restores the other's directory. The scan updates the
+  state in place, so a checkpoint copies it to the host under the lock;
+* ``fault_policy=FaultPolicy(...)`` supervises the worker (retry with
+  capped backoff, quarantine to ``poison`` or truncate, respawn after a
+  crash);
+* ``faults=FaultPlan(...)`` arms the injection sites (``worker.loop``,
+  ``worker.ingest``, ``wal.append``, ``wal.compact``,
+  ``checkpoint.write``).
+
+With the default policy a worker error truncates the stream and
+re-raises on the next ``submit``/``flush``; ``close()`` drains the queue,
+stops the worker and, on a durable runtime, saves a parting checkpoint.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -70,9 +84,18 @@ from ...core.streaming import (
     resolve_placement,
 )
 from ...device import CUDA, DeviceLike, resolve_device
+from .checkpoint import (
+    DurabilityConfig,
+    checkpoint_path,
+    host_copy,
+    latest_checkpoint,
+    load_checkpoint,
+    place_state,
+    prune_checkpoints,
+    save_checkpoint,
+)
 from .faults import FaultPlan, FaultPolicy, InjectedCrash
-
-_STEP10 = "ROADMAP step 10 (durability: WAL, checkpoint, restore)"
+from .wal import WriteAheadLog
 
 
 @dataclasses.dataclass
@@ -108,8 +131,8 @@ class EpochSnapshot:
 class PoisonedBatch:
     """One quarantined batch: it failed every ingest attempt under a
     ``FaultPolicy(on_failure="quarantine")`` runtime. The data is kept so
-    the operator can inspect or re-``submit`` it; ``seq`` is -1 (the
-    write-ahead log's ordinal comes with ROADMAP step 10)."""
+    the operator can inspect or re-``submit`` it; ``seq`` is its WAL
+    ordinal (-1 when the runtime is not durable)."""
 
     seq: int
     points: np.ndarray
@@ -146,15 +169,11 @@ class StreamRuntime:
         max_pending: int = 64,
         on_publish: Optional[Callable[[EpochSnapshot], None]] = None,
         registry: Optional[obs.MetricsRegistry] = None,
-        durability=None,
+        durability: Optional[Union[DurabilityConfig, str]] = None,
         fault_policy: Optional[FaultPolicy] = None,
         faults: Optional[FaultPlan] = None,
         device: DeviceLike = CUDA,
     ):
-        if durability is not None:
-            raise NotImplementedError(
-                f"durability= comes with {_STEP10}; this runtime keeps "
-                f"no log")
         if spec.kind == "general" and oracle is None:
             raise ValueError("general matroid service needs a host oracle")
         if spec.kind == "partition" and caps is None:
@@ -214,9 +233,19 @@ class StreamRuntime:
         self._clock = (
             faults.monotonic if faults is not None else time.monotonic
         )
+        if isinstance(durability, str):
+            durability = DurabilityConfig(dir=durability)
+        self.durability = durability
+        self._wal: Optional[WriteAheadLog] = None
+        self._next_seq = 0  # next submission ordinal to assign
+        self._applied_seq = -1  # newest seq folded into the scan state
+        self._last_ckpt_seq = -1  # _applied_seq at the last checkpoint
+        self._poisoned_seqs: list[int] = []  # skipped on WAL replay
+        self._replaying = False  # restore() replay: don't re-append
         self._inflight = None  # batch a crashed worker must re-apply first
         self._worker_restarts = 0
         self.poison: list[PoisonedBatch] = []
+        self.restore_report: Optional[dict] = None
         # --- observability ---
         # submit times of worker-ingested batches awaiting an epoch; the
         # publish drains them into the staleness histogram. Under _cv.
@@ -250,12 +279,23 @@ class StreamRuntime:
         self._m_worker_poisoned = reg.counter("serve.worker.poisoned")
         self._m_worker_crashes = reg.counter("serve.worker.crashes")
         self._m_worker_restarts = reg.counter("serve.worker.restarts")
+        self._m_ckpt_saved = reg.counter("serve.ckpt.saved")
+        self._m_ckpt_failures = reg.counter("serve.ckpt.failures")
+        self._m_ckpt_last_seq = reg.gauge("serve.ckpt.last_seq")
         self._m_rejected_nonfinite = reg.counter(
             "serve.ingest.rejected", reason="nonfinite"
         )
         # (n_offered, fingerprint) after each ingest: two runtimes fed the
-        # same batches agree at every common watermark
+        # same batches agree at every common watermark (replication.py)
         self._fp_history: collections.deque = collections.deque(maxlen=1024)
+        if self.durability is not None:
+            os.makedirs(self.durability.dir, exist_ok=True)
+            self._wal = WriteAheadLog(
+                self.durability.wal_path,
+                fsync=self.durability.fsync,
+                faults=self.faults,
+                registry=reg,
+            )
 
     # ------------------------------------------------------------------
     # synchronous ingestion (the scan itself)
@@ -373,8 +413,10 @@ class StreamRuntime:
         return int(x1.shape[-1])
 
     def _padded(self, points, cats, pad_to: Optional[int]):
-        """Host batch -> (n, normalized points on the device, cats, valid),
-        padded with invalid rows to a multiple of ``block_size``."""
+        """Host batch -> (n, d, normalized points on the device, cats,
+        valid), padded with invalid rows to a multiple of ``block_size``.
+        Raises before anything is logged or applied on bad cats or NaN/Inf
+        points."""
         pts = np.asarray(points, np.float32)
         n, d = pts.shape
         cats_arr = self._check_cats(n, cats)
@@ -386,10 +428,9 @@ class StreamRuntime:
                 [cats_arr, np.full((pad, self._gamma_width), -1, np.int32)]
             )
         x = self._to_device(pts)
-        if self._state is None:
-            self._init_state(d)
         valid = np.arange(n + pad) < n
-        return n, geometry.normalize_for_metric(x, self.metric), cats_arr, valid
+        return (n, d, geometry.normalize_for_metric(x, self.metric),
+                cats_arr, valid)
 
     def _scan_kw(self) -> dict:
         return dict(variant=self.stream_variant, eps=self.eps,
@@ -405,23 +446,31 @@ class StreamRuntime:
         """Feed one batch of the stream (any size) into the scan state.
 
         With ``num_shards > 1`` the batch is dealt across the shards
-        (``ingest_sharded`` or ``ingest_pipeline``, by placement);
-        otherwise it resumes the single blocked scan. Batches are padded
-        to a multiple of ``block_size`` with invalid rows, a no-op for the
-        scan; ``pad_to`` raises the padded length further (``warmup``
-        drives an empty batch that way).
+        (the ``ingest_sharded`` or ``ingest_pipeline`` drive, by
+        placement); otherwise it resumes the single blocked scan. Batches
+        are padded to a multiple of ``block_size`` with invalid rows, a
+        no-op for the scan; ``pad_to`` raises the padded length further
+        (``warmup`` drives an empty batch that way).
 
         Thread-safe (the async worker calls this too); does NOT publish an
-        epoch. Raises ``ValueError`` on NaN/Inf coordinates (checked on
-        the device, before anything is applied).
+        epoch. On a durable runtime this entry point write-ahead logs the
+        batch before applying it (``submit`` logs at enqueue time
+        instead); calling ``ingest_sharded``/``ingest_pipeline`` directly
+        bypasses the log. Raises ``ValueError`` on NaN/Inf coordinates,
+        checked on the device after the copy and before the log: the
+        batch is neither logged nor applied.
         """
         with self._cv:
             if self.num_shards > 1:
-                if self.placement == "pipeline":
-                    return self.ingest_pipeline(points, cats, pad_to=pad_to)
-                return self.ingest_sharded(points, cats, pad_to=pad_to)
+                drive = (self._ingest_pipeline if self.placement == "pipeline"
+                         else self._ingest_sharded)
+                return drive(points, cats, pad_to, log=True)
             t0 = time.perf_counter()
-            n, pts_norm, cats_arr, valid = self._padded(points, cats, pad_to)
+            n, d, pts_norm, cats_arr, valid = self._padded(points, cats,
+                                                           pad_to)
+            seq = self._wal_begin(points, cats)
+            if self._state is None:
+                self._init_state(d)
             with obs.compile_region(f"ingest[single b={valid.shape[0]}]"):
                 self._state = ingest_batch_donated(
                     self._state, pts_norm, cats_arr, valid, self.spec,
@@ -429,7 +478,50 @@ class StreamRuntime:
                     block_size=self.block_size, **self._scan_kw(),
                 )
             self.n_offered += n
-            return self._report(n, t0)
+            rep = self._report(n, t0)
+            self._wal_commit(seq)
+            return rep
+
+    def _wal_begin(
+        self, points: np.ndarray, cats: Optional[np.ndarray]
+    ) -> Optional[int]:
+        """Assign a submission ordinal and write-ahead log one externally
+        originated synchronous batch (under ``_cv``). Returns ``None`` for
+        non-durable runtimes and for internal applications (the async
+        worker's, logged at submit time, and restore's replay); raises
+        ``WalError`` (batch NOT applied, seq burned) if the append fails.
+        """
+        if self._wal is None or self._replaying:
+            return None
+        if (
+            self._worker is not None
+            and threading.current_thread() is self._worker
+        ):
+            return None
+        pts = np.asarray(points, np.float32)
+        if pts.shape[0] == 0:
+            return None  # warmup no-op batches don't advance the stream
+        if self._pending > 0:
+            # a sync ingest between in-flight async batches would apply
+            # out of submission order: the WAL could no longer replay to
+            # the same stream
+            raise RuntimeError(
+                "durable runtime: synchronous ingest while async batches "
+                "are pending would break WAL replay order; flush() first "
+                "or submit() this batch"
+            )
+        seq = self._next_seq
+        self._next_seq += 1
+        self._wal.append(seq, pts, cats)
+        return seq
+
+    def _wal_commit(self, seq: Optional[int]) -> None:
+        """Mark one ``_wal_begin``-logged batch as applied (under
+        ``_cv``) and checkpoint if the cadence says so."""
+        if seq is None:
+            return
+        self._applied_seq = seq
+        self.checkpoint(force=False)
 
     def ingest_sharded(
         self,
@@ -442,7 +534,11 @@ class StreamRuntime:
         ``num_shards`` states of the stacked (``vmap``) drive and ingest
         every shard. Each shard sees its own sub-stream; by §3 the union
         of their coresets (the epoch snapshot) is a coreset of the whole
-        stream. Rows keep their global stream indices."""
+        stream. Rows keep their global stream indices. Bypasses the
+        write-ahead log (``ingest`` logs)."""
+        return self._ingest_sharded(points, cats, pad_to, log=False)
+
+    def _ingest_sharded(self, points, cats, pad_to, *, log: bool):
         if self.num_shards < 2:
             raise ValueError("ingest_sharded needs num_shards >= 2")
         if self.placement == "pipeline":
@@ -457,7 +553,10 @@ class StreamRuntime:
             n, d = pts.shape
             cats_arr = self._check_cats(n, cats)
             S = self.num_shards
+            # the whole batch is checked before it is logged, and logged
+            # before any shard is applied
             x = self._to_device(pts)
+            seq = self._wal_begin(points, cats) if log else None
             if self._state is None:
                 self._init_state(d)
             pts_norm = geometry.normalize_for_metric(x, self.metric)
@@ -484,7 +583,9 @@ class StreamRuntime:
                     self.k, self.tau, block_size=sb, **self._scan_kw(),
                 )
             self.n_offered += n
-            return self._report(n, t0)
+            rep = self._report(n, t0)
+            self._wal_commit(seq)
+            return rep
 
     def ingest_pipeline(
         self,
@@ -496,12 +597,19 @@ class StreamRuntime:
         """Route one whole batch to the next shard (batch-granular
         round-robin) and resume that shard's plain blocked scan: still a
         partition of the stream, so §3 holds; each ingest is the unsharded
-        path's scan."""
+        path's scan. Bypasses the write-ahead log (``ingest`` logs)."""
+        return self._ingest_pipeline(points, cats, pad_to, log=False)
+
+    def _ingest_pipeline(self, points, cats, pad_to, *, log: bool):
         if self.num_shards < 2:
             raise ValueError("ingest_pipeline needs num_shards >= 2")
         with self._cv:
             t0 = time.perf_counter()
-            n, pts_norm, cats_arr, valid = self._padded(points, cats, pad_to)
+            n, d, pts_norm, cats_arr, valid = self._padded(points, cats,
+                                                           pad_to)
+            seq = self._wal_begin(points, cats) if log else None
+            if self._state is None:
+                self._init_state(d)
             i = self._rr % self.num_shards
             if n > 0:  # empty (warmup) batches don't consume a shard slot
                 self._rr += 1
@@ -514,7 +622,9 @@ class StreamRuntime:
                     block_size=self.block_size, **self._scan_kw(),
                 )
             self.n_offered += n
-            return self._report(n, t0)
+            rep = self._report(n, t0)
+            self._wal_commit(seq)
+            return rep
 
     def _report(self, n: int, t0: float) -> IngestReport:
         fp, size = self._fingerprint_and_size()
@@ -701,8 +811,19 @@ class StreamRuntime:
         order (one worker), so every published epoch equals the same
         sequence of synchronous ``ingest`` calls. Blocks only when
         ``max_pending`` batches are queued. Worker errors surface on the
-        next ``submit``/``flush``; non-finite points raise ``ValueError``
-        here. Returns -1 (the log ordinal comes with ROADMAP step 10)."""
+        next ``submit``/``flush``.
+
+        On a durable runtime the batch is appended to the write-ahead log
+        *before* it is enqueued: once ``submit`` returns, the batch
+        survives a process death (``restore`` replays it). A failed
+        append raises ``WalError`` here, in the submitter: the batch was
+        neither persisted nor enqueued. Non-finite points raise
+        ``ValueError`` before the append (checked on the host, so the
+        submitter gets the error), so the log never holds poison.
+
+        Returns the WAL seq assigned to the batch (-1 on a non-durable
+        runtime); ``ReplicaSet`` ships that seq to standbys.
+        """
         pts = np.asarray(points, np.float32)
         self._check_finite(pts)
         with obs.trace() as tid, obs.span(
@@ -712,14 +833,22 @@ class StreamRuntime:
                 self._raise_worker_error()
                 if self._closed:
                     raise RuntimeError("runtime is closed")
+                seq = -1
+                if self._wal is not None:
+                    # log-then-enqueue: a WalError reaches the caller with
+                    # the batch not enqueued (the burned seq leaves a
+                    # harmless gap in the log)
+                    seq = self._next_seq
+                    self._next_seq += 1
+                    self._wal.append(seq, pts, cats)
                 self._ensure_worker()
                 self._pending += 1
                 self._m_submitted.inc()
             # queue items carry the submit time (the staleness clock) and
             # the submitter's trace ID (the worker resumes it)
-            self._queue.put((pts, cats, -1, self._clock(), tid))
+            self._queue.put((pts, cats, seq, self._clock(), tid))
             self._m_queue_depth.set(self._queue.qsize())
-        return -1
+        return seq
 
     def _ensure_worker(self) -> None:
         """Start (or respawn) the ingest worker. Caller holds ``_cv``."""
@@ -785,11 +914,13 @@ class StreamRuntime:
                     self._drain_after_stop()
                     return
                 self._inflight = item
-            pts, cats, _seq, t_submit, tid = item
+            pts, cats, seq, t_submit, tid = item
             self._m_queue_depth.set(self._queue.qsize())
             if self._force_stop:
                 # forced close: the error is recorded BEFORE the pending
                 # count moves, so a racing flush() never sees a clean drain
+                # (on a durable runtime the batches are in the WAL and
+                # restore replays them)
                 with self._cv:
                     if self._worker_err is None:
                         self._worker_err = RuntimeError(
@@ -811,7 +942,7 @@ class StreamRuntime:
                 self._drop_pending_item("truncated")
                 continue
             with obs.resume_trace(tid):
-                ok = self._ingest_with_retry(pts, cats)
+                ok = self._ingest_with_retry(pts, cats, seq)
                 self._inflight = None
                 if not ok:
                     continue
@@ -832,6 +963,7 @@ class StreamRuntime:
                                 self._m_worker_errors.inc()
                                 self._worker_err = e
                             self._cv.notify_all()
+                self.checkpoint(force=False)
 
     def _drain_after_stop(self) -> None:
         """Account batches racing ``close``: they will never be ingested;
@@ -852,7 +984,7 @@ class StreamRuntime:
                 self._drop_pending_item("close")
 
     def _ingest_with_retry(
-        self, pts: np.ndarray, cats: Optional[np.ndarray]
+        self, pts: np.ndarray, cats: Optional[np.ndarray], seq: int
     ) -> bool:
         """Apply one dequeued batch under the fault policy: retry with
         capped exponential backoff, then truncate the stream (default) or
@@ -870,6 +1002,9 @@ class StreamRuntime:
                     attempt=attempt,
                 ):
                     self.ingest(pts, cats)
+                if seq >= 0:
+                    with self._cv:
+                        self._applied_seq = seq
                 return True
             except InjectedCrash:
                 raise  # loop-fatal by contract: the supervisor's problem
@@ -883,15 +1018,20 @@ class StreamRuntime:
                 if policy.on_failure == "quarantine":
                     self._m_worker_poisoned.inc()
                     _log.warning(
-                        "quarantining a batch after %d attempt(s): %s: %s "
-                        "-- stream continues",
-                        attempt + 1, type(e).__name__, e,
+                        "quarantining batch seq=%d after %d attempt(s): "
+                        "%s: %s -- stream continues",
+                        seq, attempt + 1, type(e).__name__, e,
                     )
                     with self._cv:
                         self.poison.append(PoisonedBatch(
-                            seq=-1, points=pts, cats=cats,
+                            seq=seq, points=pts, cats=cats,
                             attempts=attempt + 1, error=e,
                         ))
+                        if seq >= 0:
+                            # the seq is consumed: a restored stream must
+                            # skip it on replay to match this live one
+                            self._poisoned_seqs.append(seq)
+                            self._applied_seq = seq
                         self._pending -= 1
                         self._cv.notify_all()
                 else:
@@ -928,15 +1068,262 @@ class StreamRuntime:
             return self.refresh(force=True).epoch
 
     # ------------------------------------------------------------------
-    # durability: not in the port yet
+    # durability: checkpoint + restore
     # ------------------------------------------------------------------
 
-    def checkpoint(self, *, force: bool = True):
-        raise NotImplementedError(f"checkpoint comes with {_STEP10}")
+    def _config_dict(self) -> dict:
+        """JSON-serializable constructor config (everything but the host
+        oracle, the callbacks and the device, which ``restore`` takes as
+        arguments): the reference's keys and values."""
+        return dict(
+            spec=dict(
+                kind=self.spec.kind,
+                num_categories=self.spec.num_categories,
+                gamma=self.spec.gamma,
+            ),
+            k=self.k,
+            tau=self.tau,
+            metric=str(self.metric),
+            caps=None if self.caps is None else [int(c) for c in self.caps],
+            slot_cap=self.slot_cap,
+            variant=self.stream_variant,
+            eps=self.eps,
+            c_const=self.c_const,
+            num_shards=self.num_shards,
+            block_size=self.block_size,
+            placement=self.placement,
+            publish_every=self.publish_every,
+            max_pending=int(self._queue.maxsize),
+        )
+
+    def _ckpt_meta(self) -> dict:
+        return dict(
+            version=1,
+            kind=(
+                "list" if isinstance(self._state, list)
+                else "stacked" if self.num_shards > 1
+                else "single"
+            ),
+            wal_seq=self._applied_seq,
+            next_seq=self._next_seq,
+            n_offered=self.n_offered,
+            rr=self._rr,
+            epoch=self.epochs_published,
+            fingerprint=self._fingerprint,
+            poisoned_seqs=list(self._poisoned_seqs),
+            config=self._config_dict(),
+        )
+
+    def checkpoint(self, *, force: bool = True) -> Optional[str]:
+        """Persist the scan state to the durability dir; returns the
+        checkpoint path, or ``None`` when skipped (no durability
+        configured, nothing ingested yet, or -- with ``force=False``, the
+        worker's cadence call -- fewer than ``checkpoint_every`` batches
+        applied since the last one).
+
+        The state is copied to the host under the lock (the next ingest
+        updates the live tensors in place) and written outside it. A
+        failed save (an injected ``checkpoint.write`` fault included) is
+        counted in ``serve.ckpt.failures`` and logged; serving continues
+        and the previous checkpoint stays intact (write-temp-then-rename).
+        After a successful save, checkpoints beyond ``keep`` are pruned
+        and the WAL is compacted to the oldest retained checkpoint's
+        watermark.
+        """
+        dur = self.durability
+        if dur is None:
+            return None
+        with self._cv:
+            if self._state is None:
+                return None
+            if (
+                not force
+                and self._applied_seq - self._last_ckpt_seq
+                < dur.checkpoint_every
+            ):
+                return None
+            host_state = host_copy(self._state)
+            meta = self._ckpt_meta()
+            path = checkpoint_path(
+                dur.dir, self.n_offered, self._fingerprint
+            )
+            wal_seq = self._applied_seq
+        try:
+            save_checkpoint(
+                path, host_state, meta,
+                faults=self.faults, fsync=dur.fsync,
+            )
+        except Exception as e:  # noqa: BLE001 -- counted, serving continues
+            self._m_ckpt_failures.inc()
+            _log.warning(
+                "checkpoint save failed (%s: %s); serving continues on "
+                "the previous checkpoint + WAL",
+                type(e).__name__, e,
+            )
+            return None
+        with self._cv:
+            self._last_ckpt_seq = max(self._last_ckpt_seq, wal_seq)
+        self._m_ckpt_saved.inc()
+        self._m_ckpt_last_seq.set(wal_seq)
+        floor = prune_checkpoints(dur.dir, dur.keep)
+        if self._wal is not None and floor >= 0:
+            try:
+                self._wal.compact(floor)
+            except Exception as e:  # noqa: BLE001 -- counted; the
+                # superset log replays correctly, compaction retries on
+                # the next checkpoint
+                self.registry.counter("serve.wal.compact_errors").inc()
+                _log.warning(
+                    "WAL compaction failed (%s: %s); serving continues "
+                    "on the uncompacted log", type(e).__name__, e,
+                )
+        return path
+
+    def _install(self, state, meta: dict) -> None:
+        """Put a loaded checkpoint's state on this runtime's device and
+        take its stream position (under ``_cv``). Every placement's
+        states go onto the one device; a ``shard_map`` config never
+        reaches here (the constructor raises)."""
+        self._state = place_state(state, self.device)
+        self._fp_cache = None
+        self.n_offered = int(meta["n_offered"])
+        self._rr = int(meta.get("rr", 0))
+        self._next_seq = int(meta["next_seq"])
+        self._applied_seq = int(meta["wal_seq"])
+        self._poisoned_seqs = [int(s) for s in meta.get("poisoned_seqs", ())]
+        self._fingerprint, self._coreset_size = self._fingerprint_and_size()
+        self._fp_history.append((self.n_offered, self._fingerprint))
+        self._dirty = True
 
     @classmethod
-    def restore(cls, durability, **kwargs) -> "StreamRuntime":
-        raise NotImplementedError(f"restore comes with {_STEP10}")
+    def restore(
+        cls,
+        durability: Union[DurabilityConfig, str],
+        *,
+        spec: Optional[MatroidSpec] = None,
+        oracle=None,
+        on_publish: Optional[Callable[[EpochSnapshot], None]] = None,
+        registry: Optional[obs.MetricsRegistry] = None,
+        fault_policy: Optional[FaultPolicy] = None,
+        faults: Optional[FaultPlan] = None,
+        device: DeviceLike = CUDA,
+        **overrides,
+    ) -> "StreamRuntime":
+        """Rebuild a runtime on ``device`` from its durability dir: load
+        the newest valid checkpoint, then replay the WAL tail in
+        submission order through ``ingest`` (K3 on the card). The
+        restored stream is bit-identical to the one that died (§3: the
+        state is a pure fold over the batch sequence, and the scan is
+        deterministic given the same config). The directory may be the
+        reference package's: the formats are the same.
+
+        The constructor config is read from the checkpoint; ``spec`` and
+        keyword ``overrides`` (``k=``, ``tau=``, ...) take precedence and
+        are *required* when no checkpoint exists yet (WAL-only restore).
+        A checkpoint whose config says ``placement="shard_map"`` raises
+        ``NotImplementedError`` (ROADMAP step 11), as the constructor
+        does. Host oracles and callbacks are not serializable: pass them
+        again. Batches quarantined before the checkpoint are skipped on
+        replay; quarantined batches *newer* than the checkpoint are
+        re-attempted (at-least-once, in order).
+
+        The outcome is in ``runtime.restore_report`` (checkpoint path,
+        replayed batches/points, wall time, recovered epoch fingerprint).
+        """
+        dur = (
+            DurabilityConfig(dir=durability)
+            if isinstance(durability, str) else durability
+        )
+        t0 = time.perf_counter()
+        path = latest_checkpoint(dur.dir)
+        state = None
+        meta: Optional[dict] = None
+        cfg: dict = {}
+        if path is not None:
+            state, meta = load_checkpoint(path)
+            cfg = dict(meta["config"])
+        if spec is None:
+            if "spec" not in cfg:
+                raise ValueError(
+                    "no checkpoint to read the config from: WAL-only "
+                    "restore needs spec= plus k=/tau=/... overrides"
+                )
+            spec = MatroidSpec(**cfg["spec"])
+        kw = dict(
+            k=cfg.get("k"),
+            tau=cfg.get("tau"),
+            metric=cfg.get("metric", "euclidean"),
+            caps=cfg.get("caps"),
+            slot_cap=cfg.get("slot_cap"),
+            variant=cfg.get("variant", "radius"),
+            eps=cfg.get("eps", 0.5),
+            c_const=cfg.get("c_const", 32),
+            num_shards=cfg.get("num_shards", 1),
+            block_size=cfg.get("block_size", 128),
+            placement=cfg.get("placement", "auto"),
+            publish_every=cfg.get("publish_every", 8),
+            max_pending=cfg.get("max_pending", 64),
+        )
+        kw.update(overrides)
+        k = kw.pop("k")
+        if k is None or kw["tau"] is None:
+            raise ValueError(
+                "no checkpoint to read the config from: WAL-only restore "
+                "needs k= and tau= overrides"
+            )
+        caps = kw.pop("caps")
+        rt = cls(
+            spec, int(k),
+            caps=None if caps is None else np.asarray(caps, np.int32),
+            oracle=oracle, on_publish=on_publish, registry=registry,
+            durability=dur, fault_policy=fault_policy, faults=faults,
+            device=device, **kw,
+        )
+        if meta is not None:
+            with rt._cv:
+                rt._install(state, meta)
+                rt.epochs_published = int(meta.get("epoch", 0))
+                rt._last_ckpt_seq = rt._applied_seq
+        # replay the WAL tail: records newer than the checkpoint's
+        # watermark, in file order == submission order
+        replayed = 0
+        replayed_points = 0
+        skipped = 0
+        poisoned = set(rt._poisoned_seqs)
+        rt._replaying = True
+        try:
+            for rec in rt._wal.replay(after_seq=rt._applied_seq):
+                with rt._cv:
+                    rt._next_seq = max(rt._next_seq, rec.seq + 1)
+                    rt._applied_seq = rec.seq
+                if rec.seq in poisoned:
+                    skipped += 1
+                    continue
+                try:
+                    rt.ingest(rec.points, rec.cats)
+                except Exception as e:  # noqa: BLE001 -- skip + count
+                    rt.registry.counter("serve.wal.replay_errors").inc()
+                    _log.warning(
+                        "WAL replay of seq %d failed (%s: %s); skipped",
+                        rec.seq, type(e).__name__, e,
+                    )
+                    continue
+                replayed += 1
+                replayed_points += int(rec.points.shape[0])
+        finally:
+            rt._replaying = False
+        snap = rt.refresh(force=True) if rt._state is not None else None
+        rt.restore_report = dict(
+            checkpoint=path,
+            replayed_batches=replayed,
+            replayed_points=replayed_points,
+            skipped_poisoned=skipped,
+            restore_s=time.perf_counter() - t0,
+            epoch=0 if snap is None else snap.epoch,
+            fingerprint=None if snap is None else snap.fingerprint,
+            n_offered=rt.n_offered,
+        )
+        return rt
 
     def close(
         self, *, drain: bool = True, timeout: Optional[float] = 30.0
@@ -948,9 +1335,12 @@ class StreamRuntime:
         ``TimeoutError`` without closing. ``drain=False`` stops at once:
         queued batches are dropped, counted in
         ``serve.worker.dropped_batches{reason=close}`` and surfaced as a
-        worker error to a later ``flush``/``acquire``. Synchronous
-        ingestion and published epochs stay usable after close; further
-        ``submit`` calls raise ``RuntimeError``.
+        worker error to a later ``flush``/``acquire`` (on a durable
+        runtime they are in the WAL and come back on ``restore``). A
+        durable runtime then saves a parting checkpoint, so it restores
+        from the checkpoint alone. Synchronous ingestion and published
+        epochs stay usable after close; further ``submit`` calls raise
+        ``RuntimeError``.
         """
         if drain:
             deadline = (
@@ -983,6 +1373,15 @@ class StreamRuntime:
         if worker is not None:
             self._queue.put(_STOP)
             worker.join(timeout=60.0)
+        if (
+            self.durability is not None
+            and self._applied_seq > self._last_ckpt_seq
+        ):
+            # parting save: a cleanly closed durable runtime restores
+            # from its checkpoint alone, no config overrides needed
+            self.checkpoint(force=True)
+        if self._wal is not None:
+            self._wal.close()
 
     def __enter__(self) -> "StreamRuntime":
         return self

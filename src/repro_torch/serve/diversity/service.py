@@ -25,9 +25,10 @@ tenant and keeps the reference's single-tenant API:
     svc.frontend.register_tenant("u", spec=MatroidSpec("uniform"))
     res = svc.query(DiversityQuery(k=10))
 
-Not here yet (ROADMAP step 10): ``restore`` and ``durability=``, which
-raise ``NotImplementedError``, and an enabled ``coalesce=``, which does
-too.
+``durability=DurabilityConfig(dir)`` (or a path) gives the runtime a
+write-ahead log and checkpoints; ``DiversityService.restore(dir,
+device=...)`` rebuilds the service from them, bit for bit. The frontend
+coalesces concurrent ``query_batch`` calls by default (``coalesce=``).
 """
 from __future__ import annotations
 
@@ -138,10 +139,28 @@ class DiversityService:
         )
 
     @classmethod
-    def restore(cls, durability, **kwargs) -> "DiversityService":
-        raise NotImplementedError(
-            "restore comes with ROADMAP step 10 (durability: WAL, "
-            "checkpoint, restore)")
+    def restore(
+        cls,
+        durability,
+        *,
+        oracle=None,
+        cache=None,
+        registry=None,
+        fault_policy=None,
+        faults=None,
+        device: DeviceLike = CUDA,
+        **overrides,
+    ) -> "DiversityService":
+        """Rebuild a service on ``device`` from its durability dir: the
+        newest checkpoint + WAL-tail replay, bit-identical to the stream
+        that died (see ``StreamRuntime.restore``; the report is at
+        ``svc.runtime.restore_report``)."""
+        rt = StreamRuntime.restore(
+            durability, oracle=oracle, registry=registry,
+            fault_policy=fault_policy, faults=faults, device=device,
+            **overrides,
+        )
+        return cls.from_runtime(rt, cache=cache, registry=registry)
 
     # ------------------------------------------------------------------
     # ingestion (the runtime's synchronous path)
@@ -298,6 +317,7 @@ class DiversityService:
         )
 
     def close(self) -> None:
-        """Close the frontend and stop the runtime's async worker."""
+        """Stop the frontend's coalescer and the runtime's async worker,
+        if they were started."""
         self.frontend.close()
         self.runtime.close()

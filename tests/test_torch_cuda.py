@@ -5,6 +5,8 @@ torch and the port, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -792,6 +794,9 @@ def test_service_on_the_card_equals_the_cpu(cuda):
             svc.ingest(P[off:off + 500], cats[off:off + 500])
         for off in range(1500, 3000, 500):
             svc.runtime.submit(P[off:off + 500], cats[off:off + 500])
+            # one publish a batch on either device: without the barrier
+            # the worker's publish-on-drain depends on how fast it drains
+            svc.runtime.flush()
         epoch = svc.runtime.flush()
         qs = [DiversityQuery(k=kk) for kk in (3, 6)]
         res = {t: svc.frontend.query_batch(qs, tenant=t, engine="host",
@@ -816,3 +821,58 @@ def test_service_on_the_card_equals_the_cpu(cuda):
     for t in res:
         for a, b in zip(res[t], cres[t]):
             assert a.indices.tolist() == b.indices.tolist(), t
+
+
+@pytest.mark.parametrize("writer", ["cpu", "cuda"])
+def test_durable_directory_restores_across_devices(cuda, tmp_path, writer):
+    """A checkpoint names no device: a directory written on one device
+    (a checkpoint, then a WAL tail) restores on the other to the same
+    stream and epoch fingerprint as its own device's restore, with the
+    state on the ``device=`` given, K3 launched for every replayed block
+    on the card, and the same host-engine selections."""
+    from repro_torch.serve.diversity import (
+        DiversityQuery,
+        DiversityService,
+        DurabilityConfig,
+    )
+
+    rng = np.random.default_rng(3)
+    base = rng.normal(size=(12, 64)) * 3.0
+    P = (base[rng.integers(0, 12, 3000)]
+         + 0.05 * rng.normal(size=(3000, 64))).astype(np.float32)
+    cats = rng.integers(0, 4, (3000, 1)).astype(np.int32)
+    caps = np.full(4, 3, np.int32)
+    spec = MatroidSpec("partition", num_categories=4, gamma=1)
+    d = tmp_path / "written"
+    dur = DurabilityConfig(dir=str(d), checkpoint_every=10 ** 9)
+    svc = DiversityService(spec, 6, tau=16, caps=caps, durability=dur,
+                           device=writer)
+    for off in range(0, 1500, 500):
+        svc.ingest(P[off:off + 500], cats[off:off + 500])
+    assert svc.runtime.checkpoint(force=True) is not None
+    for off in range(1500, 3000, 500):
+        svc.runtime.submit(P[off:off + 500], cats[off:off + 500])
+    svc.runtime.flush()
+    live = svc.runtime.latest()
+    # "kill": no close, the tail stays in the WAL
+    qs = [DiversityQuery(k=kk) for kk in (3, 6)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        copy = tmp_path / dev  # each restore's parting save stays its own
+        shutil.copytree(d, copy)
+        ops.reset_launches()
+        back = DiversityService.restore(str(copy), device=dev)
+        launches = ops.launch_counts()
+        rep = back.runtime.restore_report
+        assert rep["replayed_batches"] == 3
+        assert back.runtime.state.dp.device.type == dev
+        out[dev] = (back.runtime.latest(), back.query_batch(qs,
+                                                            engine="host"))
+        if dev == "cuda":
+            assert launches["center_precheck"] >= 3 * -(-500 // 128)
+        back.close()
+    for dev, (snap, _res) in out.items():
+        assert snap.fingerprint == live.fingerprint, dev
+        assert np.array_equal(snap.src_idx, live.src_idx), dev
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert a.indices.tolist() == b.indices.tolist()

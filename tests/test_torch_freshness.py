@@ -8,8 +8,8 @@ epoch, the epoch-aware snapshot), of the service-needing parts of
 ``submit``, staleness and publish latency under concurrent submit,
 ``on_publish`` containment, truncation on a worker error, per-tenant
 metrics, ``stats()``) and of the supervised-worker parts of
-``tests/test_fault_tolerance.py`` that need no write-ahead log (ROADMAP
-step 10). Streams that went through the async worker are held to the JAX
+``tests/test_fault_tolerance.py`` that need no write-ahead log (the
+log's cases are in ``tests/test_torch_durability.py``). Streams that went through the async worker are held to the JAX
 package's synchronous stream over the same batches (the epoch
 fingerprint, which hashes the integer cells only).
 """

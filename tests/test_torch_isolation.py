@@ -44,7 +44,10 @@ def test_port_files_exist():
               "serve/diversity/query.py", "serve/diversity/cache.py",
               "serve/diversity/tenants.py", "serve/diversity/faults.py",
               "serve/diversity/runtime.py", "serve/diversity/frontend.py",
-              "serve/diversity/service.py"):
+              "serve/diversity/service.py", "serve/diversity/wal.py",
+              "serve/diversity/checkpoint.py", "serve/diversity/coalesce.py",
+              "serve/diversity/health.py", "serve/diversity/replication.py",
+              "serve/diversity/audit.py"):
         assert f"src/repro_torch/{f}" in names
 
 

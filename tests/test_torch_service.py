@@ -561,19 +561,32 @@ def test_ingest_reports(rng):
 
 @pytest.mark.parametrize("what", ["durability", "coalesce", "restore",
                                   "shard_map"])
-def test_later_steps_raise_not_implemented(rng, what):
-    _, _, caps, sp, k = _partition_instance(rng, n=50)
-    step = "step 11" if what == "shard_map" else "step 10"
-    with pytest.raises(NotImplementedError, match=step):
-        if what == "durability":
-            _svc(sp, k, caps, tau=8, durability="/nonexistent")
-        elif what == "coalesce":
-            _svc(sp, k, caps, tau=8, coalesce=jdiv.CoalesceConfig())
-        elif what == "restore":
-            DiversityService.restore("/nonexistent")
-        else:
+def test_later_steps_raise_not_implemented(rng, tmp_path, what):
+    """Step 10 (durability, coalescing, restore) is ported and no longer
+    raises; ``shard_map`` still raises, naming step 11."""
+    P, cats, caps, sp, k = _partition_instance(rng, n=50)
+    if what == "shard_map":
+        with pytest.raises(NotImplementedError, match="step 11"):
             _svc(sp, k, caps, tau=8, num_shards=2, placement="shard_map")
-    # a disabled coalescer is the direct path the port always takes
+    elif what == "durability":
+        svc = _svc(sp, k, caps, tau=8, durability=str(tmp_path))
+        svc.ingest(P, cats)
+        assert svc.runtime._applied_seq == 0
+        svc.close()
+    elif what == "coalesce":
+        svc = _svc(sp, k, caps, tau=8)
+        assert svc.frontend.coalescer is not None  # on by default
+        svc.close()
+    else:
+        svc = _svc(sp, k, caps, tau=8, durability=str(tmp_path))
+        svc.ingest(P, cats)
+        svc.close()  # the parting checkpoint holds the config
+        back = DiversityService.restore(str(tmp_path), device=CPU)
+        assert back.runtime.n_offered == P.shape[0]
+        back.close()
+        with pytest.raises(ValueError, match="WAL-only"):
+            DiversityService.restore(str(tmp_path / "empty"), device=CPU)
+    # a disabled coalescer is the direct path
     svc = _svc(sp, k, caps, tau=8,
                coalesce=jdiv.CoalesceConfig(enabled=False))
     assert svc.frontend.coalescer is None
