@@ -136,7 +136,37 @@ exits non-zero:
                (groups, calls a group, queue wait p50/p99, stacked
                solves, stale reads) and ``query_batch`` latency under
                coalescing beside the ``serve`` phase's direct path.
-11. ``lm``     the serving path of the LM stack at zamba2-7b's full width
+11. ``mapreduce`` songs-sim in the MapReduce setting on an in-process
+               mesh of 8 positions on the card (``make_mesh((8,),
+               ("data",), devices=["cuda"] * 8)``: ell = 8, the largest of
+               ``benchmarks/fig3_mapreduce.py``, tau 64 so 8 centers a
+               shard): (a) ``solve_dmmc(setting="mapreduce",
+               metric="cosine", variant="sum", engine="host")`` without
+               and with ``round2_tau=16``, launch counts set to 0 before
+               and read after (K2 8 x 8 a round-1 solve plus 16, K1 once a
+               final stage); (b) the same two solves on the plain versions
+               (``force="ref"``) give the same coreset and selection (or
+               part at a GMM tie, printed, as in ``solve``) and values
+               equal with the diagonal out; (c) each selection a basis of
+               the partition matroid, round 2 smaller than round 1, no
+               overflow, the union's rows the points its ``src_idx``
+               names; (d) both values beside the ``solve`` phase's
+               sequential value, against the reference test's bounds
+               (MR >= 0.95 x, round 2 >= 0.90 x; printed, not gated);
+               (e) ``distributed_coreset`` with tau 64: K2 8 x 64
+               launches, the centers of ``gmm_fixed`` on the whole array
+               (or a printed tie), radius and delta within 1e-5, a
+               non-empty coreset, and no host sync inside the traversal
+               (``torch.cuda.set_sync_debug_mode``); (f) a
+               ``StreamRuntime`` with 4 shards under
+               ``placement="shard_map"`` over the ``serve`` phase's
+               batches equals ``placement="vmap"`` bit for bit (state,
+               epoch triple, fingerprint), and its checkpoint restores to
+               it. Printed: seconds of each solve beside the sequential's,
+               one reducer's SeqCoreset seconds, the union size, the
+               global GMM's seconds beside ``gmm_fixed``'s, each
+               placement's ingest seconds, the launches of (a), (e), (f).
+12. ``lm``     the serving path of the LM stack at zamba2-7b's full width
                (81 Mamba2 layers, one shared attention block applied 13
                times, bf16, random weights from ``LM.init`` at ``--seed``):
                (a) K4 (flash forward) and K6 (SSD intra-chunk) against
@@ -165,7 +195,7 @@ exits non-zero:
                beside their plain versions, their bounds and (K4)
                ``scaled_dot_product_attention``, with K4's route (bf16:
                the tensor cores), TFLOP/s and kernel / library ratio.
-12. ``train``   the training path at smollm-135m's full width and depth
+13. ``train``   the training path at smollm-135m's full width and depth
                (bf16, random weights, batch 16 x 2,048, diverse selection
                on): (a) K5 (flash backward) against its plain version at
                test shapes, and K5 and K4 at one layer's own inputs,
@@ -255,6 +285,10 @@ ENGINE_QUERIES, ENGINE_TV_QUERIES, ENGINE_GREEDY_QUERIES = 32, 16, 16
 ENGINE_K_MIN = 4
 ENGINE_TV_GAMMA = 3  # labels a row: wikipedia-sim, dmmc_paper.py:20-22
 ENGINE_LANES = 4
+# the mapreduce phase: ell = 8 is the largest of benchmarks/fig3_mapreduce.py:54,
+# round 2 at tau 16 as tests/test_distributed.py:43; 4 shards for shard_map
+MR_SHARDS, MR_ROUND2_TAU, MR_PLACEMENT_SHARDS = 8, 16, 4
+MR_SEQ_FLOOR, MR_ROUND2_FLOOR = 0.95, 0.90  # tests/test_distributed.py:54-56
 
 
 def emit(obj) -> None:
@@ -342,6 +376,17 @@ def device_profile(fn, count: str = "", scope: str = "") -> dict:
                 counted=(sum(v[1] for n, v in by_name.items() if count in n)
                          if count else None), scope_count=scoped,
                 top=[dict(name=n[:80], ms=v[0], count=v[1]) for n, v in top])
+
+
+def device_profile_pure(fn, **kw) -> dict:
+    """``device_profile`` of a ``fn`` that may run again (it leaves no
+    state behind): the profiler now and then hands back a window with no
+    device events, and then the window is taken again, up to 3 times."""
+    for _ in range(3):
+        prof = device_profile(fn, **kw)
+        if prof["device_ms"] is not None:
+            break
+    return prof
 
 
 def phase_device() -> dict:
@@ -682,7 +727,8 @@ def _solve(points, cats, caps, spec, k, tau, force=None):
                       force=force, device="cuda")
 
 
-def _first_divergence_is_tie(x_norm, centers, centers_ref) -> tuple[int, bool]:
+def _first_divergence_is_tie(x_norm, centers, centers_ref,
+                             valid=None) -> tuple[int, bool]:
     """At the first position where the two center sequences differ, whether
     the plain min-distances of the two picks are equal within TIE_RTOL."""
     import torch
@@ -691,7 +737,8 @@ def _first_divergence_is_tie(x_norm, centers, centers_ref) -> tuple[int, bool]:
     t = int(next(i for i, (a, b) in enumerate(zip(centers, centers_ref))
                  if a != b))
     n, dev = x_norm.shape[0], x_norm.device
-    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
     md = torch.full((n,), torch.inf, device=dev)
     for c in centers_ref[:t]:
         md, _, _ = ops.gmm_update(x_norm, x_norm[int(c)], md, valid,
@@ -818,6 +865,309 @@ def phase_solve(points, x_norm, cats, caps, spec, k: int, tau: int):
     )
     emit(out)
     return sol, launches
+
+
+def _mr_solve(points, cats, caps, spec, k, tau, mesh, round2, force=None):
+    from repro_torch.core import solve_dmmc
+
+    return solve_dmmc(points, k, spec, cats=cats, caps=caps, tau=tau,
+                      metric="cosine", variant="sum", engine="host",
+                      setting="mapreduce", mesh=mesh, round2_tau=round2,
+                      force=force, device="cuda")
+
+
+def _mr_divergence(x_norm, blocks, spec, caps, k, tau_local, mesh, round2):
+    """Where the kernel and plain MapReduce coresets part: the first shard
+    whose GMM centers differ (or, with round 2, the union's GMM), and
+    whether they part at a tie. Runs only when the two paths differ."""
+    import torch
+    from repro_torch.core import gmm_fixed, mapreduce_coreset
+
+    for s in range(mesh.axis_size(("data",))):
+        xs, vs = blocks[0][s], blocks[2][s]
+        got = gmm_fixed(xs, vs, tau_local, device=xs.device).centers.tolist()
+        want = gmm_fixed(xs, vs, tau_local, force="ref",
+                         device=xs.device).centers.tolist()
+        if got != want:
+            t, tie = _first_divergence_is_tie(xs, got, want, vs)
+            return dict(where=f"shard {s}", at=t, tie=tie)
+    if round2 is not None:
+        cs, _ = mapreduce_coreset(mesh, *blocks, spec, caps, k, tau_local)
+        dev = cs.points.device
+        got = gmm_fixed(cs.points, cs.valid, round2,
+                        device=dev).centers.tolist()
+        want = gmm_fixed(cs.points, cs.valid, round2, force="ref",
+                         device=dev).centers.tolist()
+        if got != want:
+            t, tie = _first_divergence_is_tie(cs.points, got, want, cs.valid)
+            return dict(where="round 2", at=t, tie=tie)
+    return dict(where=None, at=None, tie=False)
+
+
+def phase_mapreduce(points, x_norm, sol, cats, caps, spec, k: int, tau: int,
+                    serve: dict) -> dict:
+    """The MapReduce setting, the global GMM and the ``shard_map``
+    placement on songs-sim (module docstring, phase 11)."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import (
+        PartitionMatroid,
+        distributed_coreset,
+        epoch_stats,
+        gmm_fixed,
+        mapreduce_coreset,
+        seq_coreset,
+    )
+    from repro_torch.core.distributed_gmm import _global_gmm_shard
+    from repro_torch.core.solve import _padded_shards
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_mesh
+    from repro_torch.serve.diversity import DurabilityConfig, StreamRuntime
+
+    t_phase = time.perf_counter()
+    n = points.shape[0]
+    L = MR_SHARDS
+    tau_local = max(1, tau // L)
+    mesh = make_mesh((L,), ("data",), devices=["cuda"] * L)
+    cats2 = np.asarray(cats, np.int32).reshape(n, 1)
+
+    # (a) the kernel path, launch counts read around the two solves; the
+    # shards' K2 launches may compile Triton specialisations the earlier
+    # phases did not need (counted here), so each solve is timed again
+    # warm after (b)
+    watch = obs.RecompileWatch()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    mr = {r2: _mr_solve(points, cats2, caps, spec, k, tau, mesh, r2)
+          for r2 in (None, MR_ROUND2_TAU)}
+    torch.cuda.synchronize()
+    launches_solve = ops.launch_counts()
+    compiles = dict(events=watch.by_source(),
+                    seconds=sum(watch.seconds_by_key().values()))
+    k2_want = 2 * L * tau_local + MR_ROUND2_TAU
+    check(launches_solve["gmm_update"] == k2_want,
+          f"mapreduce K2 launched {launches_solve['gmm_update']} times, "
+          f"expected {k2_want}")
+    check(launches_solve["pairwise_sqdist"] >= 2,
+          "mapreduce: K1 was not launched by each final stage")
+
+    # (b) the plain path: the same union, coreset and selection, or a tie
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    blocks = _padded_shards(
+        (x_norm, torch.as_tensor(cats2, device="cuda"), valid), L)
+    plain, parity = {}, {}
+    for r2, got in mr.items():
+        ref = _mr_solve(points, cats2, caps, spec, k, tau, mesh, r2,
+                        force="ref")
+        plain[r2] = ref
+        same = bool(np.array_equal(got.coreset_indices, ref.coreset_indices))
+        out = dict(same_coreset=same, same_indices=bool(
+            np.array_equal(np.sort(got.indices), np.sort(ref.indices))))
+        if same:
+            check(out["same_indices"],
+                  f"mapreduce round2={r2}: selection differs from the "
+                  f"plain path")
+            mine = _value_without_diagonal(x_norm, got.coreset_indices,
+                                           got.indices, None)
+            theirs = _value_without_diagonal(x_norm, ref.coreset_indices,
+                                             ref.indices, "ref")
+            out["diversity_rel_diff_without_diagonal"] = _rel(mine, theirs)
+            check(out["diversity_rel_diff_without_diagonal"] <= 1e-5,
+                  f"mapreduce round2={r2}: values differ by "
+                  f"{out['diversity_rel_diff_without_diagonal']}")
+        else:
+            out["divergence"] = _mr_divergence(x_norm, blocks, spec, caps, k,
+                                               tau_local, mesh, r2)
+            check(out["divergence"]["tie"],
+                  f"mapreduce round2={r2}: the coreset differs from the "
+                  f"plain path without a GMM tie: {out['divergence']}")
+        parity["round1" if r2 is None else "round2"] = out
+    warm = {r2: _mr_solve(points, cats2, caps, spec, k, tau, mesh, r2)
+            for r2 in mr}
+
+    # (c) independence, round 2 smaller, no overflow, rows that map back
+    matroid = PartitionMatroid(cats2[:, 0], caps)
+    for r2, got in mr.items():
+        check(len(got.indices) == k and matroid.is_independent(
+            list(got.indices)), f"mapreduce round2={r2}: not a basis")
+        check(got.info["overflow"] == 0,
+              f"mapreduce round2={r2}: overflow {got.info['overflow']}")
+        check(got.info["shards"] == L, f"shards {got.info['shards']}")
+    check(mr[MR_ROUND2_TAU].coreset_size < mr[None].coreset_size,
+          f"round 2 ({mr[MR_ROUND2_TAU].coreset_size}) is not smaller than "
+          f"round 1 ({mr[None].coreset_size})")
+    union, ovf = mapreduce_coreset(mesh, *blocks, spec, caps, k, tau_local)
+    uv = union.valid
+    check(int(ovf) == 0, f"union overflow {int(ovf)}")
+    check(bool(torch.equal(union.points[uv],
+                           x_norm[union.src_idx[uv].long()])),
+          "the union's rows are not the points its src_idx names")
+    check(np.array_equal(np.unique(union.src_idx[uv].cpu().numpy()),
+                         mr[None].coreset_indices),
+          "the union's src_idx set is not the solve's coreset")
+    # one reducer's work: SeqCoreset on shard 0, synced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq_coreset(blocks[0][0], blocks[1][0], blocks[2][0], spec, caps, k,
+                tau_local, base_index=0, device="cuda")
+    torch.cuda.synchronize()
+    reducer_s = time.perf_counter() - t0
+
+    # (d) quality against the sequential solve (reported, not gated)
+    quality = dict(
+        sequential=sol.diversity, mapreduce=mr[None].diversity,
+        mapreduce_round2=mr[MR_ROUND2_TAU].diversity,
+        ratio=mr[None].diversity / sol.diversity,
+        ratio_round2=mr[MR_ROUND2_TAU].diversity / sol.diversity)
+    quality["meets_bounds"] = bool(
+        quality["ratio"] >= MR_SEQ_FLOOR
+        and quality["ratio_round2"] >= MR_ROUND2_FLOOR)
+
+    # (e) the global GMM: one traversal over the 8 shards on K2
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    g_cs, g_radius, g_delta = distributed_coreset(mesh, *blocks, spec, caps,
+                                                  k, tau)
+    torch.cuda.synchronize()
+    global_s = time.perf_counter() - t0
+    launches_global = ops.launch_counts()
+    check(launches_global["gmm_update"] == L * tau,
+          f"global GMM launched K2 {launches_global['gmm_update']} times, "
+          f"expected {L * tau}")
+    check(int(g_cs.valid.sum()) > 0, "the global GMM coreset is empty")
+    # the traversal alone, under the sync debugger: no read to the host
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            g_centers = _global_gmm_shard(mesh, blocks[0], blocks[2], tau,
+                                          ("data",))[3]
+            launch_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    traversal_s = time.perf_counter() - t0
+    syncs = [str(w.message) for w in caught if "ynchroniz" in str(w.message)]
+    check(not syncs, f"the global GMM traversal synced with the host "
+                     f"{len(syncs)} times: {syncs[:2]}")
+    traversal_profile = device_profile_pure(
+        lambda: _global_gmm_shard(mesh, blocks[0], blocks[2], tau,
+                                  ("data",)), count="gmm_step")
+    t0 = time.perf_counter()
+    single = gmm_fixed(x_norm, valid, tau, device=x_norm.device)
+    torch.cuda.synchronize()
+    gmm_fixed_s = time.perf_counter() - t0
+    g_list = g_centers.tolist()
+    s_list = single.centers.tolist()
+    g_tie_at = None
+    if g_list != s_list:
+        g_tie_at, tie = _first_divergence_is_tie(x_norm, g_list, s_list)
+        check(tie, f"global GMM centers diverge at {g_tie_at} without a tie")
+    else:
+        check(_rel(float(g_radius), float(single.radius)) <= 1e-5,
+              f"global GMM radius {float(g_radius)} vs "
+              f"{float(single.radius)}")
+        check(_rel(float(g_delta), float(single.delta)) <= 1e-5,
+              f"global GMM delta {float(g_delta)} vs {float(single.delta)}")
+
+    # (f) the shard_map placement over the serve phase's batches: the
+    # vmap runtime's state bit for bit, then a checkpoint and restore
+    P, C = serve["P"], serve["C"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_map-")
+    try:
+        rts = {}
+        for pl in ("vmap", "shard_map"):
+            dur = (DurabilityConfig(dir=tmp, checkpoint_every=10 ** 9)
+                   if pl == "shard_map" else None)
+            rt = StreamRuntime(spec, k, tau=tau, caps=caps, metric="cosine",
+                               num_shards=MR_PLACEMENT_SHARDS, placement=pl,
+                               block_size=BLOCK, durability=dur,
+                               device="cuda")
+            torch.cuda.synchronize()
+            if pl == "shard_map":
+                ops.reset_launches()
+            t0 = time.perf_counter()
+            for a, b in serve["spans"]:
+                rt.ingest_sharded(P[a:b], C[a:b])
+            torch.cuda.synchronize()
+            rts[pl] = (rt, time.perf_counter() - t0)
+            if pl == "shard_map":
+                launches_placement = ops.launch_counts()
+        (rv, vmap_s), (rs, shard_map_s) = rts["vmap"], rts["shard_map"]
+        check(rs.placement == "shard_map", f"placement {rs.placement}")
+        check(launches_placement["center_precheck"] >= 1,
+              "the shard_map drive launched no K3")
+        _assert_states_equal(rs.state, rv.state, "shard_map vs vmap")
+        triple = [int(v) for v in epoch_stats(rs.state)]
+        check(triple == [int(v) for v in epoch_stats(rv.state)],
+              "shard_map epoch triple differs from vmap")
+        check(rs.fingerprint == rv.fingerprint,
+              "shard_map fingerprint differs from vmap")
+        t0 = time.perf_counter()
+        check(rs.checkpoint(force=True) is not None, "no checkpoint saved")
+        rs.close()
+        back = StreamRuntime.restore(tmp, device="cuda")
+        restore_s = time.perf_counter() - t0
+        check(back.placement == "shard_map",
+              f"restored placement {back.placement}")
+        _assert_states_equal(back.state, rs.state, "restored shard_map")
+        check(back.fingerprint == rs.fingerprint
+              and back.n_offered == rs.n_offered,
+              "the restored runtime differs from the one that saved")
+        back.close()
+        rv.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    launches = {name: launches_solve[name] + launches_global[name]
+                + launches_placement[name] for name in launches_solve}
+    timings = {("round1" if r2 is None else "round2"): dict(
+        coreset_s=m.timings["coreset_s"], solver_s=m.timings["solver_s"],
+        total_s=m.timings["total_s"], coreset_size=m.coreset_size,
+        warm_coreset_s=warm[r2].timings["coreset_s"],
+        warm_solver_s=warm[r2].timings["solver_s"],
+        warm_total_s=warm[r2].timings["total_s"],
+        plain_coreset_s=plain[r2].timings["coreset_s"],
+        plain_total_s=plain[r2].timings["total_s"])
+        for r2, m in mr.items()}
+    emit(dict(
+        phase="mapreduce", n=n, dim=points.shape[1], k=k, tau=tau,
+        shards=L, tau_local=tau_local, round2_tau=MR_ROUND2_TAU,
+        sequential=dict(coreset_s=sol.timings["coreset_s"],
+                        solver_s=sol.timings["solver_s"],
+                        total_s=sol.timings["total_s"],
+                        coreset_size=sol.coreset_size),
+        mapreduce=timings, compiles_in_first_solves=compiles,
+        reducer_coreset_s=reducer_s,
+        union_size=int(uv.sum()), union_capacity=int(uv.numel()),
+        parity=parity, quality=quality,
+        global_gmm=dict(seconds=global_s, traversal_s=traversal_s,
+                        traversal_launch_s=launch_s,
+                        gmm_fixed_s=gmm_fixed_s,
+                        same_centers=g_list == s_list, tie_at=g_tie_at,
+                        radius=float(g_radius), delta=float(g_delta),
+                        gmm_fixed_radius=float(single.radius),
+                        gmm_fixed_delta=float(single.delta),
+                        coreset_size=int(g_cs.valid.sum()),
+                        k2_launches=launches_global["gmm_update"],
+                        host_syncs_in_traversal=len(syncs),
+                        traversal_profile=traversal_profile),
+        shard_map=dict(shards=MR_PLACEMENT_SHARDS, equals_vmap=True,
+                       epoch_triple=triple, vmap_ingest_s=vmap_s,
+                       shard_map_ingest_s=shard_map_s, restore_s=restore_s,
+                       restored_equal=True),
+        launches_solve=launches_solve, launches_global=launches_global,
+        launches_placement=launches_placement, launches=launches,
+        seconds=time.perf_counter() - t_phase))
+    return dict(launches=launches, quality=quality)
 
 
 def _engine_ctx(D, spec, cats, caps, device):
@@ -1961,11 +2311,17 @@ def phase_stream(points, x_norm, cats, caps, spec, k: int, tau: int) -> dict:
     # the final state, under the profiler; a block should cost one K3
     # launch and one copy to the host
     off = (n // 2) // BLOCK * BLOCK
-    before = streaming.scan_counts()
-    window = device_profile(lambda: ingest_batch(
-        st_a, x_norm[off:off + 64 * BLOCK], cats[off:off + 64 * BLOCK],
-        valid[off:off + 64 * BLOCK], spec, caps, k, tau, base_index=off,
-        block_size=BLOCK), count="precheck")
+    def window_run():
+        # ingest_batch works on a copy of st_a; the counts are the last
+        # window's
+        nonlocal before
+        before = streaming.scan_counts()
+        ingest_batch(st_a, x_norm[off:off + 64 * BLOCK],
+                     cats[off:off + 64 * BLOCK], valid[off:off + 64 * BLOCK],
+                     spec, caps, k, tau, base_index=off, block_size=BLOCK)
+
+    before = None
+    window = device_profile_pure(window_run, count="precheck")
     window_counts = {key: v - before[key]
                      for key, v in streaming.scan_counts().items()}
     per_block = dict(device_events=window["kernels"] / 64,
@@ -2074,11 +2430,14 @@ def _time_precheck(x_norm, st) -> dict:
                                        ref.SLACK * thr, 0.0, 0.0)
 
     def device_us(fn) -> tuple[float, dict]:
-        prof = device_profile(lambda: [fn() for _ in range(20)],
-                              count="precheck")
+        prof = device_profile_pure(lambda: [fn() for _ in range(20)],
+                                   count="precheck")
         us = (None if prof["device_ms"] is None
               else prof["device_ms"] / 20 * 1e3)
         return us, prof
+
+    def per_call(prof):
+        return None if prof.get("counted") is None else prof["counted"] / 20
 
     us_a, prof_a = device_us(stats)
     us_b, prof_b = device_us(fused)
@@ -2088,7 +2447,7 @@ def _time_precheck(x_norm, st) -> dict:
                                                     None, force="ref")),
         op_ms=time_ms(lambda: ops.block_precheck(xb, c, cv, None, thr,
                                                  None)),
-        device_us_per_launch=us_b, launches_per_call=prof_b["counted"] / 20,
+        device_us_per_launch=us_b, launches_per_call=per_call(prof_b),
         profile_20_launches=prof_b, bound_ms=b_b, bound_by=by_b,
         library_ms=None,
         stats_route=dict(
@@ -2097,7 +2456,7 @@ def _time_precheck(x_norm, st) -> dict:
             op_with_margin_ms=time_ms(lambda: ops.center_precheck(xb, c,
                                                                   cv)),
             device_us_per_launch=us_a,
-            launches_per_call=prof_a["counted"] / 20,
+            launches_per_call=per_call(prof_a),
             profile_20_launches=prof_a, bound_ms=b_a, bound_by=by_a),
         cluster=precheck.last_plan, shape=[B, T, d], valid_centers=tv,
     )
@@ -3010,6 +3369,8 @@ def main() -> int:
                         args.seed, stream["st"], stream["points_per_s"])
     durable = phase_durable(spec, caps, args.k, args.tau, args.seed, serve,
                             stream["points_per_s"])
+    mr = phase_mapreduce(points, x_norm, sol, cats, caps, spec, args.k,
+                         args.tau, serve)
     del points, x_norm, cats, stream["st"], serve["P"]
     torch.cuda.empty_cache()
     lm = phase_lm(args.seed)
@@ -3023,6 +3384,7 @@ def main() -> int:
                            streaming=stream["launches"][name],
                            serve=serve["launches"][name],
                            durable=durable["launches"][name],
+                           mapreduce=mr["launches"][name],
                            lm=lm["launches"][name],
                            train=train["launches"][name])
                 for name in launches}

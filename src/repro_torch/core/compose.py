@@ -17,9 +17,7 @@ the serving layer's ``pipeline`` placement alike.
                          scan, back to one <= tau-center state, with the
                          delegates' global ``src_idx`` kept.
 
-The reference concatenates with ``core.coreset.concat_coresets``, which
-the port brings with MapReduce (ROADMAP step 11); this module keeps its
-own concatenation.
+As in the reference, the union is ``core.coreset.concat_coresets``.
 """
 from __future__ import annotations
 
@@ -28,7 +26,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .coreset import Coreset
+from .coreset import Coreset, concat_coresets
 from .matroid import MatroidSpec
 from .streaming import (
     StreamState,
@@ -41,7 +39,7 @@ from .streaming import (
 
 def union_coresets(coresets: Sequence[Coreset]) -> Coreset:
     """Union of coresets of a partition = coreset of the whole (§3)."""
-    return Coreset(*(torch.cat(list(parts)) for parts in zip(*coresets)))
+    return concat_coresets(list(coresets))
 
 
 def unstack_shards(sts: StreamState) -> list[StreamState]:

@@ -8,10 +8,12 @@ fallback T_i = C_i) over the cluster assignment, which is the only array
 that crosses to the host.
 
 ``seq_coreset`` is the reference's jit SeqCoreset (:136):
-``extraction_mask`` (:71, uniform and partition) and ``compress`` (:97)
-run in torch on the points' device after GMM on K2, and nothing crosses
-to the host but GMM's loop bound. The transversal mask and
-``concat_coresets`` come with the MapReduce slice (ROADMAP.md step 11).
+``extraction_mask`` (:71, uniform, partition and the matching-free
+transversal rule) and ``compress`` (:97) run in torch on the points'
+device after GMM on K2, and nothing crosses to the host but GMM's loop
+bound. It is what every shard of the MapReduce construction runs
+(``core.mapreduce``); ``concat_coresets`` (:152) is the union of such
+fixed-capacity buffers.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from .matroid import (
     make_host_matroid,
     partition_extract_mask,
     rank_in_group,
+    transversal_extract_mask,
 )
 
 
@@ -73,7 +76,7 @@ def extraction_mask(
     k: int,
     tau: int,
 ) -> torch.Tensor:
-    """Per-point keep mask implementing EXTRACT (uniform, partition)."""
+    """Per-point keep mask implementing EXTRACT for each matroid type."""
     if spec.kind == "uniform":
         # the unconstrained diversity coreset: k points per cluster
         return valid & (rank_in_group(assign, valid, tau) < k)
@@ -81,9 +84,8 @@ def extraction_mask(
         return partition_extract_mask(assign, cats, caps, valid, k, tau,
                                       spec.num_categories)
     if spec.kind == "transversal":
-        raise NotImplementedError(
-            "the device EXTRACT of a transversal matroid is not ported yet: "
-            "ROADMAP.md step 11 (use seq_coreset_host)")
+        return transversal_extract_mask(assign, cats, valid, k, tau,
+                                        spec.num_categories)
     raise ValueError(f"device EXTRACT not defined for {spec.kind!r}")
 
 
@@ -148,6 +150,14 @@ def seq_coreset(
     cs = compress(points, cats, mask, cap_, base_index)
     overflow = torch.clamp_min(torch.sum(mask.to(torch.int32)) - cap_, 0)
     return cs, res, overflow
+
+
+def concat_coresets(coresets: list[Coreset]) -> Coreset:
+    """Union of coresets (composability): plain concatenation of buffers,
+    on the first coreset's device."""
+    dev = coresets[0].valid.device
+    return Coreset(*(torch.cat([t.to(dev) for t in leaves])
+                     for leaves in zip(*coresets)))
 
 
 def _cats_2d(cats: Optional[np.ndarray], n: int) -> np.ndarray:

@@ -6,10 +6,10 @@ Reference: the host half of ``repro/core/matroid.py``: ``MatroidSpec``
 matching, ``_kuhn_try``) and ``GeneralMatroid`` (:55-241), and
 ``make_host_matroid`` (:331). They run on coreset-sized inputs for the
 final-stage solvers and on the EXTRACT step of Algorithm 1. The device
-masks of the jit EXTRACT, ``rank_in_group`` and ``partition_extract_mask``
-(:248-292), run in torch on the points' device (``core.coreset.
-seq_coreset``); ``transversal_extract_mask`` and ``partition_counts_ok``
-wait for ROADMAP.md step 11.
+masks of the jit EXTRACT, ``rank_in_group``, ``partition_extract_mask``,
+``transversal_extract_mask`` and ``partition_counts_ok`` (:248-328), run
+in torch on the points' device (``core.coreset.seq_coreset``, which every
+shard of the MapReduce construction runs).
 
 Array conventions
 -----------------
@@ -282,6 +282,40 @@ def partition_extract_mask(
     stage1 = (r_cc < torch.clamp_max(caps.to(torch.int64)[c], k)) & valid
     r_cl = rank_in_group(assign, stage1, tau)
     return stage1 & (r_cl < k)
+
+
+def transversal_extract_mask(
+    assign: torch.Tensor,  # int[n]
+    cats: torch.Tensor,  # int[n, gamma], -1 padded
+    valid: torch.Tensor,  # bool[n]
+    k: int,
+    tau: int,
+    num_categories: int,
+) -> torch.Tensor:
+    """Matching-free transversal EXTRACT: keep the first min(k, |A ∩ C_i|)
+    points of every category A present in cluster C_i (a superset of the
+    Thm-2 coreset, hence shardable). A point is kept iff it is within the
+    first k of *any* of its categories in its cluster."""
+    n, gamma = cats.shape
+    cats = cats.to(torch.int64)
+    g = (assign.to(torch.int64)[:, None] * num_categories
+         + torch.clamp_min(cats, 0))
+    slot_valid = (cats >= 0) & valid[:, None]
+    r = rank_in_group(g.reshape(-1), slot_valid.reshape(-1),
+                      tau * num_categories).reshape(n, gamma)
+    keep = torch.any((r < k) & slot_valid, dim=1)
+    return keep & valid
+
+
+def partition_counts_ok(sel_cats: torch.Tensor, sel_valid: torch.Tensor,
+                        caps: torch.Tensor,
+                        num_categories: int) -> torch.Tensor:
+    """Whether a (small) selected set respects the partition caps, as a
+    0-d bool tensor. sel_cats: (m, 1)."""
+    c = torch.where(sel_valid, sel_cats[:, 0].to(torch.int64),
+                    num_categories)
+    counts = torch.bincount(c, minlength=num_categories + 1)
+    return torch.all(counts[:num_categories] <= caps.to(counts.device))
 
 
 # --------------------------------------------------------------------------

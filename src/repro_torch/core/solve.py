@@ -1,12 +1,14 @@
 """End-to-end DMMC driver: coreset construction + final-stage solver.
 
-Reference: ``repro/core/solve.py`` (``solve_dmmc`` :78), in its
-``sequential`` and ``streaming`` settings:
+Reference: ``repro/core/solve.py`` (``solve_dmmc`` :78), in its three
+settings:
 
 1. build a coreset: sequential = GMM on the device and the host EXTRACT
    (Alg. 1, eps- or tau-driven); streaming = the Alg.-2 blocked scan of
    ``core.streaming`` (tau-driven), whose coreset indices stay in buffer
-   order, as in the reference;
+   order, as in the reference; mapreduce = ``core.mapreduce`` over a
+   ``launch.mesh`` (each shard's SeqCoreset on its position's device,
+   the union of their buffers, optionally a second round), tau-driven;
 2. run the final solver on the coreset only:
    - sum       -> AMT local search (gamma=0), the paper's choice;
    - others    -> exhaustive search (exact on the coreset).
@@ -14,13 +16,15 @@ Reference: ``repro/core/solve.py`` (``solve_dmmc`` :78), in its
 The reference round-trips the whole normalised matrix to the host; here
 the points stay on the device. Only the cluster assignment (n int32) or
 the scan's decisions cross to the host, the coreset rows are gathered on
-the device, and only the coreset's (m, m) distance matrix comes back.
+the device, and only the coreset's (m, m) distance matrix comes back. In
+the mapreduce setting the shards are views of the normalised matrix;
+only a shard that padding completes is copied.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,12 +34,9 @@ from . import geometry
 from .coreset import seq_coreset_host
 from .diversity import Variant
 from .final_solve import SubsetMatroidView, coreset_distance_matrix, final_solve
+from .mapreduce import mapreduce_coreset
 from .matroid import MatroidSpec, make_host_matroid
 from .streaming import stream_coreset
-
-_NOT_PORTED = {
-    "mapreduce": "ROADMAP.md 'Modules to port', step 11 (MapReduce)",
-}
 
 
 @dataclasses.dataclass
@@ -79,6 +80,26 @@ def _final_solve(
     return [int(sub[i]) for i in X], val
 
 
+def _padded_shards(arrays, shards: int) -> list[list[torch.Tensor]]:
+    """Each (n, ...) array as ``shards`` blocks of n_local = ceil(n /
+    shards) rows: views where the rows exist, the last blocks completed
+    with zero rows (zero ``valid`` marks them invalid)."""
+    n = arrays[0].shape[0]
+    n_local = -(-n // shards)
+    out = []
+    for x in arrays:
+        blocks = []
+        for s in range(shards):
+            b = x[min(s * n_local, n):min((s + 1) * n_local, n)]
+            if b.shape[0] < n_local:
+                pad = torch.zeros((n_local - b.shape[0],) + tuple(x.shape[1:]),
+                                  dtype=x.dtype, device=x.device)
+                b = torch.cat([b, pad])
+            blocks.append(b)
+        out.append(blocks)
+    return out
+
+
 def solve_dmmc(
     points,
     k: int,
@@ -89,8 +110,11 @@ def solve_dmmc(
     variant: Variant = "sum",
     eps: Optional[float] = None,
     tau: Optional[int] = None,
-    setting: str = "sequential",
+    setting: str = "sequential",  # sequential | streaming | mapreduce
     metric: geometry.Metric = "euclidean",
+    mesh=None,
+    data_axes: Sequence[str] = ("data",),
+    round2_tau: Optional[int] = None,
     oracle=None,
     gamma: float = 0.0,
     engine: str = "host",
@@ -111,13 +135,15 @@ def solve_dmmc(
     against the host's 0.89–1.02 s (``PERF.md`` §5).
     ``force="ref"`` runs the plain PyTorch versions of the kernels.
     ``setting="streaming"`` takes ``tau`` and the uniform, partition and
-    transversal matroids.
+    transversal matroids. ``setting="mapreduce"`` takes ``tau`` and a
+    ``launch.mesh`` (``make_mesh((8,), ("data",), devices=["cuda"] * 8)``
+    runs 8 shards in turn on one card); the points are padded with
+    invalid rows to a multiple of the shard count over ``data_axes``,
+    each shard gets ``tau // shards`` centers (at least 1), and
+    ``round2_tau`` re-cores the union. ``info`` then holds ``tau``,
+    ``shards``, ``size`` and ``overflow``.
     """
-    if setting in _NOT_PORTED:
-        raise NotImplementedError(
-            f"setting={setting!r} is not ported yet: {_NOT_PORTED[setting]}"
-        )
-    if setting not in ("sequential", "streaming"):
+    if setting not in ("sequential", "streaming", "mapreduce"):
         raise ValueError(setting)
     if (eps is None) == (tau is None):
         raise ValueError("give exactly one of eps / tau")
@@ -140,6 +166,23 @@ def solve_dmmc(
             metric="euclidean",  # already normalized
             oracle=oracle, force=force, device=dev,
         )
+    elif setting == "mapreduce":
+        if mesh is None or tau is None:
+            raise ValueError("mapreduce needs a mesh and tau")
+        shards = int(np.prod([mesh.shape[a] for a in data_axes]))
+        tau_local = max(1, tau // shards)
+        valid = torch.ones((n,), dtype=torch.bool, device=dev)
+        cs, ovf = mapreduce_coreset(
+            mesh, *_padded_shards(
+                (pts_norm, torch.as_tensor(cats_arr, device=dev), valid),
+                shards),
+            spec, caps, k, tau_local, data_axes=data_axes,
+            round2_tau=round2_tau, force=force,
+        )
+        idx = np.unique(cs.src_idx[cs.valid].cpu().numpy())
+        idx = idx[(idx >= 0) & (idx < n)]  # drop padding artifacts
+        info = dict(tau=tau, shards=shards, size=int(idx.size),
+                    overflow=int(ovf))
     else:
         if tau is None:
             raise ValueError("streaming is parameterized by tau (§5.2)")

@@ -51,10 +51,13 @@ one after another over the same ``_Scan`` (each lane is a view of the
 stacked tensors, updated in place), so each shard's state is the state of
 ``ingest_batch`` on its sub-stream alone, bit for bit. The reference's
 ``vmap`` runs the lanes as one program; a single K3 launch across lanes
-is later work (ROADMAP §2). ``resolve_placement`` picks the drive; the
-``shard_map`` drive (``ingest_batch_sharded_mapped``) comes with
-``torch.distributed`` (ROADMAP step 11). General matroids use
-``stream_coreset_host`` (numpy).
+is later work (ROADMAP §2). The ``shard_map`` drive
+(``ingest_batch_sharded_mapped``, reference :1189) deals the S lanes in
+contiguous groups over ``mesh_device_count(S)`` devices and runs each
+group through the same sharded drive on its device, so per-shard results
+are those of ``ingest_batch_sharded``, bit for bit; on one card it is one
+group, the ``vmap`` drive. ``resolve_placement`` picks the drive. General
+matroids use ``stream_coreset_host`` (numpy).
 """
 from __future__ import annotations
 
@@ -669,29 +672,26 @@ def resolve_placement(placement: str, num_shards: int,
     ``vmap``      the batch dealt row by row round-robin over a stacked
                   state on one device, its lanes driven in turn;
     ``pipeline``  whole batches dealt round-robin over a list of per-shard
-                  states (on one card they all live on that card); each
+                  states, dealt round robin over the visible cards; each
                   ingest is the plain blocked scan of one shard;
-    ``shard_map`` per-device shard groups: raises ``NotImplementedError``
-                  until ``torch.distributed`` comes (ROADMAP step 11).
+    ``shard_map`` the row-granular deal of ``vmap``, its lanes in
+                  contiguous groups over ``mesh_device_count(S)`` cards
+                  (``ingest_batch_sharded_mapped``).
 
     ``auto``: ``vmap`` for one shard, ``pipeline`` on the CPU, otherwise
-    ``vmap`` (a one-card machine never reaches ``shard_map``).
+    ``shard_map`` when more than one card can take a whole shard, else
+    ``vmap``.
     """
     if placement not in PLACEMENTS:
         raise ValueError(
             f"placement must be one of {PLACEMENTS}, got {placement!r}")
-    if placement == "shard_map":
-        raise NotImplementedError(
-            "placement='shard_map' (per-device shard groups) comes with "
-            "torch.distributed in ROADMAP step 11; use 'vmap' or "
-            "'pipeline'")
     if placement != "auto":
         return placement
     if num_shards <= 1:
         return "vmap"
     if torch.device(device).type == "cpu":
         return "pipeline"
-    return "vmap"
+    return "shard_map" if mesh_device_count(num_shards) > 1 else "vmap"
 
 
 def mesh_device_count(num_shards: int,
@@ -706,6 +706,69 @@ def mesh_device_count(num_shards: int,
     while num_shards % nd:
         nd -= 1
     return nd
+
+
+def visible_devices(device: DeviceLike) -> list[torch.device]:
+    """The devices a placement may deal shard states over: every visible
+    card for a CUDA ``device``, else ``device`` alone."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def ingest_batch_sharded_mapped(
+    sts: StreamState,  # stacked: every field has a leading shard axis S
+    points,  # (S, m, d)
+    cats,  # (S, m, gamma)
+    valid,  # (S, m)
+    src,  # (S, m) global stream indices
+    spec: MatroidSpec,
+    caps,
+    k: int,
+    tau: int,
+    *,
+    donate: bool = False,
+    devices: Optional[list] = None,
+    **kwargs,
+) -> StreamState:
+    """The ``shard_map`` drive: the S lanes are dealt in contiguous groups
+    over
+    ``mesh_device_count(S, len(devices))`` devices (``devices`` defaults
+    to ``visible_devices`` of the state's device), and each group runs
+    ``ingest_batch_sharded_donated`` on its device: on the state's device
+    as views of the stacked tensors, elsewhere on a copy written back
+    after. Per-shard results are bit for bit those of
+    ``ingest_batch_sharded``; on one device it is that drive. As in the
+    reference, ``donate=True`` consumes ``sts`` (updated in place and
+    returned) and the default works on a copy. Keyword arguments are
+    ``ingest_batch_sharded_donated``'s."""
+    if not donate:
+        sts = StreamState(*(t.clone() for t in sts))
+    S = sts.cvalid.shape[0]
+    home = sts.centers.device
+    devs = visible_devices(home) if devices is None else [
+        torch.device(d) for d in devices]
+    nd = mesh_device_count(S, len(devs))
+    if nd == 1:
+        return ingest_batch_sharded_donated(
+            sts, points, cats, valid, src, spec, caps, k, tau, **kwargs)
+    per = S // nd
+    points = torch.as_tensor(points, dtype=torch.float32)
+    cats = _host(cats, np.int32).reshape(S, points.shape[1], -1)
+    valid = _host(valid, bool).reshape(S, -1)
+    src = _host(src, np.int32).reshape(S, -1)
+    for g in range(nd):
+        lo, hi = g * per, (g + 1) * per
+        group = StreamState(*(t[lo:hi].to(devs[g]) for t in sts))
+        ingest_batch_sharded_donated(
+            group, points[lo:hi].to(devs[g]), cats[lo:hi], valid[lo:hi],
+            src[lo:hi], spec, caps, k, tau, **kwargs)
+        for t, u in zip(sts, group):
+            if u.data_ptr() != t[lo:hi].data_ptr():
+                t[lo:hi].copy_(u)
+    return sts
 
 
 def stream_coreset(

@@ -147,5 +147,8 @@ def gmm_update(
         launches += 1
     if _cached_kernels(kernel) > cached:
         report_compile("triton", time.perf_counter() - t0)
-    blk = torch.argmax(bv)
-    return new_min, bi[blk], bv[blk]
+    # index_select, not bi[blk]: indexing with a 0-d CUDA tensor reads it
+    # on the host (a sync a launch)
+    blk = torch.argmax(bv).view(1)
+    return new_min, bi.index_select(0, blk).view(()), bv.index_select(
+        0, blk).view(())

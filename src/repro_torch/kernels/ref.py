@@ -47,9 +47,9 @@ def gmm_update(
     d = torch.sqrt(torch.clamp_min(torch.sum(diff * diff, dim=-1), 0.0))
     new_min = torch.minimum(min_dist, d)
     masked = torch.where(valid, new_min, -1.0)
-    far_idx = torch.argmax(masked).to(torch.int32)
-    far_val = masked[far_idx.long()]
-    return new_min, far_idx, far_val
+    far = torch.argmax(masked).view(1)
+    far_val = masked.index_select(0, far).view(())  # no host read
+    return new_min, far.to(torch.int32).view(()), far_val
 
 
 _F32_MAX = float(torch.finfo(torch.float32).max)

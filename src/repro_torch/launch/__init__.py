@@ -1,3 +1,6 @@
 """Entry points of the port. Reference: ``repro/launch/`` (``train.py``;
-``mesh.py``, ``dryrun.py`` and ``hlo_cost.py`` wait for ROADMAP.md steps
-11 and 13)."""
+``mesh.py``: ``make_mesh``, ``make_production_mesh``, ``data_axes``;
+``dryrun.py`` and ``hlo_cost.py`` wait for ROADMAP.md step 13.6)."""
+from .mesh import Mesh, data_axes, make_mesh, make_production_mesh
+
+__all__ = ["Mesh", "data_axes", "make_mesh", "make_production_mesh"]

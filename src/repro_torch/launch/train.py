@@ -17,8 +17,10 @@ reference's:
 Diversity-maximised batch selection is on by default (``--no-diverse-
 data`` to ablate): every batch is picked from a candidate pool by
 SeqCoreset on K2 (``data/pipeline.py``). One device: the reference's
-``--data-axis-size`` and mesh wait for the multi-GPU slice (ROADMAP.md
-step 11) and are left out rather than accepted and ignored.
+``--data-axis-size`` and mesh shard the parameters over the data axis
+(``repro/models/sharding.py`` ``param_specs``), which waits for a model
+sharded across cards (ROADMAP.md step 13.5); they are left out rather
+than accepted and ignored.
 
 ``main(argv)`` returns the losses of the steps it ran, so a caller can
 drive it in process; ``after_step(n)``, if given, is called after step n

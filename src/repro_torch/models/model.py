@@ -400,15 +400,17 @@ class LM:
         want_caches: bool = False,
         cache_len: Optional[int] = None,
         remat: bool = False,
+        skip_masked: bool = False,
         force: Optional[str] = None,
     ):
         """Returns (logits (B,S,V), aux scalar, caches list | None). With
         ``want_caches`` only the last position's logits are made, and the
         caches hold ``cache_len`` positions (default S). ``remat``: under
         grad mode each block is checkpointed (its activations are
-        recomputed in the backward). The reference's ``skip_masked`` has no
-        counterpart: K4 and K5 always skip masked tiles, which changes no
-        value."""
+        recomputed in the backward). ``skip_masked`` is the reference's
+        causal block skipping; it is accepted and changes no value: K4 and
+        K5 always skip the tiles the causal mask hides, and the plain
+        versions compute them and mask them out."""
         embed = params["embed"]
         tokens = torch.as_tensor(tokens, device=embed.device).long()
         B, S = tokens.shape
@@ -436,18 +438,19 @@ class LM:
     # ---- losses ----
 
     def loss(self, params: Params, tokens, *, remat: bool = True,
-             force: Optional[str] = None):
+             skip_masked: bool = False, force: Optional[str] = None):
         """Next-token cross-entropy + 0.01 * aux, as the reference's
         ``LM.loss``: over all ``vocab_padded`` classes, the mean over
         B x (S - 1) positions, logsumexp in f32. Returns (loss, dict(ce,
-        aux)), 0-d f32 tensors."""
+        aux)), 0-d f32 tensors. ``skip_masked`` changes no value (see
+        ``forward``)."""
         fam = self.cfg.family
         if fam not in _TRAINABLE:
             raise NotImplementedError(
                 f"LM.loss for the {fam} family has no backward path in the "
                 f"port yet: {_NO_BACKWARD.get(fam, 'ROADMAP.md step 13')}")
         logits, aux, _ = self.forward(params, tokens, remat=remat,
-                                      force=force)
+                                      skip_masked=skip_masked, force=force)
         tokens = torch.as_tensor(tokens, device=logits.device).long()
         tgt = tokens[:, 1:]
         lg = logits[:, :-1]

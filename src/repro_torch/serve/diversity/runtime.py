@@ -2,9 +2,10 @@
 
 Reference: ``repro/serve/diversity/runtime.py``. One runtime owns ONE
 physical stream -- the resumable Alg.-2 scan state(s) under the placement
-drive it resolved (one state, a stacked ``vmap`` state, or the
-``pipeline`` placement's list of per-shard states), all on ``device`` --
-and offers two ways to feed it and one way to read it:
+drive it resolved (one state or a stacked ``vmap``/``shard_map`` state
+on ``device``, or the ``pipeline`` placement's list of per-shard states,
+dealt round robin over the visible cards) -- and offers two ways to feed
+it and one way to read it:
 
   ingest(points, cats)   synchronous: resume the scan, update the O(1)
                          epoch fingerprint, return an ``IngestReport``;
@@ -60,6 +61,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import logging
 import os
 import queue
@@ -79,9 +81,11 @@ from ...core.streaming import (
     epoch_fingerprint,
     ingest_batch_donated,
     ingest_batch_sharded_donated,
+    ingest_batch_sharded_mapped,
     init_sharded_states,
     init_stream_state,
     resolve_placement,
+    visible_devices,
 )
 from ...device import CUDA, DeviceLike, resolve_device
 from .checkpoint import (
@@ -199,7 +203,8 @@ class StreamRuntime:
         self.block_size = int(block_size)
         self.publish_every = int(publish_every)
         self.on_publish = on_publish
-        # one state, a stacked state (vmap) or a list of states (pipeline)
+        # one state, a stacked state (vmap, shard_map) or a list of states
+        # (pipeline)
         self._state = None
         self._gamma_width = max(spec.gamma, 1)
         self.n_offered = 0
@@ -377,13 +382,22 @@ class StreamRuntime:
             )
         return cats_arr
 
+    def _devices(self) -> list:
+        """The devices the placements deal shard states over (every
+        visible card for a CUDA runtime, else the runtime's device)."""
+        return visible_devices(self.device)
+
     def _init_state(self, d: int) -> None:
         kw = dict(slot_cap=self.slot_cap, device=self.device)
         args = (d, self._gamma_width, self.spec, self.k, self.tau)
         if self.num_shards > 1 and self.placement == "pipeline":
-            # one card: every shard's state lives on it
-            self._state = [init_stream_state(*args, **kw)
-                           for _ in range(self.num_shards)]
+            # the reference's _init_pipeline_states: round robin over the
+            # devices (on one card every state lives on it)
+            devs = self._devices()
+            self._state = [
+                init_stream_state(*args, slot_cap=self.slot_cap,
+                                  device=devs[i % len(devs)])
+                for i in range(self.num_shards)]
         elif self.num_shards > 1:
             self._state = init_sharded_states(self.num_shards, *args, **kw)
         else:
@@ -531,11 +545,13 @@ class StreamRuntime:
         pad_to: Optional[int] = None,
     ) -> IngestReport:
         """Deal one batch round-robin, row by row, across the
-        ``num_shards`` states of the stacked (``vmap``) drive and ingest
-        every shard. Each shard sees its own sub-stream; by §3 the union
-        of their coresets (the epoch snapshot) is a coreset of the whole
-        stream. Rows keep their global stream indices. Bypasses the
-        write-ahead log (``ingest`` logs)."""
+        ``num_shards`` states of the stacked drive and ingest every shard
+        (``vmap``: the lanes in turn; ``shard_map``: in groups over the
+        cards, one group on one card). Each shard sees its own
+        sub-stream; by §3 the union of their coresets (the epoch
+        snapshot) is a coreset of the whole stream. Rows keep their
+        global stream indices. Bypasses the write-ahead log (``ingest``
+        logs)."""
         return self._ingest_sharded(points, cats, pad_to, log=False)
 
     def _ingest_sharded(self, points, cats, pad_to, *, log: bool):
@@ -545,7 +561,8 @@ class StreamRuntime:
             raise ValueError(
                 "ingest_sharded is the row-granular drive; this service "
                 "resolved placement='pipeline' (batch-granular) -- use "
-                "ingest()/ingest_pipeline, or pass placement='vmap'"
+                "ingest()/ingest_pipeline, or pass placement='vmap' or "
+                "'shard_map'"
             )
         with self._cv:
             t0 = time.perf_counter()
@@ -577,8 +594,14 @@ class StreamRuntime:
                 Cb[s, :r] = cats_arr[rows]
                 Vb[s, :r] = True
                 Sb[s, :r] = self.n_offered + rows
-            with obs.compile_region(f"ingest[vmap s={S} b={mm}]"):
-                self._state = ingest_batch_sharded_donated(
+            ingest = (ingest_batch_sharded_donated
+                      if self.placement == "vmap"
+                      else functools.partial(ingest_batch_sharded_mapped,
+                                             donate=True,
+                                             devices=self._devices()))
+            with obs.compile_region(
+                    f"ingest[{self.placement} s={S} b={mm}]"):
+                self._state = ingest(
                     self._state, Pb, Cb, Vb, Sb, self.spec, self.caps,
                     self.k, self.tau, block_size=sb, **self._scan_kw(),
                 )
@@ -1181,10 +1204,15 @@ class StreamRuntime:
 
     def _install(self, state, meta: dict) -> None:
         """Put a loaded checkpoint's state on this runtime's device and
-        take its stream position (under ``_cv``). Every placement's
-        states go onto the one device; a ``shard_map`` config never
-        reaches here (the constructor raises)."""
-        self._state = place_state(state, self.device)
+        take its stream position (under ``_cv``). A ``pipeline`` list is
+        dealt round robin over the devices, as ``_init_state`` deals it;
+        a single or stacked state goes onto the runtime's device."""
+        if isinstance(state, list):
+            devs = self._devices()
+            self._state = [place_state(st, devs[i % len(devs)])
+                           for i, st in enumerate(state)]
+        else:
+            self._state = place_state(state, self.device)
         self._fp_cache = None
         self.n_offered = int(meta["n_offered"])
         self._rr = int(meta.get("rr", 0))
@@ -1220,9 +1248,7 @@ class StreamRuntime:
         The constructor config is read from the checkpoint; ``spec`` and
         keyword ``overrides`` (``k=``, ``tau=``, ...) take precedence and
         are *required* when no checkpoint exists yet (WAL-only restore).
-        A checkpoint whose config says ``placement="shard_map"`` raises
-        ``NotImplementedError`` (ROADMAP step 11), as the constructor
-        does. Host oracles and callbacks are not serializable: pass them
+        Host oracles and callbacks are not serializable: pass them
         again. Batches quarantined before the checkpoint are skipped on
         replay; quarantined batches *newer* than the checkpoint are
         re-attempted (at-least-once, in order).

@@ -1,10 +1,17 @@
-"""Training substrate of the port: AdamW, the train step, checkpoints.
+"""Training substrate of the port: AdamW, the train step, checkpoints,
+and int8 error-feedback compression with the compressed pod all-reduce
+over ``torch.distributed`` (``compression``).
 
-Reference: the modules of ``repro/train/``. ``train/compression.py`` (int8
-error-feedback and the compressed pod all-reduce) is not ported: no path
-of the port calls it, and its collective waits for ROADMAP.md step 11.
+Reference: the modules of ``repro/train/``.
 """
 from .checkpoint import CheckpointManager
+from .compression import (
+    compress_with_feedback,
+    dequantize,
+    init_residual,
+    pod_allreduce_compressed,
+    quantize,
+)
 from .optimizer import AdamWConfig, adamw_init, adamw_update, global_norm, lr_at
 from .train_state import (
     StepConfig,
@@ -15,4 +22,6 @@ from .train_state import (
 
 __all__ = ["AdamWConfig", "CheckpointManager", "StepConfig",
            "abstract_train_state", "adamw_init", "adamw_update",
-           "global_norm", "init_train_state", "lr_at", "make_train_step"]
+           "compress_with_feedback", "dequantize", "global_norm",
+           "init_residual", "init_train_state", "lr_at", "make_train_step",
+           "pod_allreduce_compressed", "quantize"]

@@ -12,7 +12,8 @@ reverse. Writes go to ``step_<n>.tmp`` and are published by an atomic
 ``os.rename``; with ``async_write`` the device-to-host copy is taken in
 ``save`` and the disk write overlaps the next steps on a thread.
 Arrays are stored unsharded; restoring onto another device count waits
-for the multi-GPU slice (ROADMAP.md step 11).
+for a model sharded across cards (``models/sharding.py``, ROADMAP.md step
+13.5).
 """
 from __future__ import annotations
 

@@ -7,9 +7,10 @@ returns ``(state, batch) -> (state, metrics)``. Gradients come from
 views that require grad, so the state's own tensors never carry an
 autograd flag); with M > 1 microbatches the batch is split along its
 first axis and ``g / M`` is summed in ``accum_dtype``, as the reference's
-scan does. The update is ``optimizer.adamw_update``, in place. The
-reference's ``StepConfig.skip_masked`` has no counterpart: K4 and K5
-always skip the tiles the causal mask hides, which changes no value. No
+scan does. The update is ``optimizer.adamw_update``, in place.
+``StepConfig.skip_masked`` is passed to ``LM.loss`` as in the reference;
+it changes no value, because K4 and K5 always skip the tiles the causal
+mask hides. No
 sharding: ``grad_specs`` waits for a model sharded across cards
 (ROADMAP.md step 13).
 """
@@ -29,6 +30,7 @@ from .optimizer import AdamWConfig, adamw_init, adamw_update
 class StepConfig:
     microbatches: int = 1
     accum_dtype: str = "float32"
+    skip_masked: bool = False  # causal block skipping (changes no value)
 
 
 def init_train_state(lm: LM, generator, opt_cfg: AdamWConfig, *,
@@ -73,7 +75,9 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
 
     def grad_fn(params, tokens):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, metrics = lm.loss(live, tokens, force=force)
+        loss, metrics = lm.loss(live, tokens,
+                                skip_masked=step_cfg.skip_masked,
+                                force=force)
         leaves = tree_leaves(live)
         by_id = {id(t): g for t, g in
                  zip(leaves, torch.autograd.grad(loss, leaves))}

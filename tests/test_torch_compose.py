@@ -208,8 +208,7 @@ def test_placement_resolution_and_mesh_count():
     assert streaming.resolve_placement("auto", 1, CPU) == "vmap"
     assert streaming.resolve_placement("auto", 3, CPU) == "pipeline"
     assert streaming.resolve_placement("auto", 3, "cuda") == "vmap"
-    with pytest.raises(NotImplementedError, match="step 11"):
-        streaming.resolve_placement("shard_map", 2, CPU)
+    assert streaming.resolve_placement("shard_map", 2, CPU) == "shard_map"
     with pytest.raises(ValueError, match="placement"):
         streaming.resolve_placement("nope", 2, CPU)
     for S in (1, 2, 3, 4, 6, 8, 12):

@@ -876,3 +876,123 @@ def test_durable_directory_restores_across_devices(cuda, tmp_path, writer):
         assert np.array_equal(snap.src_idx, live.src_idx), dev
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert a.indices.tolist() == b.indices.tolist()
+
+
+def _mr_instance(seed=0, n=1600, d=8):
+    """tests/test_distributed.py's MapReduce instance."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(n, 2)) @ rng.normal(size=(2, d))
+    P = (base + 0.05 * rng.normal(size=(n, d))).astype(np.float32)
+    cats = rng.integers(0, 4, (n, 1)).astype(np.int32)
+    return P, cats, np.full(4, 2, np.int32)
+
+
+@pytest.mark.parametrize("round2", [None, 16])
+def test_mapreduce_on_the_card_equals_the_cpu(cuda, round2):
+    """``solve_dmmc(setting="mapreduce")`` on 8 in-process positions of one
+    card: K2 once a shard a center, K1 for the final stage, and the CPU
+    mesh's union, selection and overflow."""
+    from repro_torch.core import solve_dmmc
+    from repro_torch.launch import make_mesh
+
+    P, cats, caps = _mr_instance()
+    spec = MatroidSpec("partition", num_categories=4, gamma=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh((8,), ("data",), devices=[dev] * 8)
+        ops.reset_launches()
+        out[dev] = solve_dmmc(P, 4, spec, cats=cats, caps=caps, tau=64,
+                              setting="mapreduce", mesh=mesh,
+                              round2_tau=round2, device=dev)
+        if dev == "cuda":
+            launches = ops.launch_counts()
+    got, want = out["cuda"], out["cpu"]
+    assert launches["gmm_update"] == 8 * 8 + (0 if round2 is None else 16)
+    assert launches["pairwise_sqdist"] >= 1
+    assert np.array_equal(got.coreset_indices, want.coreset_indices)
+    assert np.array_equal(got.indices, want.indices)
+    assert got.info == want.info and got.info["overflow"] == 0
+
+
+def test_global_gmm_on_the_card_matches_gmm_fixed(cuda):
+    """``distributed_coreset`` on 8 positions of one card picks the centers
+    of ``gmm_fixed`` on the whole array and launches K2 8 x tau times;
+    the traversal reads nothing back to the host."""
+    import warnings
+
+    from repro_torch.core import distributed_coreset, gmm_fixed
+    from repro_torch.core.distributed_gmm import _global_gmm_shard
+    from repro_torch.launch import make_mesh
+
+    P, cats, caps = _mr_instance(3)
+    n, tau = P.shape[0], 16
+    spec = MatroidSpec("partition", num_categories=4, gamma=1)
+    x = torch.as_tensor(P, device="cuda")
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    mesh = make_mesh((8,), ("data",), devices=["cuda"] * 8)
+    ops.reset_launches()
+    cs, radius, delta = distributed_coreset(
+        mesh, x, cats, valid, spec, caps, 4, tau)
+    launches = ops.launch_counts()
+    ref = gmm_fixed(x, valid, tau)
+    assert launches["gmm_update"] == 8 * tau
+    assert abs(float(radius) - float(ref.radius)) <= 1e-5 * float(ref.radius)
+    assert abs(float(delta) - float(ref.delta)) <= 1e-5 * float(ref.delta)
+    assert int(cs.valid.sum()) > 0
+    shards, valids = list(torch.chunk(x, 8)), list(torch.chunk(valid, 8))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            centers = _global_gmm_shard(mesh, shards, valids, tau,
+                                        ("data",))[3]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert centers.tolist() == ref.centers.tolist()
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message)]
+    assert not syncs, syncs[:3]
+
+
+def test_shard_map_runtime_on_the_card_equals_vmap(cuda):
+    """``placement="shard_map"`` on one card is one group: the ``vmap``
+    runtime's stacked state, bit for bit; against the CPU the fingerprint
+    and the integer fields (the float fields sum in other orders)."""
+    from repro_torch.serve.diversity import StreamRuntime
+
+    P, cats, caps = _mr_instance(1, n=2000, d=32)
+    spec = MatroidSpec("partition", num_categories=4, gamma=1)
+    states = {}
+    for pl, dev in (("vmap", "cuda"), ("shard_map", "cuda"),
+                    ("shard_map", "cpu")):
+        rt = StreamRuntime(spec, 4, tau=8, caps=caps, num_shards=4,
+                           placement=pl, block_size=64, device=dev)
+        for off in range(0, 2000, 500):
+            rt.ingest(P[off:off + 500], cats[off:off + 500])
+        states[pl, dev] = (rt.state, rt.fingerprint)
+        rt.close()
+    a, fa = states["vmap", "cuda"]
+    for key in (("shard_map", "cuda"), ("shard_map", "cpu")):
+        b, fb = states[key]
+        assert fa == fb, key
+        for x, y in zip(a, b):
+            if key[1] == "cuda" or not x.is_floating_point():
+                assert torch.equal(x.cpu(), y.cpu()), key
+
+
+def test_seq_coreset_transversal_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.core import seq_coreset
+
+    rng = np.random.default_rng(5)
+    P, _, _ = _mr_instance(5)
+    n = P.shape[0]
+    cats = rng.integers(0, 4, (n, 2)).astype(np.int32)
+    cats[rng.random(n) < 0.5, 1] = -1
+    spec = MatroidSpec("transversal", num_categories=4, gamma=2)
+    got = seq_coreset(P, cats, np.ones(n, bool), spec, None, 4, 12,
+                      device="cuda")[0]
+    want = seq_coreset(P, cats, np.ones(n, bool), spec, None, 4, 12,
+                       device="cpu")[0]
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y), x.dtype

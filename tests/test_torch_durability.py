@@ -561,17 +561,23 @@ def test_durability_dir_crosses_between_packages(rng, tmp_path, drive,
 
 def test_shard_map_checkpoint_raises_step_11(rng, tmp_path):
     """A reference checkpoint of the ``shard_map`` drive is never
-    rewritten to another drive: the port's restore raises, naming step
-    11."""
+    rewritten to another drive: since step 11 the port restores it under
+    ``shard_map``, to the writer's stream (snapshot ``src_idx`` and epoch
+    fingerprint)."""
     P, cats, caps, spec, k = _instance(rng, n=200)
     w = _jruntime(k, caps, num_shards=4, placement="shard_map",
                   durability=str(tmp_path))
     for pts, cs in _batches(P, cats):
         w.ingest(pts, cs)
+    live = w.refresh(force=True)
     w.close()
     assert latest_checkpoint(str(tmp_path)) is not None
-    with pytest.raises(NotImplementedError, match="step 11"):
-        StreamRuntime.restore(str(tmp_path), device=CPU)
+    mine = StreamRuntime.restore(str(tmp_path), device=CPU)
+    assert mine.placement == "shard_map"
+    snap = mine.refresh(force=True)
+    assert snap.fingerprint == live.fingerprint
+    assert np.array_equal(snap.src_idx, live.src_idx)
+    mine.close()
 
 
 @pytest.mark.parametrize("drive", list(PLACEMENTS))

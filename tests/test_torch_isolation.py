@@ -47,7 +47,9 @@ def test_port_files_exist():
               "serve/diversity/service.py", "serve/diversity/wal.py",
               "serve/diversity/checkpoint.py", "serve/diversity/coalesce.py",
               "serve/diversity/health.py", "serve/diversity/replication.py",
-              "serve/diversity/audit.py"):
+              "serve/diversity/audit.py", "core/mapreduce.py",
+              "core/distributed_gmm.py", "launch/mesh.py",
+              "train/compression.py"):
         assert f"src/repro_torch/{f}" in names
 
 

@@ -7,9 +7,9 @@ the ``vmap`` and ``pipeline`` placements. They must agree on the epoch
 counts, the epoch triple ``(count, h1, h2)``, the scan state's discrete
 fields, the snapshot's ``src_idx`` and the ``host`` and ``auto``
 selections; floats within ``allclose(rtol=1e-5)``. The rest are the port's
-twins of ``tests/test_service.py`` (its ``shard_map`` and ahead-of-time
-compile cases aside: the port has no ``shard_map`` drive before ROADMAP
-step 11, and eager PyTorch compiles nothing).
+twins of ``tests/test_service.py`` (its ahead-of-time compile cases
+aside: eager PyTorch compiles nothing). The ``shard_map`` placement is
+held to ``vmap`` in ``tests/test_torch_distributed.py``.
 """
 import numpy as np
 import pytest
@@ -562,12 +562,15 @@ def test_ingest_reports(rng):
 @pytest.mark.parametrize("what", ["durability", "coalesce", "restore",
                                   "shard_map"])
 def test_later_steps_raise_not_implemented(rng, tmp_path, what):
-    """Step 10 (durability, coalescing, restore) is ported and no longer
-    raises; ``shard_map`` still raises, naming step 11."""
+    """Step 10 (durability, coalescing, restore) and step 11 (the
+    ``shard_map`` placement) are ported and no longer raise."""
     P, cats, caps, sp, k = _partition_instance(rng, n=50)
     if what == "shard_map":
-        with pytest.raises(NotImplementedError, match="step 11"):
-            _svc(sp, k, caps, tau=8, num_shards=2, placement="shard_map")
+        svc = _svc(sp, k, caps, tau=8, num_shards=2, placement="shard_map")
+        assert svc.runtime.placement == "shard_map"
+        svc.ingest(P, cats)
+        assert svc.query(DiversityQuery(k=k)).indices.size == k
+        svc.close()
     elif what == "durability":
         svc = _svc(sp, k, caps, tau=8, durability=str(tmp_path))
         svc.ingest(P, cats)

@@ -118,10 +118,22 @@ def test_radius_target_mode_matches_jax(instance):
 
 @pytest.mark.parametrize("setting", ["mapreduce"])
 def test_settings_not_ported_yet_raise(instance, setting):
+    """Every setting is ported (MapReduce in step 11): without its mesh
+    the mapreduce setting raises ``ValueError``; with one it selects a
+    basis (its parity with the JAX package is
+    ``tests/test_torch_mapreduce.py``)."""
+    from repro_torch.launch import make_mesh
+
     P, cats, caps, h, k = instance
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        core.solve_dmmc(P, k, core.MatroidSpec("partition", h, 1), cats=cats,
-                        caps=caps, tau=8, setting=setting, device=CPU)
+    spec = core.MatroidSpec("partition", h, 1)
+    with pytest.raises(ValueError, match="mesh"):
+        core.solve_dmmc(P, k, spec, cats=cats, caps=caps, tau=8,
+                        setting=setting, device=CPU)
+    sol = core.solve_dmmc(P, k, spec, cats=cats, caps=caps, tau=8,
+                          setting=setting, device=CPU,
+                          mesh=make_mesh((4,), ("data",), devices=[CPU] * 4))
+    assert core.PartitionMatroid(cats[:, 0], caps).is_independent(
+        list(sol.indices)) and len(sol.indices) == k
 
 
 def test_songs_sim_generator_structure():

@@ -334,7 +334,7 @@ def test_rank_in_group_and_seq_coreset_match_jax(rng):
         rank_in_group(torch.as_tensor(gid), torch.as_tensor(valid), 7).numpy(),
         np.asarray(jax_rank_in_group(jnp.asarray(gid), jnp.asarray(valid),
                                      7)))
-    for kind in ("uniform", "partition"):
+    for kind in ("uniform", "partition", "transversal"):
         jspec = JSpec(kind, num_categories=h, gamma=1)
         spec = MatroidSpec(kind, num_categories=h, gamma=1)
         jcs, _, jovf = jax_seq_coreset(
@@ -348,9 +348,6 @@ def test_rank_in_group_and_seq_coreset_match_jax(rng):
         np.testing.assert_array_equal(cs.cats.numpy(), np.asarray(jcs.cats))
         np.testing.assert_allclose(cs.points.numpy(), np.asarray(jcs.points))
         assert int(ovf) == int(jovf) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md step 11"):
-        seq_coreset(P, cats, valid, MatroidSpec("transversal", h, 1), None,
-                    k, tau, device="cpu")
 
 
 @pytest.mark.parametrize("step", [0, 1, 7])
