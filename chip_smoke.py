@@ -213,6 +213,32 @@ exits non-zero:
                under the profiler, and K5 beside its plain version, its
                bound and the backward of ``scaled_dot_product_attention``
                (route, TFLOP/s, ratio).
+14. ``train_ssm`` the training path of the ssm and hybrid families: (a) K6b
+               (the SSD intra-chunk backward) against its plain version at
+               test shapes (q 1, 16, 48, 100, 256; per-cell B and C, and
+               the model's layout with B and C shared by the heads), and at
+               one Mamba2 layer's own inputs, captured from a backward of
+               (b), each gradient within 2e-4 of the plain version's
+               largest entry and bit-identical on a repeat; (b)
+               mamba2-2.7b at its full width and depth (64 layers, bf16,
+               random weights) trained at batch 8 x 2,048 (q = 256, 8
+               chunks), diverse selection on: 3 steps of
+               ``make_train_step`` with launch counts set to 0 before and
+               read after (K6 twice a layer a step with remat, K6b once,
+               K2 tau a step, the flash kernels never), the same batches
+               on the plain versions and with the embedding nudged three
+               times (the ``train`` phase's bf16 loss rule, its floor the
+               largest of the three nudges), a repeated first step
+               bit-identical, an f32 gradient check on 1 x 2,048 (loss
+               within 1e-5, every leaf within 1e-3 relative L2); step
+               time, tokens/s, peak memory, a profiled step, K6 and K6b
+               timed at the captured inputs beside their plain versions
+               and bounds; (c) zamba2-7b at full width and 12 layers (2
+               super blocks, each with the shared attention block; full
+               depth does not fit one card for training), one step at
+               batch 2 x 2,048 through K4, K5, K6 and K6b in one graph,
+               its launches counted, against the plain path under the
+               rules of (b).
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the repository beside it, it fails.
@@ -244,7 +270,8 @@ GMM_SHAPES = [(16, 4), (100, 25), (1025, 7), (64, 128),
               (64, 32)]  # the last: the train pipeline's pool x embedding
 PRECHECK_SHAPES = [(8, 5, 4), (37, 17, 7), (128, 33, 100), (200, 129, 25),
                    (128, 257, 100)]
-CUDA_SOURCES = ("pdist", "precheck", "flash_fwd", "flash_bwd", "ssd")
+CUDA_SOURCES = ("pdist", "precheck", "flash_fwd", "flash_bwd", "ssd",
+                "ssd_bwd")
 # (BH, Sq, Skv, hd, causal): tests/test_kernels.py's FLASH_SHAPES, then
 # hd in {64, 112, 128} with S off the 64-row tile, causal and not, then
 # edges of the bf16 tensor-core tiles (hd 40 and 256, S off 128 rows)
@@ -265,6 +292,14 @@ SSD_SHAPES = [(2, 16, 8, 4), (3, 32, 16, 8), (1, 64, 32, 16), (4, 8, 64, 32),
 # (batch * chunks, heads, q): the model's layout, B and C stride-0 head
 # views, which takes the shared_bc route (q = 16 packs four heads a block)
 SSD_MODEL_SHAPES = [(6, 8, 256), (6, 12, 16)]
+# (g, q, p, n) of K6b with per-cell B and C: q 1 and 16 (one partial tile),
+# 48, 100 and 256 (the model's chunk); then (batch * chunks, heads, q, n)
+# in the model's layout, B and C shared by the heads (shared_bc)
+SSD_BWD_SHAPES = [(3, 1, 16, 8), (4, 16, 64, 64), (3, 48, 64, 128),
+                  (2, 100, 64, 72), (3, 256, 64, 128)]
+SSD_BWD_MODEL_SHAPES = [(2, 8, 1, 128), (6, 112, 16, 64), (3, 12, 48, 128),
+                        (4, 80, 256, 128)]
+SSD_BWD_TOL = 2e-4  # of each gradient's largest entry, as K6's tests
 # rows of x against itself (K1's sym route): the songs-sim solve's coreset
 # (327 at seed 0) and k * tau
 PDIST_SELF_ROWS = (327, 1408)
@@ -277,6 +312,14 @@ TRAIN_ARCH = "smollm-135m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 2048, 5  # SmolLM-135M's context
 TRAIN_CLI_STEPS, TRAIN_PREEMPT_AT = 6, 4
 TRAIN_F32_LOSS_TOL, TRAIN_F32_GRAD_TOL = 1e-5, 1e-3
+TRAIN_SSM_ARCH = "mamba2-2.7b"
+TRAIN_SSM_BATCH, TRAIN_SSM_SEQ, TRAIN_SSM_STEPS = 8, 2048, 3
+TRAIN_SSM_F32_BATCH = 1  # the f32 copy of 2.83 B parameters and its grads
+TRAIN_SSM_NUDGES = 3  # independent nudged embeddings behind the bf16 floor
+# zamba2-7b trained at full width: 12 of its 81 layers (2 super blocks),
+# since 6.8 B parameters x (2 + 2 + 8) bytes (bf16 weights and gradients,
+# f32 moments) exceed one card before any activation
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_BATCH = "zamba2-7b", 12, 2
 BLOCK = 128  # the streaming scan's block size on the main path
 INGEST_BATCH = 16_384
 PREFIX = 2048
@@ -2596,7 +2639,8 @@ class _Capture:
     every call), and of K6's first call at each chunk length q (under
     ``ssd_intra_chunk@q<q>``); the calls themselves go on as usual."""
 
-    NAMES = ("flash_attention_fwd", "flash_attention_bwd", "ssd_intra_chunk")
+    NAMES = ("flash_attention_fwd", "flash_attention_bwd", "ssd_intra_chunk",
+             "ssd_intra_chunk_bwd")
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -3248,7 +3292,8 @@ def phase_train(seed: int) -> dict:
     want = dict(gmm_update=TRAIN_STEPS * tau,
                 flash_attention_fwd=TRAIN_STEPS * 2 * cfg.n_layers,
                 flash_attention_bwd=TRAIN_STEPS * cfg.n_layers,
-                pairwise_sqdist=0, center_precheck=0, ssd_intra_chunk=0)
+                pairwise_sqdist=0, center_precheck=0, ssd_intra_chunk=0,
+                ssd_intra_chunk_bwd=0)
     check(launches == want, f"train launches {launches}, expected {want}")
     check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
     # the selection on plain GMM picks the same sequences (K2 at the
@@ -3335,6 +3380,306 @@ def phase_train(seed: int) -> dict:
     return dict(launches=launches, k5=k5, k5_err=k5_err)
 
 
+def _check_ssd_bwd(xbar, loga, B, C, dy, ds, what: str, route: str) -> dict:
+    """K6b against its plain version: dxbar, dloga, dB and dC each within
+    SSD_BWD_TOL of the plain version's largest |entry|, the shapes the
+    plain version gives, the route the launch took, and a second launch
+    bit-identical to the first."""
+    import torch
+    from repro_torch.kernels import ops, ssd_bwd
+
+    got = ops.ssd_intra_chunk_bwd(xbar, loga, B, C, dy, ds)
+    got_route = ssd_bwd.last_route
+    again = ops.ssd_intra_chunk_bwd(xbar, loga, B, C, dy, ds)
+    want = ops.ssd_intra_chunk_bwd(xbar, loga, B, C, dy, ds, force="ref")
+    torch.cuda.synchronize()
+    names = ("dxbar", "dloga", "dB", "dC")
+    errs, rels = {}, {}
+    ok = got_route == route
+    for name, a, w in zip(names, got, want):
+        ok = ok and a.shape == w.shape
+        scale = float(w.abs().max())
+        errs[name] = float((a - w).abs().max())
+        rels[name] = errs[name] / scale if scale else errs[name]
+        ok = ok and rels[name] <= SSD_BWD_TOL
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = ok and repeat
+    line = dict(kernel="ssd_intra_chunk_bwd", what=what,
+                shape=[*xbar.shape, B.shape[-1]], b_c_shape=list(B.shape),
+                route=got_route, max_abs_err=max(errs.values()),
+                max_abs_errs=errs, err_rel_to_max=rels,
+                tol_rel_to_max=SSD_BWD_TOL, repeat_bit_identical=repeat,
+                ok=ok)
+    check(ok, f"ssd bwd {what} {line['shape']} ({got_route}, expected "
+              f"{route}): errors {rels} of the largest |gradient|, repeat "
+              f"bit-identical {repeat}")
+    return line
+
+
+def _time_ssd_bwd(xbar, loga, B, C, dy, ds) -> dict:
+    """K6b and its plain version at one layer's captured inputs (batch *
+    chunk by head cells, B and C shared by the heads)."""
+    from repro_torch.kernels import ref, ssd_bwd
+
+    *lead, q, p = xbar.shape
+    n = B.shape[-1]
+    cells = lead[0] * lead[1]
+    groups = lead[0] if B.shape[1] == C.shape[1] == 1 else cells
+    tri = q * (q + 1) // 2
+    # per cell: dM = dy xbar^T and M^T dy over the causal pairs, (B w)
+    # dstate and xbar dstate^T, ~8 operations a pair for L, M, dG and the
+    # row and column sums; per B and C: C B^T, dG B and dG^T C
+    flops = (cells * (2 * 2 * tri * p + 2 * 2 * q * n * p + 8 * tri)
+             + groups * 3 * 2 * tri * n)
+    # xbar, dy, dxbar; dstate; loga, dloga; B, C, dB, dC
+    nbytes = 4 * (3 * cells * q * p + cells * n * p + 2 * cells * q
+                  + 4 * groups * q * n)
+    b, by = bound_ms(nbytes, flops)
+    ssd_bwd.ssd_intra_chunk_bwd(xbar, loga, B, C, dy, ds)
+    res = dict(
+        route=ssd_bwd.last_route,
+        kernel_ms=time_ms(lambda: ssd_bwd.ssd_intra_chunk_bwd(
+            xbar, loga, B, C, dy, ds)),
+        plain_ms=time_ms(lambda: ref.ssd_intra_chunk_bwd(
+            xbar, loga, B, C, dy, ds), warmup=1, reps=5),
+        library_ms=None,
+        library_note="no single PyTorch call computes the backward of the "
+                     "decay-masked C B^T product and the chunk state",
+        bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
+        shape=[lead[0], lead[1], q, p, n])
+    res["tflop_per_s"] = flops / res["kernel_ms"] / 1e9
+    return res
+
+
+def _state_digest(state) -> list:
+    """Per leaf of a train state: its path and two exact integer sums of
+    its bits (plain and position-weighted, in int64). Two states with the
+    same digest are equal bit for bit but for a collision of both sums."""
+    import torch
+    from repro_torch.train.checkpoint import _paths
+
+    out = []
+    for key, t in _paths(state):
+        v = t.detach().reshape(-1)
+        if v.dtype.is_floating_point:
+            v = v.view({2: torch.int16, 4: torch.int32}[v.element_size()])
+        v = v.to(torch.int64)
+        pos = torch.arange(1, v.numel() + 1, dtype=torch.int64,
+                           device=v.device)
+        out.append((key, int(v.sum()), int((v * pos).sum())))
+        del v, pos
+    return out
+
+
+def _loss_rule(losses, plain, nudged) -> tuple[list, list, list]:
+    """The ``train`` phase's bf16 rule: step i's kernel and plain losses
+    differ by at most 2 (i + 1) times the largest difference that a
+    nudged embedding makes on the plain path up to step i. ``nudged``
+    holds the plain path's losses under several independent nudges; a
+    step's floor is the largest of their differences (one nudge's
+    difference spreads over two orders of magnitude from draw to draw)."""
+    diffs = [abs(a - b) for a, b in zip(losses, plain)]
+    floors = [max(abs(run[i] - b) for run in nudged)
+              for i, b in enumerate(plain)]
+    limits = [2 * (i + 1) * max(floors[:i + 1]) for i in range(len(diffs))]
+    for i, (d, lim) in enumerate(zip(diffs, limits)):
+        check(d <= lim, f"step {i}: kernel and plain losses differ by {d}, "
+                        f"over 2 x {i + 1} x the nudge's {lim / 2 / (i + 1)}")
+    return diffs, floors, limits
+
+
+def _nudged(params, g):
+    """``params`` with one bf16 step up on 1e-4 of the embedding's
+    entries."""
+    import torch
+
+    hit = torch.rand(params["embed"].shape, generator=g, device="cuda") < 1e-4
+    return dict(params, embed=torch.where(
+        hit, (params["embed"].float() * (1 + 2**-7)).to(torch.bfloat16),
+        params["embed"]))
+
+
+def phase_train_ssm(seed: int) -> dict:
+    import dataclasses
+    import statistics as st
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    def decays(*shape):
+        return -(torch.rand(*shape, generator=g, device="cuda") * 0.39 + 0.01)
+
+    # (a) K6b at test shapes: per-cell B and C, then the model's layout
+    lines = []
+    for gg, q, p, n in SSD_BWD_SHAPES:
+        lines.append(_check_ssd_bwd(
+            randn(gg, q, p), decays(gg, q), randn(gg, q, n), randn(gg, q, n),
+            randn(gg, q, p), randn(gg, n, p), "test shape", "per_cell"))
+    for bc, heads, q, n in SSD_BWD_MODEL_SHAPES:
+        p = 64
+        lines.append(_check_ssd_bwd(
+            randn(bc, q, heads, p).permute(0, 2, 1, 3),
+            decays(bc, q, heads).permute(0, 2, 1), randn(bc, 1, q, n),
+            randn(bc, 1, q, n), randn(bc, q, heads, p).permute(0, 2, 1, 3),
+            randn(bc, heads, n, p), "model layout", "shared_bc"))
+
+    # (b) mamba2-2.7b at full width and depth; K6b and K6 at one layer's
+    # own inputs, captured from a backward of the slice (K6: the first
+    # layer's forward; K6b: the last layer's, the first in the backward)
+    cfg = get_config(TRAIN_SSM_ARCH)
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt_cfg = AdamWConfig(total_steps=TRAIN_SSM_STEPS,
+                          warmup_steps=min(100, TRAIN_SSM_STEPS // 10 + 1))
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SSM_SEQ,
+                          global_batch=TRAIN_SSM_BATCH, seed=seed)
+    pipe = Pipeline(data_cfg)
+    with _Capture() as cap:  # also the warm-up of the training run
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = lm.loss(live, pipe.batch_at(0)["tokens"])
+        torch.autograd.grad(loss, tree_leaves(live))
+        del live, loss
+    torch.cuda.synchronize()
+    sa, _ = cap.args["ssd_intra_chunk"]
+    ba, _ = cap.args["ssd_intra_chunk_bwd"]
+    del cap
+    lines.append(_check_ssd_bwd(*ba, "a layer's backward (the last layer)",
+                                "shared_bc"))
+    k6b_err = lines[-1]["max_abs_err"]
+    lines.append(_check_ssd(*sa, "a training layer's forward (the first)",
+                            "shared_bc"))
+    k6_err = lines[-1]["max_abs_err"]
+    emit(dict(phase="train_ssm_kernels", checks=lines))
+    k6b = _time_ssd_bwd(*ba)
+    k6 = _time_ssd(*sa)
+    emit(dict(phase="train_ssm_kernel_timing", ssd_intra_chunk_bwd=k6b,
+              ssd_intra_chunk_train_shape=k6))
+    del ba, sa
+    torch.cuda.empty_cache()
+
+    # the steps on the kernel path, launch counts read around them (the
+    # data selection included); the state after the first step kept as
+    # its digest for the repeat below
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state = _fresh_state(params, opt_cfg)
+    step = make_train_step(lm, opt_cfg)
+    batches, losses, step_times = [], [], []
+    digest = None
+    for i in range(TRAIN_SSM_STEPS):
+        t0 = time.perf_counter()
+        batches.append(pipe.batch_at(i)["tokens"])
+        state, m = step(state, {"tokens": batches[-1]})
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        if i == 0:
+            digest = _state_digest(state)
+    launches = ops.launch_counts()
+    run_peak = torch.cuda.max_memory_allocated()
+    L, tau = cfg.n_layers, data_cfg.selector_tau
+    want = dict(gmm_update=TRAIN_SSM_STEPS * tau,
+                flash_attention_fwd=0, flash_attention_bwd=0,
+                pairwise_sqdist=0, center_precheck=0,
+                ssd_intra_chunk=TRAIN_SSM_STEPS * 2 * L,
+                ssd_intra_chunk_bwd=TRAIN_SSM_STEPS * L)
+    check(launches == want, f"train_ssm launches {launches}, expected {want}")
+    check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
+    prof = device_profile(lambda: step(state, {"tokens": pipe.batch_at(
+        TRAIN_SSM_STEPS)["tokens"]}))
+    del state, m
+    torch.cuda.empty_cache()
+    # the same batches on the plain path, and with the embedding nudged
+    ops.reset_launches()
+    losses_r = _run_steps(lm, params, batches, opt_cfg, force="ref")
+    check(not any(ops.launch_counts().values()),
+          f"the plain path launched {ops.launch_counts()}")
+    losses_n = [_run_steps(lm, _nudged(params, g), batches, opt_cfg,
+                           force="ref") for _ in range(TRAIN_SSM_NUDGES)]
+    diffs, floors, limits = _loss_rule(losses, losses_r, losses_n)
+    # a repeated first step from a fresh state: the same bits
+    s1, m1 = step(_fresh_state(params, opt_cfg), {"tokens": batches[0]})
+    repeat = _state_digest(s1) == digest and float(m1["loss"]) == losses[0]
+    del s1, m1
+    torch.cuda.empty_cache()
+    check(repeat, "a repeated step from a fresh state gave other bits")
+    f32 = _train_f32_check(lm, params, batches[0][:TRAIN_SSM_F32_BATCH])
+    step_s = st.median(step_times)
+    tokens = TRAIN_SSM_BATCH * TRAIN_SSM_SEQ
+    emit(dict(phase="train_ssm_steps", arch=TRAIN_SSM_ARCH,
+              batch=TRAIN_SSM_BATCH, seq=TRAIN_SSM_SEQ, chunk=cfg.ssd_chunk,
+              steps=TRAIN_SSM_STEPS, params=lm.param_count(), init_s=init_s,
+              launches=launches, losses=losses, plain_losses=losses_r,
+              nudged_plain_losses=losses_n, loss_abs_diffs=diffs,
+              nudge_abs_diffs=floors, loss_abs_diff_limits=limits,
+              repeat_step_bit_identical=repeat,
+              f32=dict(f32, batch=TRAIN_SSM_F32_BATCH)))
+    emit(dict(phase="train_ssm_timing", step_s=step_s,
+              step_times_s=step_times, tokens_per_s=tokens / step_s,
+              peak_device_bytes=run_peak, profiled_step=prof))
+    del params, batches
+    torch.cuda.empty_cache()
+
+    # (c) zamba2-7b at full width, 12 layers: K4, K5, K6 and K6b in one
+    # graph, one step against the plain path
+    cfg_h = dataclasses.replace(get_config(HYBRID_ARCH),
+                                n_layers=HYBRID_LAYERS)
+    lm_h = LM(cfg_h)
+    params_h = lm_h.init(seed, device="cuda")
+    toks = torch.randint(0, cfg_h.vocab, (HYBRID_BATCH, TRAIN_SSM_SEQ),
+                         generator=g, device="cuda")
+    opt_h = AdamWConfig(total_steps=1, warmup_steps=1)
+    _run_steps(lm_h, params_h, [toks], opt_h)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loss_h = _run_steps(lm_h, params_h, [toks], opt_h)
+    torch.cuda.synchronize()
+    step_h = time.perf_counter() - t0
+    launches_h = ops.launch_counts()
+    peak_h = torch.cuda.max_memory_allocated()
+    supers = HYBRID_LAYERS // cfg_h.shared_attn_every
+    want_h = dict(gmm_update=0, pairwise_sqdist=0, center_precheck=0,
+                  flash_attention_fwd=2 * supers, flash_attention_bwd=supers,
+                  ssd_intra_chunk=2 * HYBRID_LAYERS,
+                  ssd_intra_chunk_bwd=HYBRID_LAYERS)
+    check(launches_h == want_h,
+          f"zamba2 step launches {launches_h}, expected {want_h}")
+    loss_hr = _run_steps(lm_h, params_h, [toks], opt_h, force="ref")
+    loss_hn = [_run_steps(lm_h, _nudged(params_h, g), [toks], opt_h,
+                          force="ref") for _ in range(TRAIN_SSM_NUDGES)]
+    f32_h = _train_f32_check(lm_h, params_h, toks)
+    d_h, f_h, l_h = _loss_rule(loss_h, loss_hr, loss_hn)
+    emit(dict(phase="train_ssm_hybrid", arch=HYBRID_ARCH,
+              layers=HYBRID_LAYERS, of_layers=get_config(HYBRID_ARCH).n_layers,
+              supers=supers, batch=HYBRID_BATCH, seq=TRAIN_SSM_SEQ,
+              params=lm_h.param_count(), step_s=step_h,
+              peak_device_bytes=peak_h, launches=launches_h, loss=loss_h,
+              plain_loss=loss_hr, nudged_plain_losses=loss_hn,
+              loss_abs_diff=d_h, nudge_abs_diff=f_h, loss_abs_diff_limit=l_h,
+              f32=f32_h))
+    del params_h
+    torch.cuda.empty_cache()
+    both = {name: launches[name] + launches_h[name] for name in launches}
+    return dict(launches=both, k6b=k6b, k6b_err=k6b_err, k6=k6,
+                k6_err=k6_err)
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3376,6 +3721,8 @@ def main() -> int:
     lm = phase_lm(args.seed)
     torch.cuda.empty_cache()  # the zamba2 weights went with phase_lm
     train = phase_train(args.seed)
+    torch.cuda.empty_cache()
+    train_ssm = phase_train_ssm(args.seed)
 
     # launches: the sum over the main paths, each read around its own run
     # (per path beside it)
@@ -3386,7 +3733,8 @@ def main() -> int:
                            durable=durable["launches"][name],
                            mapreduce=mr["launches"][name],
                            lm=lm["launches"][name],
-                           train=train["launches"][name])
+                           train=train["launches"][name],
+                           train_ssm=train_ssm["launches"][name])
                 for name in launches}
     total = {name: sum(v.values()) for name, v in per_path.items()}
     for name, n in total.items():
@@ -3467,6 +3815,36 @@ def main() -> int:
              bound_ms=lm["k6_e"]["bound_ms"],
              bound_by=lm["k6_e"]["bound_by"], library_ms=None,
              shape=lm["k6_e"]["shape"], kernel_route=lm["k6_e"]["route"]),
+        # K6 at the training shape of mamba2-2.7b (q = 256, n = 128): its
+        # launches are those of the train_ssm path, part of the count above
+        dict(name="ssd_intra_chunk_train", route="cuda",
+             source=f"{csrc}/csrc/ssd.cu",
+             replaces="src/repro/kernels/ssd.py:53",
+             launches=train_ssm["launches"]["ssd_intra_chunk"],
+             max_abs_err=train_ssm["k6_err"],
+             ms=train_ssm["k6"]["kernel_ms"],
+             plain_ms=train_ssm["k6"]["plain_ms"],
+             bound_ms=train_ssm["k6"]["bound_ms"],
+             bound_by=train_ssm["k6"]["bound_by"], library_ms=None,
+             shape=train_ssm["k6"]["shape"],
+             kernel_route=train_ssm["k6"]["route"]),
+        # K6b replaces no TPU kernel: the JAX package differentiates its
+        # jnp chunked SSD with jax.grad
+        dict(name="ssd_intra_chunk_bwd", route="cuda",
+             source=f"{csrc}/csrc/ssd_bwd.cu",
+             replaces="src/repro/models/mamba.py:60",
+             replaces_note="no Pallas kernel: jax.grad of ssd_chunked's "
+                           "intra-chunk einsums, the backward of "
+                           "src/repro/kernels/ssd.py:53",
+             launches=total["ssd_intra_chunk_bwd"],
+             launches_per_path=per_path["ssd_intra_chunk_bwd"],
+             max_abs_err=train_ssm["k6b_err"],
+             ms=train_ssm["k6b"]["kernel_ms"],
+             plain_ms=train_ssm["k6b"]["plain_ms"],
+             bound_ms=train_ssm["k6b"]["bound_ms"],
+             bound_by=train_ssm["k6b"]["bound_by"], library_ms=None,
+             shape=train_ssm["k6b"]["shape"],
+             kernel_route=train_ssm["k6b"]["route"]),
     ]
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": table})

@@ -4,9 +4,11 @@ Reference: ``repro/kernels/ops.py`` (``pairwise_sqdist`` :40,
 ``pairwise_dist`` :48, ``_pdist_e2`` :52, ``center_precheck`` :67,
 ``gmm_update`` :117, ``ssd_intra_chunk`` :127, ``flash_attention_fwd``
 :144); ``flash_attention_bwd`` is ``repro/kernels/flash.py:219``, which
-the reference's ops never exposes; ``block_precheck`` is the device half
-of ``repro/core/streaming.py:_block_precheck`` (:732), which the
-reference leaves to XLA's fusion around its precheck kernel.
+the reference's ops never exposes; ``ssd_intra_chunk_bwd`` (K6b) has no
+counterpart there (the reference differentiates the jnp chunked SSD);
+``block_precheck`` is the device half of
+``repro/core/streaming.py:_block_precheck`` (:732), which the reference
+leaves to XLA's fusion around its precheck kernel.
 
 Dispatch: inputs are first moved to ``device`` (CUDA unless the caller asks
 for the CPU). A CPU tensor runs the plain version in ``ref.py``; a CUDA
@@ -18,9 +20,9 @@ path, and nothing falls back from the kernel to the plain version.
 No silent detach: the kernels are launches with no autograd graph, so a
 kernel path called under grad mode with an input that requires grad
 raises (a loss through it would lose the gradient without a word). The
-one differentiable route to K4 is ``models.attention.FlashAttention``,
-whose backward is K5; the plain versions are torch and differentiate as
-they are.
+differentiable routes are ``models.attention.FlashAttention`` (K4, whose
+backward is K5) and ``models.mamba.SSDIntraChunk`` (K6, whose backward is
+K6b); the plain versions are torch and differentiate as they are.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from . import pdist as _pdist
 from . import precheck as _precheck
 from . import ref as _ref
 from . import ssd as _ssd
+from . import ssd_bwd as _ssd_bwd
 from ..device import CUDA, DeviceLike, resolve_device
 from . import LAUNCH_MU
 
@@ -43,7 +46,8 @@ _KERNELS = {"pairwise_sqdist": (_pdist, "launches"),
             "center_precheck": (_precheck, "launches"),
             "flash_attention_fwd": (_flash, "launches"),
             "flash_attention_bwd": (_flash, "bwd_launches"),
-            "ssd_intra_chunk": (_ssd, "launches")}
+            "ssd_intra_chunk": (_ssd, "launches"),
+            "ssd_intra_chunk_bwd": (_ssd_bwd, "launches")}
 
 
 def _use_ref(t: torch.Tensor, force: Optional[str]) -> bool:
@@ -64,7 +68,7 @@ def _no_silent_detach(op: str, *tensors: torch.Tensor) -> None:
             f"requires grad; the gradient would be cut silently. Run it "
             f"under torch.no_grad(), detach the inputs, or use a "
             f"differentiable route (models.attention.FlashAttention for "
-            f"attention)")
+            f"attention, models.mamba.SSDIntraChunk for the SSD step)")
 
 
 def pairwise_sqdist(x, y, *, force: Optional[str] = None,
@@ -245,6 +249,26 @@ def ssd_intra_chunk(xbar, loga, B, C, *, force: Optional[str] = None,
         y, s = _ssd.ssd_intra_chunk(xbar, loga, B, C)
     cum = torch.cumsum(loga.to(torch.float32), dim=-1)
     return y, s, torch.exp(cum), torch.exp(cum[..., -1])
+
+
+def ssd_intra_chunk_bwd(xbar, loga, B, C, dy, dstate, *,
+                        force: Optional[str] = None,
+                        device: DeviceLike = CUDA):
+    """Backward of the SSD intra-chunk step (K6b): the vector-Jacobian
+    product of ``ssd_intra_chunk``'s (y_intra, state) with their gradients
+    dy (..., q, p) and dstate (..., n, p). Takes K6's inputs as K6 takes
+    them and returns (dxbar (..., q, p), dloga (..., q), dB, dC), f32, dB
+    and dC in B's and C's shapes (summed over the axes along which they
+    broadcast, e.g. the heads that share them). The decays' share of
+    dloga is the caller's, as the decays are computed outside the kernel.
+    """
+    dev = resolve_device(device)
+    xbar, loga, B, C, dy, dstate = (torch.as_tensor(t, device=dev) for t in
+                                    (xbar, loga, B, C, dy, dstate))
+    if _use_ref(xbar, force):
+        return _ref.ssd_intra_chunk_bwd(xbar, loga, B, C, dy, dstate)
+    _no_silent_detach("ssd_intra_chunk_bwd", xbar, loga, B, C, dy, dstate)
+    return _ssd_bwd.ssd_intra_chunk_bwd(xbar, loga, B, C, dy, dstate)
 
 
 def launch_counts() -> dict[str, int]:

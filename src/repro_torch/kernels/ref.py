@@ -6,11 +6,13 @@ the precheck oracles ``_nearest_stats`` :31, ``center_precheck`` :59,
 ``ssd_reference_scan`` :162 and ``flash_attention_fwd`` :196), the
 backward of ``repro/kernels/flash.py`` (``flash_attention_bwd`` :219),
 which has no jnp oracle there (its test differentiates the dense
-formula), and the block precheck that the reference jits around its
-precheck kernel (``repro/core/streaming.py:_block_precheck`` :732, up to
-its count tables). These are
-the CPU path of ``ops`` and the oracle that the CUDA/Triton kernels are
-held against on the card (``force="ref"``).
+formula), the backward of the SSD intra-chunk step
+(``ssd_intra_chunk_bwd``, K6b's plain version), which the reference
+leaves to ``jax.grad`` of its jnp form, and the block precheck that the
+reference jits around its precheck kernel
+(``repro/core/streaming.py:_block_precheck`` :732, up to its count
+tables). These are the CPU path of ``ops`` and the oracle that the
+CUDA/Triton kernels are held against on the card (``force="ref"``).
 """
 from __future__ import annotations
 
@@ -360,6 +362,98 @@ def _ssd_cells(xbar, loga, B, C, y, st, tril=None):
     decay_to_end = torch.exp(cum[..., -1:] - cum)  # (..., q)
     st.copy_((Bf * decay_to_end[..., None]).transpose(-1, -2) @ x)
     return y, st
+
+
+def ssd_intra_chunk_bwd(
+    xbar: torch.Tensor,  # (..., q, p)
+    loga: torch.Tensor,  # (..., q)
+    B: torch.Tensor,  # (..., q, n), broadcast to xbar's leading dims
+    C: torch.Tensor,  # (..., q, n)
+    dy: torch.Tensor,  # (..., q, p) the gradient of y_intra
+    dstate: torch.Tensor,  # (..., n, p) the gradient of state
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The vector-Jacobian product of ``ssd_intra_chunk``'s (y, state),
+    the plain version of K6b. Returns (dxbar (..., q, p), dloga (..., q),
+    dB, dC), f32; dB and dC have B's and C's shapes, summed over each
+    leading axis along which they broadcast (a size-1 or missing axis).
+
+    Per cell, with cum, L, G = C B^T, M = G * L and w = exp(cum[-1] - cum)
+    as in the forward: dM = dy xbar^T (masked by L below);
+    dxbar = M^T dy + (B * w) dstate; dG = dM * L, dC = dG B,
+    dB = dG^T C + w * (xbar dstate^T); with u_s = sum_n (xbar
+    dstate^T)[s, n] B[s, n], dcum_t = sum_s (dM * M)[t, s] - sum_t' (dM *
+    M)[t', t] - w_t u_t, plus sum_s w_s u_s at t = q - 1; dloga is the
+    reverse cumsum of dcum. The leading dims are walked in chunks along
+    the first, as the forward does, so that one (q, q) block per cell
+    stays near 1 GB; dB and dC are reduced to their shapes per chunk.
+    """
+    *lead, q, p = xbar.shape
+    n = B.shape[-1]
+    nd = len(lead) + 2
+    b_shape = (1,) * (nd - B.dim()) + tuple(B.shape)
+    c_shape = (1,) * (nd - C.dim()) + tuple(C.shape)
+    Bx = B.expand(*lead, q, n)
+    Cx = C.expand(*lead, q, n)
+    f32 = torch.float32
+    dev = xbar.device
+    dx = torch.empty((*lead, q, p), dtype=f32, device=dev)
+    dl = torch.empty((*lead, q), dtype=f32, device=dev)
+    if not lead:
+        dB, dC = _ssd_cells_bwd(xbar, loga, Bx, Cx, dy, dstate, dx, dl)
+        return dx, dl, dB, dC
+    dB = torch.zeros(b_shape, dtype=f32, device=dev)
+    dC = torch.zeros(c_shape, dtype=f32, device=dev)
+    cells_per_row = math.prod(lead[1:])
+    rows = max(1, _CHUNK_ELEMS // max(1, cells_per_row * q * q))
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
+    for r0 in range(0, lead[0], rows):
+        r1 = min(lead[0], r0 + rows)
+        sl = slice(r0, r1)
+        db, dc = _ssd_cells_bwd(xbar[sl], loga[sl], Bx[sl], Cx[sl], dy[sl],
+                                dstate[sl], dx[sl], dl[sl], tril)
+        for full, part, shape in ((dB, db, b_shape), (dC, dc, c_shape)):
+            if shape[0] == 1:  # broadcast over the first axis: add
+                full += part.sum_to_size(full.shape)
+            else:
+                full[sl] = part.sum_to_size((r1 - r0, *shape[1:]))
+    return dx, dl, dB.reshape(B.shape), dC.reshape(C.shape)
+
+
+def _ssd_cells_bwd(xbar, loga, B, C, dy, dstate, dx, dl, tril=None):
+    """Per-cell gradients of a chunk of cells: fills dx and dl, returns
+    the per-cell dB and dC."""
+    f32 = torch.float32
+    x = xbar.to(f32)
+    Bf = B.to(f32)
+    Cf = C.to(f32)
+    g = dy.to(f32)
+    ds = dstate.to(f32)
+    cum = torch.cumsum(loga.to(f32), dim=-1)
+    q = x.shape[-2]
+    if tril is None:
+        tril = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                     device=x.device))
+    L = torch.where(tril, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                    0.0)
+    G = Cf @ Bf.transpose(-1, -2)
+    M = G * L
+    dM = g @ x.transpose(-1, -2)  # only s <= t matters: L and M vanish above
+    w = torch.exp(cum[..., -1:] - cum)  # (..., q)
+    dx.copy_(M.transpose(-1, -2) @ g + (Bf * w[..., None]) @ ds)
+    dMM = dM * M
+    del M
+    dG = dM * L
+    del dM, L
+    dC = dG @ Bf
+    xd = x @ ds.transpose(-1, -2)  # (..., q, n)
+    dB = dG.transpose(-1, -2) @ Cf + w[..., None] * xd
+    del dG
+    wu = w * torch.sum(xd * Bf, dim=-1)
+    dc = dMM.sum(dim=-1) - dMM.sum(dim=-2) - wu
+    del dMM
+    dc[..., -1] += wu.sum(dim=-1)
+    dl.copy_(torch.flip(torch.cumsum(torch.flip(dc, (-1,)), dim=-1), (-1,)))
+    return dB, dC
 
 
 def ssd_reference_scan(

@@ -3,13 +3,20 @@
 Reference: ``repro/models/mamba.py`` (``mamba_dims`` :19, ``mamba_init``
 :25, ``_causal_conv`` :50, ``ssd_chunked`` :60, ``_split_proj`` :122,
 ``mamba_apply`` :131, ``mamba_decode`` :172). The intra-chunk step of
-``ssd_chunked`` goes through ``ops.ssd_intra_chunk`` (kernel K6) on a
-strided view of the activations: cells are (batch * chunk, head), and B
-and C, shared by all heads (ngroups = 1), go in as a stride-0 head
-broadcast, never copied per head. The inter-chunk recurrence over (H, P,
-N) states and its contribution y_off stay in plain torch, as the kernel's
-docstring leaves them to the caller; y_off is added chunk by chunk inside
-that loop, so the states entering each chunk are never stacked.
+``ssd_chunked`` goes through ``SSDIntraChunk``, whose forward is
+``ops.ssd_intra_chunk`` (kernel K6) and whose backward is
+``ops.ssd_intra_chunk_bwd`` (kernel K6b; the reference differentiates its
+jnp form with ``jax.grad``), on a strided view of the activations: cells
+are (batch * chunk, head), and B and C, shared by all heads (ngroups = 1),
+go in as a stride-0 head broadcast, never copied per head, and their
+gradients come back summed over the heads. The decays and the
+inter-chunk recurrence over (H, P, N) states and its contribution y_off
+stay in plain torch, as the kernel's docstring leaves them to the caller,
+and autograd differentiates them as they are. Under no_grad, y_off is
+added in place chunk by chunk inside that loop, so the states entering
+each chunk are never stacked; under autograd the chunks' y_off are
+stacked and added once (an in-place add into a view of the Function's
+output would make autograd copy the whole gradient once a chunk).
 """
 from __future__ import annotations
 
@@ -55,6 +62,34 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     return y + b[None, None, :]
 
 
+class SSDIntraChunk(torch.autograd.Function):
+    """(y_intra, state) of the SSD intra-chunk step over (xbar, loga, B, C)
+    cells, as ``ops.ssd_intra_chunk`` takes them.
+
+    Forward: ``ops.ssd_intra_chunk`` (K6); it saves the four inputs, not
+    y. Backward: ``ops.ssd_intra_chunk_bwd`` (K6b) with the same
+    ``force``, so ``force="ref"`` differentiates the plain path end to
+    end. An output gradient autograd does not have (an unused state)
+    arrives as zeros.
+    """
+
+    @staticmethod
+    def forward(ctx, xbar, loga, B, C, force: Optional[str]):
+        y, state, _, _ = ops.ssd_intra_chunk(xbar, loga, B, C, force=force,
+                                             device=xbar.device)
+        ctx.save_for_backward(xbar, loga, B, C)
+        ctx.force = force
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        xbar, loga, B, C = ctx.saved_tensors
+        dx, dl, dB, dC = ops.ssd_intra_chunk_bwd(
+            xbar, loga, B, C, dy, dstate, force=ctx.force,
+            device=xbar.device)
+        return dx, dl, dB, dC, None
+
+
 def ssd_chunked(
     xbar: torch.Tensor,  # (B, S, H, P) dt-scaled inputs
     loga: torch.Tensor,  # (B, S, H) log decays (<= 0)
@@ -78,22 +113,31 @@ def ssd_chunked(
     Bc = Bm.to(f32).reshape(Bsz * nc, 1, Q, N)
     Cf = Cm.to(f32)
     Cc = Cf.reshape(Bsz * nc, 1, Q, N)
-    y_diag, states, decay_start, total = ops.ssd_intra_chunk(
-        xb, la, Bc, Cc, force=force, device=xbar.device)
+    y_diag, states = SSDIntraChunk.apply(xb, la, Bc, Cc, force)
+    cum = torch.cumsum(la, dim=-1)
     # (B*nc, H, Q, P) -> (B, nc, Q, H, P); a view when y kept xb's layout
     y = y_diag.permute(0, 2, 1, 3).reshape(Bsz, nc, Q, H, P)
     states = states.reshape(Bsz, nc, H, N, P)
-    decay_start = decay_start.reshape(Bsz, nc, H, Q)
-    total = total.reshape(Bsz, nc, H)
+    decay_start = torch.exp(cum).reshape(Bsz, nc, H, Q)
+    total = torch.exp(cum[..., -1]).reshape(Bsz, nc, H)
     Cf = Cf.reshape(Bsz, nc, Q, N)
 
     s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=xbar.device)
          if s0 is None else s0.to(f32))
+    graph = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (xbar, loga, Bm, Cm, s0))
+    offs = []
     for c in range(nc):
         # y_off[t] = exp(cum[t]) C_t . s_entering
         y_off = torch.einsum("btn,bhpn->bthp", Cf[:, c], s)
-        y[:, c] += y_off * decay_start[:, c].transpose(1, 2)[..., None]
+        y_off = y_off * decay_start[:, c].transpose(1, 2)[..., None]
+        if graph:
+            offs.append(y_off)
+        else:
+            y[:, c] += y_off
         s = s * total[:, c, :, None, None] + states[:, c].transpose(-1, -2)
+    if graph:
+        y = y + torch.stack(offs, dim=1)
     return y.reshape(Bsz, S, H, P).to(xbar.dtype), s
 
 

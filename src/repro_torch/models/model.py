@@ -1,5 +1,5 @@
-"""LM assembly for the dense, ssm and hybrid families, and the training
-loss of the dense family.
+"""LM assembly for the dense, ssm and hybrid families, and their training
+loss.
 
 Reference: ``repro/models/model.py`` (``layer_plan`` :50, ``block_init``
 :114, ``block_apply_full`` :227, ``block_apply_decode`` :311, ``LM`` :341,
@@ -13,11 +13,14 @@ the reference's ``jax.checkpoint(body)`` per block (:413-414) is
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per block
 when ``forward(remat=True)`` runs under grad mode.
 
-Training: ``LM.loss`` is differentiable for the dense (and audio) family,
-whose only kernels are K4 and K5 behind ``attention.FlashAttention``. The
-ssm and hybrid families' Mamba2 layers run K6, which has no backward yet,
-so their ``loss`` raises ``NotImplementedError`` (ROADMAP.md step 13.2)
-rather than train with a cut gradient; moe and vlm are not ported.
+Training: ``LM.loss`` is differentiable for the dense (and audio), ssm
+and hybrid families. Their kernels sit behind ``torch.autograd.Function``s:
+K4 with its backward K5 (``attention.FlashAttention``), K6 with its
+backward K6b (``mamba.SSDIntraChunk``). The hybrid family's shared
+attention block is one set of weights used once a super block; autograd
+sums its gradient over the uses, as ``jax.grad`` does through the
+reference's ``lax.scan``. moe and vlm are not ported, and their ``loss``
+raises (ROADMAP.md steps 13.3 and 13.4).
 
 Families -> layer plans:
   dense/audio   [("dense", L)]
@@ -25,7 +28,7 @@ Families -> layer plans:
   hybrid        [("zamba_super", L//e), ("mamba", L%e)]   e = shared_attn_every
                 (each super = e mamba blocks + ONE shared attn block)
   moe, vlm      planned as in the reference; their blocks raise
-                NotImplementedError (ROADMAP.md step 13)
+                NotImplementedError (ROADMAP.md steps 13.3, 13.4)
 
 Caches: ``forward(want_caches=True)`` allocates them once (``init_caches``,
 at ``cache_len`` positions, so a server can prefill straight into caches
@@ -62,19 +65,16 @@ from .mamba import mamba_apply, mamba_decode, mamba_dims, mamba_init
 Params = Any
 
 _NOT_PORTED = {
-    "moe": "ROADMAP.md step 13 (models/moe.py)",
-    "moe_pair": "ROADMAP.md step 13 (models/moe.py)",
-    "vlm_super": "ROADMAP.md step 13 (the VLM family)",
+    "moe": "ROADMAP.md step 13.3 (models/moe.py)",
+    "moe_pair": "ROADMAP.md step 13.3 (models/moe.py)",
+    "vlm_super": "ROADMAP.md step 13.4 (the VLM family)",
 }
 
 # families whose loss has a backward path in the port
-_TRAINABLE = ("dense", "audio")
+_TRAINABLE = ("dense", "audio", "ssm", "hybrid")
 _NO_BACKWARD = {
-    "ssm": "ROADMAP.md step 13.2 (a backward for the Mamba2 layers' K6 path)",
-    "hybrid": "ROADMAP.md step 13.2 (a backward for the Mamba2 layers' K6 "
-              "path)",
-    "moe": "ROADMAP.md step 13 (models/moe.py)",
-    "vlm": "ROADMAP.md step 13 (the VLM family)",
+    "moe": "ROADMAP.md step 13.3 (models/moe.py)",
+    "vlm": "ROADMAP.md step 13.4 (the VLM family)",
 }
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,

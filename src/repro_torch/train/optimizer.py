@@ -14,6 +14,12 @@ which saves a copy of the model and of both moments each step; it
 returns the same trees. Weight decay applies where ``p.ndim >= 2``, the
 reference's mask: a stacked segment's RMSNorm gain, shape (count, d), is
 decayed, while ``final_norm`` (d,) is not. Kept as it is for parity.
+
+A stacked segment's leaf can be large (mamba2-2.7b's stacked ``in_proj``
+is 1.7 B entries: 6.9 GB for each f32 temporary), so the update and the
+norm walk a leaf of more than ``_SLICE_ELEMS`` entries in slices along
+its first (the stacked) axis. The update is elementwise, so slicing
+changes no bit of it; the norm sums the slices' sums of squares in order.
 """
 from __future__ import annotations
 
@@ -76,12 +82,26 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> dict:
     return state
 
 
+_SLICE_ELEMS = 2**28  # entries of a leaf's f32 temporaries at a time
+
+
+def _slices(t: torch.Tensor) -> list:
+    """Indices of slices along ``t``'s first axis, each with at most
+    ``_SLICE_ELEMS`` entries (one row at least); the whole tensor if it is
+    small enough."""
+    if t.numel() <= _SLICE_ELEMS:
+        return [...]
+    rows = max(1, _SLICE_ELEMS // max(1, t[0].numel()))
+    return [slice(r, r + rows) for r in range(0, t.shape[0], rows)]
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (0-d tensor)."""
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for leaf in leaves:
-        total = total + torch.sum(leaf.to(torch.float32) ** 2)
+        for sl in _slices(leaf):
+            total = total + torch.sum(leaf[sl].to(torch.float32) ** 2)
     return torch.sqrt(total)
 
 
@@ -109,20 +129,22 @@ def adamw_update(grads: Any, state: dict, params: Any,
                                       tree_leaves(grads),
                                       tree_leaves(state["m"]),
                                       tree_leaves(state["v"])):
-        g = g.to(f32) * scale
-        mf = m.to(f32) * b1 + g * (1 - b1)
-        vf = v.to(f32) * b2 + g * g * (1 - b2)
-        mhat = mf / bc1
-        vhat = vf / bc2
-        pf = src.to(f32)
-        upd = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if out.dim() >= 2:
-            upd = upd + cfg.weight_decay * pf
-        pf = pf - lr * upd
-        out.copy_(pf)
-        if mst is not None:
-            mst.copy_(pf)
-        m.copy_(mf)
-        v.copy_(vf)
+        decay = out.dim() >= 2
+        for sl in _slices(out):
+            gs = g[sl].to(f32) * scale
+            mf = m[sl].to(f32) * b1 + gs * (1 - b1)
+            vf = v[sl].to(f32) * b2 + gs * gs * (1 - b2)
+            mhat = mf / bc1
+            vhat = vf / bc2
+            pf = src[sl].to(f32)
+            upd = mhat / (torch.sqrt(vhat) + cfg.eps)
+            if decay:
+                upd = upd + cfg.weight_decay * pf
+            pf = pf - lr * upd
+            out[sl].copy_(pf)
+            if mst is not None:
+                mst[sl].copy_(pf)
+            m[sl].copy_(mf)
+            v[sl].copy_(vf)
     new_state = dict(state, step=step)
     return params, new_state, dict(grad_norm=gnorm, lr=lr)

@@ -12,7 +12,7 @@ scan does. The update is ``optimizer.adamw_update``, in place.
 it changes no value, because K4 and K5 always skip the tiles the causal
 mask hides. No
 sharding: ``grad_specs`` waits for a model sharded across cards
-(ROADMAP.md step 13).
+(ROADMAP.md step 13.5).
 """
 from __future__ import annotations
 

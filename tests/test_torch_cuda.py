@@ -14,7 +14,7 @@ import torch
 from repro_torch.device import disable_tf32
 from repro_torch.core import MatroidSpec, streaming
 from repro_torch.kernels import (
-    flash, gmm_step, ops, pdist, precheck, ref, ssd,
+    flash, gmm_step, ops, pdist, precheck, ref, ssd, ssd_bwd,
 )
 
 pytestmark = pytest.mark.cuda
@@ -648,6 +648,129 @@ def test_kernel_path_refuses_to_cut_a_graph_on_the_card(cuda):
         ops.ssd_intra_chunk(xb, la, B, C)
     with torch.no_grad():
         ops.ssd_intra_chunk(xb, la, B, C)
+
+
+# (g, q, p, n) of K6b, per cell: q 1 and 16 (one partial tile), 48, 100
+# and 256 (4 tiles, the model's chunk), n 64 and 128
+SSD_BWD_SHAPES = [(2, 1, 16, 8), (3, 16, 8, 4), (4, 16, 64, 64),
+                  (3, 48, 16, 8), (2, 100, 64, 72), (3, 256, 64, 128),
+                  (5, 256, 64, 64), (2, 256, 6, 10)]
+
+
+def _ssd_bwd_grads(cuda, lead, q, p, n, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    return (f(rng.normal(size=(*lead, q, p))),
+            f(rng.normal(size=(*lead, n, p))))
+
+
+def _check_ssd_bwd(got, want, tol=2e-4):
+    """Each gradient within 2e-4 of the plain version's largest entry."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        scale = max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("g,q,p,n", SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel_vs_plain(cuda, g, q, p, n):
+    xb, la, B, C = _ssd_inputs(cuda, g, q, p, n)
+    dy, ds = _ssd_bwd_grads(cuda, (g,), q, p, n, seed=q)
+    before = ssd_bwd.launches
+    got = ops.ssd_intra_chunk_bwd(xb, la, B, C, dy, ds)
+    again = ops.ssd_intra_chunk_bwd(xb, la, B, C, dy, ds)
+    want = ops.ssd_intra_chunk_bwd(xb, la, B, C, dy, ds, force="ref")
+    torch.cuda.synchronize()
+    assert ssd_bwd.launches == before + 2
+    assert ssd_bwd.last_route == "per_cell"
+    _check_ssd_bwd(got, want)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Q", [16, 256])
+def test_ssd_bwd_kernel_head_broadcast_strided(cuda, Q):
+    """The model's layout: xbar, dy and loga permuted views of (B, S, H,
+    .), B and C of size 1 along the heads (a stride-0 broadcast): dB and
+    dC come back in that shape, summed over the heads in a fixed order;
+    dxbar in xbar's layout; two calls give the same bits."""
+    rng = np.random.default_rng(Q)
+    Bsz, nc, H, P, N = 2, 3, 12, 64, 128
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    xbar = f(rng.normal(size=(Bsz * nc, Q, H, P))).permute(0, 2, 1, 3)
+    dy = f(rng.normal(size=(Bsz * nc, Q, H, P))).permute(0, 2, 1, 3)
+    loga = f(-rng.uniform(0.01, 0.4, (Bsz * nc, Q, H))).permute(0, 2, 1)
+    Bm = f(rng.normal(size=(Bsz * nc, 1, Q, N)))
+    Cm = f(rng.normal(size=(Bsz * nc, 1, Q, N)))
+    ds = f(rng.normal(size=(Bsz * nc, H, N, P)))
+    got = ops.ssd_intra_chunk_bwd(xbar, loga, Bm, Cm, dy, ds)
+    assert ssd_bwd.last_route == "shared_bc"
+    assert got[0].stride() == xbar.stride()
+    assert got[2].shape == Bm.shape and got[3].shape == Cm.shape
+    again = ops.ssd_intra_chunk_bwd(xbar, loga, Bm, Cm, dy, ds)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = ops.ssd_intra_chunk_bwd(
+        xbar.contiguous(), loga.contiguous(), Bm, Cm, dy.contiguous(), ds,
+        force="ref")
+    _check_ssd_bwd(got, want)
+    # the per-cell route on the same cells: its dB and dC, summed over
+    # the heads, are the shared route's
+    Bx, Cx = (t.expand(-1, H, -1, -1).contiguous() for t in (Bm, Cm))
+    cells = ops.ssd_intra_chunk_bwd(xbar, loga, Bx, Cx, dy, ds)
+    assert ssd_bwd.last_route == "per_cell"
+    _check_ssd_bwd((cells[2].sum(1, keepdim=True),
+                    cells[3].sum(1, keepdim=True)), got[2:])
+
+
+def test_ssd_bwd_is_counted_and_refuses_cpu_tensors(cuda):
+    xb, la, B, C = _ssd_inputs(cuda, 2, 16, 8, 4)
+    dy, ds = _ssd_bwd_grads(cuda, (2,), 16, 8, 4, seed=0)
+    ops.reset_launches()
+    ops.ssd_intra_chunk_bwd(xb, la, B, C, dy, ds)
+    ops.ssd_intra_chunk_bwd(xb, la, B, C, dy, ds, force="ref")
+    assert ops.launch_counts()["ssd_intra_chunk_bwd"] == 1
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_bwd.ssd_intra_chunk_bwd(*(t.cpu() for t in (xb, la, B, C, dy,
+                                                         ds)))
+    xb.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="cut silently"):
+        ops.ssd_intra_chunk_bwd(xb, la, B, C, dy, ds)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_ssm_loss_backward_on_the_card_launches_k6_and_k6b(cuda, arch):
+    """A reduced ssm / hybrid model's loss and gradient on the card (K6
+    twice a Mamba2 layer with remat, K6b once; the hybrid's shared
+    attention through K4 and K5) agree with the plain path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    lm = LM(cfg)
+    params = tree_map(lambda p: p.requires_grad_(True),
+                      lm.init(0, device=cuda))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 96)), device=cuda)
+    ops.reset_launches()
+    loss, _ = lm.loss(params, toks)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    counts = ops.launch_counts()
+    assert counts["ssd_intra_chunk"] == 2 * cfg.n_layers
+    assert counts["ssd_intra_chunk_bwd"] == cfg.n_layers
+    supers = (cfg.n_layers // cfg.shared_attn_every
+              if cfg.family == "hybrid" else 0)
+    assert counts["flash_attention_bwd"] == supers
+    loss_r, _ = lm.loss(params, toks, force="ref")
+    grads_r = torch.autograd.grad(loss_r, tree_leaves(params))
+    assert ops.launch_counts() == counts
+    torch.testing.assert_close(loss, loss_r, rtol=1e-5, atol=1e-5)
+    for g, w in zip(grads, grads_r):
+        rel = float((g - w).norm() / (w.norm() + 1e-30))
+        assert rel <= 1e-4, rel
 
 
 def test_pipeline_selects_on_k2_as_on_the_plain_path(cuda):

@@ -109,11 +109,16 @@ def test_cuda_without_card_raises_and_cpu_path_launches_nothing():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.flash_attention_bwd(q, q, q, o, lse, q)
     ops.flash_attention_bwd(q, q, q, o, lse, q, device="cpu")
+    ds = torch.randn(2, 4, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.ssd_intra_chunk_bwd(q, -q[..., 0].abs(), q, q, q, ds)
+    ops.ssd_intra_chunk_bwd(q, -q[..., 0].abs(), q, q, q, ds, device="cpu")
     assert ops.launch_counts() == {"pairwise_sqdist": 0, "gmm_update": 0,
                                    "center_precheck": 0,
                                    "flash_attention_fwd": 0,
                                    "flash_attention_bwd": 0,
-                                   "ssd_intra_chunk": 0}
+                                   "ssd_intra_chunk": 0,
+                                   "ssd_intra_chunk_bwd": 0}
 
 
 def test_gmm_step_block_d():
