@@ -233,12 +233,15 @@ exits non-zero:
                within 1e-5, every leaf within 1e-3 relative L2); step
                time, tokens/s, peak memory, a profiled step, K6 and K6b
                timed at the captured inputs beside their plain versions
-               and bounds; (c) zamba2-7b at full width and 12 layers (2
-               super blocks, each with the shared attention block; full
-               depth does not fit one card for training), one step at
-               batch 2 x 2,048 through K4, K5, K6 and K6b in one graph,
-               its launches counted, against the plain path under the
-               rules of (b).
+               and bounds, and K6b checked and timed at zamba2-7b's layer
+               shape (16 x 112 cells of (256, 64, 64), seeded), each
+               timing with K6b's grid, head slices, shared memory,
+               registers and blocks an SM; (c) zamba2-7b at full width
+               and 12 layers (2 super blocks, each with the shared
+               attention block; full depth does not fit one card for
+               training), one step at batch 2 x 2,048 through K4, K5, K6
+               and K6b in one graph, its launches counted, against the
+               plain path under the rules of (b).
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the repository beside it, it fails.
@@ -281,10 +284,10 @@ FLASH_SHAPES = [(4, 64, 64, 16, True), (2, 48, 80, 32, False),
                 (2, 200, 200, 112, True), (2, 130, 257, 112, False),
                 (2, 70, 70, 128, True), (2, 90, 150, 128, False),
                 (2, 255, 129, 40, True), (2, 129, 255, 256, False)]
-# the SASS of the tensor-core routes: flash_fwd must hold wgmma, flash_bwd
-# and ssd wgmma or mma.sync
+# the SASS of the tensor-core routes: flash_fwd and ssd_bwd must hold
+# wgmma, flash_bwd and ssd wgmma or mma.sync
 TENSOR_CORE_SASS = {"flash_fwd": ("HGMMA",), "flash_bwd": ("HGMMA", "HMMA"),
-                    "ssd": ("HGMMA", "HMMA")}
+                    "ssd": ("HGMMA", "HMMA"), "ssd_bwd": ("HGMMA",)}
 # (g, q, p, n): tests/test_kernels.py's SSD_SHAPES, then model widths; each
 # takes the per_cell route
 SSD_SHAPES = [(2, 16, 8, 4), (3, 32, 16, 8), (1, 64, 32, 16), (4, 8, 64, 32),
@@ -293,12 +296,17 @@ SSD_SHAPES = [(2, 16, 8, 4), (3, 32, 16, 8), (1, 64, 32, 16), (4, 8, 64, 32),
 # views, which takes the shared_bc route (q = 16 packs four heads a block)
 SSD_MODEL_SHAPES = [(6, 8, 256), (6, 12, 16)]
 # (g, q, p, n) of K6b with per-cell B and C: q 1 and 16 (one partial tile),
-# 48, 100 and 256 (the model's chunk); then (batch * chunks, heads, q, n)
-# in the model's layout, B and C shared by the heads (shared_bc)
+# 48, 100 and 256 (the model's chunk), then q, p and n off every tile;
+# then (batch * chunks, heads, q, n) in the model's layout, B and C shared
+# by the heads (shared_bc), the last a head count that no head slice
+# divides
 SSD_BWD_SHAPES = [(3, 1, 16, 8), (4, 16, 64, 64), (3, 48, 64, 128),
-                  (2, 100, 64, 72), (3, 256, 64, 128)]
+                  (2, 100, 64, 72), (3, 256, 64, 128), (2, 200, 33, 100)]
 SSD_BWD_MODEL_SHAPES = [(2, 8, 1, 128), (6, 112, 16, 64), (3, 12, 48, 128),
-                        (4, 80, 256, 128)]
+                        (4, 80, 256, 128), (3, 13, 100, 64)]
+# zamba2-7b's layer shape for K6b (batch 2 x 2,048: 16 batch * chunks x
+# 112 heads of (256, 64, 64)), from seeded inputs
+SSD_BWD_HYBRID_SHAPE = (16, 112, 256, 64)
 SSD_BWD_TOL = 2e-4  # of each gradient's largest entry, as K6's tests
 # rows of x against itself (K1's sym route): the songs-sim solve's coreset
 # (327 at seed 0) and k * tau
@@ -3438,6 +3446,8 @@ def _time_ssd_bwd(xbar, loga, B, C, dy, ds) -> dict:
     ssd_bwd.ssd_intra_chunk_bwd(xbar, loga, B, C, dy, ds)
     res = dict(
         route=ssd_bwd.last_route,
+        design=ssd_bwd.describe(lead[0], lead[1], q, n, groups < cells,
+                                xbar.device.index),
         kernel_ms=time_ms(lambda: ssd_bwd.ssd_intra_chunk_bwd(
             xbar, loga, B, C, dy, ds)),
         plain_ms=time_ms(lambda: ref.ssd_intra_chunk_bwd(
@@ -3634,6 +3644,23 @@ def phase_train_ssm(seed: int) -> dict:
     del params, batches
     torch.cuda.empty_cache()
 
+    # K6b at zamba2-7b's layer shape, seeded (its captured inputs come only
+    # with the 12-layer model of (c)); after the steps, so that nothing it
+    # leaves allocated (a library's workspace) is in their peak
+    bc, heads, q, n = SSD_BWD_HYBRID_SHAPE
+    hb = (randn(bc, q, heads, 64).permute(0, 2, 1, 3),
+          decays(bc, q, heads).permute(0, 2, 1), randn(bc, 1, q, n),
+          randn(bc, 1, q, n), randn(bc, q, heads, 64).permute(0, 2, 1, 3),
+          randn(bc, heads, n, 64))
+    check_h = _check_ssd_bwd(*hb, "zamba2-7b's layer shape (seeded)",
+                             "shared_bc")
+    k6b_h = _time_ssd_bwd(*hb)
+    del hb
+    torch.cuda.empty_cache()
+    emit(dict(phase="train_ssm_kernels_hybrid_shape", checks=[check_h],
+              ssd_intra_chunk_bwd_hybrid_shape=k6b_h))
+    k6b_h_err = check_h["max_abs_err"]
+
     # (c) zamba2-7b at full width, 12 layers: K4, K5, K6 and K6b in one
     # graph, one step against the plain path
     cfg_h = dataclasses.replace(get_config(HYBRID_ARCH),
@@ -3677,7 +3704,8 @@ def phase_train_ssm(seed: int) -> dict:
     torch.cuda.empty_cache()
     both = {name: launches[name] + launches_h[name] for name in launches}
     return dict(launches=both, k6b=k6b, k6b_err=k6b_err, k6=k6,
-                k6_err=k6_err)
+                k6_err=k6_err, k6b_h=k6b_h, k6b_h_err=k6b_h_err,
+                k6b_h_launches=launches_h["ssd_intra_chunk_bwd"])
 
 
 
@@ -3844,7 +3872,22 @@ def main() -> int:
              bound_ms=train_ssm["k6b"]["bound_ms"],
              bound_by=train_ssm["k6b"]["bound_by"], library_ms=None,
              shape=train_ssm["k6b"]["shape"],
-             kernel_route=train_ssm["k6b"]["route"]),
+             kernel_route=train_ssm["k6b"]["route"],
+             design=train_ssm["k6b"]["design"]),
+        # K6b at zamba2-7b's layer shape: its launches are those of the
+        # 12-layer zamba2-7b step, part of the count above
+        dict(name="ssd_intra_chunk_bwd_hybrid", route="cuda",
+             source=f"{csrc}/csrc/ssd_bwd.cu",
+             replaces="src/repro/models/mamba.py:60",
+             launches=train_ssm["k6b_h_launches"],
+             max_abs_err=train_ssm["k6b_h_err"],
+             ms=train_ssm["k6b_h"]["kernel_ms"],
+             plain_ms=train_ssm["k6b_h"]["plain_ms"],
+             bound_ms=train_ssm["k6b_h"]["bound_ms"],
+             bound_by=train_ssm["k6b_h"]["bound_by"], library_ms=None,
+             shape=train_ssm["k6b_h"]["shape"],
+             kernel_route=train_ssm["k6b_h"]["route"],
+             design=train_ssm["k6b_h"]["design"]),
     ]
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": table})

@@ -4,14 +4,17 @@ kernel for Hopper.
 Replaces no TPU kernel: the JAX package differentiates the jnp chunked
 form (``repro/models/mamba.py`` ``ssd_chunked`` :60) with XLA's autodiff,
 and this computes that same gradient for K6's (y, state). The kernel is
-``csrc/ssd_bwd.cu``; its header says what bounds it on an H100 and how
-the design meets that. This module is its wrapper: it checks what the
-kernel takes, passes every operand by its strides (the model's permuted
-(B * nc, H, Q, .) views of xbar and dy go in without a copy), allocates
-the outputs and the scratch the kernel sums through, and launches on
-PyTorch's current stream. The plain version is ``ref.ssd_intra_chunk_bwd``;
-``ops.ssd_intra_chunk_bwd`` picks between the two, and
-``models.mamba.SSDIntraChunk`` is the autograd route to it.
+``csrc/ssd_bwd.cu``, 3xTF32 ``wgmma`` in four launches a call (the G^T
+tiles, the cells over head slices and s-tile pairs, dB and dC, dloga);
+its header says what bounds it on an H100 and how the design meets that.
+This module is its wrapper: it checks what the kernel takes, passes every
+operand by its strides (the model's permuted (B * nc, H, Q, .) views of
+xbar and dy go in without a copy), allocates the outputs and the scratch
+the kernel sums through (its size follows the head slices, which the
+kernel sizes to the card's SM count: ``describe`` reports them), and
+launches on PyTorch's current stream. The plain version is
+``ref.ssd_intra_chunk_bwd``; ``ops.ssd_intra_chunk_bwd`` picks between the
+two, and ``models.mamba.SSDIntraChunk`` is the autograd route to it.
 
 Two routes, recorded in ``last_route``: ``"shared_bc"`` when B and C have
 size 1 along the cells' last leading axis (the model's B and C, shared by
@@ -39,8 +42,11 @@ _GRID_MAX = 2**31 - 1
 def _lib():
     lib = _build.library("ssd_bwd")
     if lib.ssd_bwd_f32.argtypes is None:
-        lib.ssd_bwd_plan.argtypes = [ctypes.c_int] * 5
+        lib.ssd_bwd_plan.argtypes = [ctypes.c_int] * 6
         lib.ssd_bwd_plan.restype = ctypes.c_longlong
+        lib.ssd_bwd_describe.argtypes = [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.ssd_bwd_describe.restype = ctypes.c_int
         lib.ssd_bwd_f32.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                                     + [ctypes.c_longlong] * 21
                                     + [ctypes.c_int, ctypes.c_void_p])
@@ -113,8 +119,10 @@ def ssd_intra_chunk_bwd(xbar: torch.Tensor, loga: torch.Tensor,
         if g1 * g2 * 4 > _GRID_MAX:
             raise ValueError(f"ssd_bwd kernel cannot take {g1 * g2} cells")
         lib = _lib()
-        scratch = torch.empty(lib.ssd_bwd_plan(g1, g2, q, n, int(shared)),
-                              dtype=torch.float32, device=dev)
+        floats = lib.ssd_bwd_plan(g1, g2, q, n, int(shared), dev.index)
+        if floats < 0:
+            raise RuntimeError("ssd_bwd kernel plan failed (a CUDA error)")
+        scratch = torch.empty(floats, dtype=torch.float32, device=dev)
         strides = []
         for t in (x2, l2, b2, c2, y2, s2, dx2):
             strides += [t.stride(0), t.stride(1), t.stride(2)]
@@ -134,3 +142,19 @@ def ssd_intra_chunk_bwd(xbar: torch.Tensor, loga: torch.Tensor,
     dB = dB.reshape(*lead[:-1], groups[1], q, n)
     dC = dC.reshape(dB.shape)
     return dxbar, dloga, dB.sum_to_size(B.shape), dC.sum_to_size(C.shape)
+
+
+def describe(g1: int, g2: int, q: int, n: int, shared: bool,
+             device: int = 0) -> dict:
+    """The design as launched for g1 x g2 cells of chunk q and state n on
+    CUDA device ``device``: the cell kernel's grid, head slices, shared
+    memory, blocks an SM, registers and local (stack and spill) bytes, and
+    the grids of its pre- and finishing passes."""
+    out = (ctypes.c_longlong * 9)()
+    err = _lib().ssd_bwd_describe(g1, g2, q, n, int(shared), device, out)
+    if err != 0:
+        raise RuntimeError(f"ssd_bwd describe failed: cudaError {err}")
+    keys = ("cell_blocks", "slices", "cells_a_slice", "smem_bytes",
+            "blocks_per_sm", "registers", "local_bytes", "bc_blocks",
+            "gram_blocks")
+    return dict(zip(keys, map(int, out)))

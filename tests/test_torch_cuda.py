@@ -723,6 +723,75 @@ def test_ssd_bwd_kernel_head_broadcast_strided(cuda, Q):
                     cells[3].sum(1, keepdim=True)), got[2:])
 
 
+# (heads, q, n) in the model's layout, B and C shared by the heads: head
+# counts that no head slice divides (1, 8, 12) and the models' (80: mamba2,
+# 112: zamba2), q 1, 48, 100 and 256, n 64, 72 and 128
+SSD_BWD_HEAD_SHAPES = [(1, 256, 128), (8, 100, 64), (12, 1, 128),
+                       (12, 48, 72), (80, 256, 128), (112, 256, 64),
+                       (112, 100, 64)]
+
+
+@pytest.mark.parametrize("H,q,n", SSD_BWD_HEAD_SHAPES)
+def test_ssd_bwd_kernel_head_slices(cuda, H, q, n):
+    """The heads of a batch * chunk cut into slices over several blocks:
+    every gradient against the plain version, dB and dC summed over all
+    heads, two calls bit-identical."""
+    rng = np.random.default_rng(H * 1000 + q)
+    bc, P = 2, 64
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    xbar = f(rng.normal(size=(bc, q, H, P))).permute(0, 2, 1, 3)
+    dy = f(rng.normal(size=(bc, q, H, P))).permute(0, 2, 1, 3)
+    loga = f(-rng.uniform(0.01, 0.4, (bc, q, H))).permute(0, 2, 1)
+    Bm = f(rng.normal(size=(bc, 1, q, n)))
+    Cm = f(rng.normal(size=(bc, 1, q, n)))
+    ds = f(rng.normal(size=(bc, H, n, P)))
+    got = ops.ssd_intra_chunk_bwd(xbar, loga, Bm, Cm, dy, ds)
+    assert ssd_bwd.last_route == ("shared_bc" if H > 1 else "per_cell")
+    again = ops.ssd_intra_chunk_bwd(xbar, loga, Bm, Cm, dy, ds)
+    want = ops.ssd_intra_chunk_bwd(
+        xbar.contiguous(), loga.contiguous(), Bm, Cm, dy.contiguous(), ds,
+        force="ref")
+    torch.cuda.synchronize()
+    _check_ssd_bwd(got, want)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("q,p,n", [(100, 63, 72), (256, 64, 128), (1, 5, 3),
+                                   (16, 64, 64)])
+def test_ssd_bwd_kernel_rows_not_16_byte_aligned(cuda, q, p, n):
+    """Every operand a view one float into a wider buffer, so no row is
+    16-byte aligned (the 4-byte copies): against the plain version, and
+    bit-identical on a repeat."""
+    g = 3
+    rng = np.random.default_rng(q + p + n)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    def shifted(*shape):
+        return f(rng.normal(size=(*shape[:-1], shape[-1] + 1)))[..., 1:]
+
+    xb, B, C, dy = (shifted(g, q, w) for w in (p, n, n, p))
+    ds = shifted(g, n, p)
+    la = f(-rng.uniform(0.01, 0.4, (g, q)))
+    got = ops.ssd_intra_chunk_bwd(xb, la, B, C, dy, ds)
+    assert ssd_bwd.last_route == "per_cell"
+    again = ops.ssd_intra_chunk_bwd(xb, la, B, C, dy, ds)
+    want = ops.ssd_intra_chunk_bwd(xb, la, B, C, dy, ds, force="ref")
+    torch.cuda.synchronize()
+    _check_ssd_bwd(got, want)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_ssd_bwd_describe_reports_the_design(cuda):
+    """mamba2-2.7b's layer: the cell kernel fits two blocks an SM with no
+    spills, and its grid covers every (group, slice, s-tile pair)."""
+    d = ssd_bwd.describe(64, 80, 256, 128, True, cuda.index or 0)
+    assert d["blocks_per_sm"] >= 2 and d["local_bytes"] == 0, d
+    assert d["cell_blocks"] == 64 * d["slices"] * 2, d
+    assert d["slices"] * d["cells_a_slice"] >= 80, d
+
+
 def test_ssd_bwd_is_counted_and_refuses_cpu_tensors(cuda):
     xb, la, B, C = _ssd_inputs(cuda, 2, 16, 8, 4)
     dy, ds = _ssd_bwd_grads(cuda, (2,), 16, 8, 4, seed=0)
