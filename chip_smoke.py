@@ -242,6 +242,45 @@ exits non-zero:
                training), one step at batch 2 x 2,048 through K4, K5, K6
                and K6b in one graph, its launches counted, against the
                plain path under the rules of (b).
+15. ``moe``    the moe family at full width and reduced depth (bf16,
+               random weights): (a) phi3.5-moe-42b-a6.6b at 16 of its 32
+               layers (top-2 of 16 experts, capacity 1.25: 160 slots a
+               sequence) serving 8 prompts of 1,024 tokens + 16 new, and
+               (b) llama4-maverick-400b-a17b at one ``moe_pair`` (top-1 of
+               128 experts, 10 slots) serving 4 x 1,024 + 8, each through
+               ``Engine.generate`` on the kernel path (launch counts set to
+               0 before and read after: K4 once an attention layer) and on
+               the plain path: K4 against its plain version at the first
+               layer's captured inputs (GQA 32/8, 40/8, hd 128); the
+               greedy tokens as in ``lm``; the kept share of the prefill's
+               routes and the share of (layer, token, choice) routes that
+               the two paths' prefills agree on; the kernel path's prefill
+               logits against a plain prefill routed as the kernel path
+               routed (a near-tie's flip changes a token wholly, and these
+               random-weight models carry it to every later token), within
+               2e-2 of the largest logit or twice what nudged embeddings
+               move them, each replayed flip a near-tie; (c) phi3.5-moe at
+               2 layers trained at batch 4 x 2,048: K5 at a layer's
+               captured backward, 3 AdamW steps with launch counts (K4 12,
+               K5 6) against the plain path under the ``train`` phase's
+               nudge rule, the aux on both paths, an f32 gradient check at
+               1 layer on 1 x 1,024 (the plain path replaying the kernel
+               path's routes); K4 and K5 timed at phi3.5-moe's shapes
+               beside SDPA and their bounds.
+16. ``vlm``    llama-3.2-vision-90b at full width: (a) 2 of its 20 super
+               blocks (10 layers) serving 4 prompts of 1,024 tokens + 16
+               new over seeded image embeddings (4 x 1,024 x 8,192, 0.1 x
+               normal) on both paths as in ``moe`` (K4 10 launches a
+               prefill: 8 self-attention, 2 cross attention; K4 checked at
+               the first cross-attention layer's inputs: 256 x 1,024 x
+               1,024 x 128, not causal); (b) 1 super block, batch 2 x
+               1,024 with images: the loss and every gradient leaf on the
+               kernel path (K4 10, K5 5 launches) within twice what nudged
+               embeddings move them on the plain path (no AdamW step: the
+               f32 moments would not fit beside the weights and
+               gradients); K5 checked at the cross attention's captured
+               backward; K4 and K5 timed at the cross-attention shape
+               beside SDPA and their bounds.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the repository beside it, it fails.
@@ -328,6 +367,27 @@ TRAIN_SSM_NUDGES = 3  # independent nudged embeddings behind the bf16 floor
 # since 6.8 B parameters x (2 + 2 + 8) bytes (bf16 weights and gradients,
 # f32 moments) exceed one card before any activation
 HYBRID_ARCH, HYBRID_LAYERS, HYBRID_BATCH = "zamba2-7b", 12, 2
+# the moe family at full width and reduced depth (weights bf16): phi3.5-moe
+# served at 16 of 32 layers (21.07 B parameters, 42.1 GB), llama4-maverick
+# at one moe_pair (2 of 48 layers, 18.43 B, 36.9 GB; top-1 of 128 experts:
+# capacity 10 a sequence at S = 1,024), phi3.5-moe trained at 2 layers
+# (2.86 B: weights, gradients and f32 moments 34.3 GB), its f32 gradient
+# check at 1 layer on 1 x 1,024
+MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_STEPS = "phi3.5-moe-42b-a6.6b", 16, 8, 16
+MAV_ARCH, MAV_LAYERS, MAV_BATCH, MAV_STEPS = ("llama4-maverick-400b-a17b",
+                                              2, 4, 8)
+MOE_PROMPT = 1024
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = (2, 4,
+                                                                     2048, 3)
+MOE_F32_LAYERS, MOE_F32_SEQ = 1, 1024
+# the vlm family: llama-3.2-vision-90b served at 2 of its 20 super blocks
+# (10 layers, 10.66 B, 21.3 GB) with seeded image embeddings of 1,024
+# tokens (tests/test_models.py:19's 0.1 x normal), trained at 1 super
+# block (6.38 B, 12.8 GB): f32 moments beside it would not fit one card,
+# so a forward and backward against the plain path, no AdamW step
+VLM_ARCH, VLM_SUPERS, VLM_BATCH, VLM_PROMPT, VLM_STEPS = (
+    "llama-3.2-vision-90b", 2, 4, 1024, 16)
+VLM_TRAIN_SUPERS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 1, 2, 1024
 BLOCK = 128  # the streaming scan's block size on the main path
 INGEST_BATCH = 16_384
 PREFIX = 2048
@@ -2641,29 +2701,52 @@ def _check_ssd(xbar, loga, B, C, what: str, route: str) -> dict:
     return line
 
 
-class _Capture:
-    """Keeps a copy of the inputs of the first call of each named ``ops``
-    function while it is entered (the model looks the op up on ``ops`` at
-    every call), and of K6's first call at each chunk length q (under
-    ``ssd_intra_chunk@q<q>``); the calls themselves go on as usual."""
+class _OpsWrap:
+    """While entered, each ``ops`` function named in NAMES is replaced by
+    ``self._wrap(name, fn)`` (the model looks the op up on ``ops`` at
+    every call); leaving puts the functions back."""
 
-    NAMES = ("flash_attention_fwd", "flash_attention_bwd", "ssd_intra_chunk",
-             "ssd_intra_chunk_bwd")
+    NAMES: tuple = ()
 
     def __enter__(self):
         from repro_torch.kernels import ops
 
-        self.ops, self.orig, self.args = ops, {}, {}
+        self.ops, self.orig = ops, {}
         for name in self.NAMES:
             self.orig[name] = fn = getattr(ops, name)
             setattr(ops, name, self._wrap(name, fn))
         return self
 
     def _wrap(self, name, fn):
+        raise NotImplementedError
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.ops, name, fn)
+
+
+class _Capture(_OpsWrap):
+    """Keeps a copy of the inputs of the first call of each named ``ops``
+    function while it is entered, of K6's first call at each chunk length
+    q (under ``ssd_intra_chunk@q<q>``) and of K4's and K5's first
+    non-causal call (under ``flash_attention_fwd@full``,
+    ``flash_attention_bwd@full``: a vlm's cross attention); the calls
+    themselves go on as usual."""
+
+    NAMES = ("flash_attention_fwd", "flash_attention_bwd", "ssd_intra_chunk",
+             "ssd_intra_chunk_bwd")
+
+    def __enter__(self):
+        self.args = {}
+        return super().__enter__()
+
+    def _wrap(self, name, fn):
         def call(*args, **kw):
             keys = [name]
             if name == "ssd_intra_chunk":
                 keys.append(f"{name}@q{args[0].shape[-2]}")
+            if name.startswith("flash") and not kw.get("causal", True):
+                keys.append(f"{name}@full")
             missing = [key for key in keys if key not in self.args]
             if missing:
                 saved = ([a.clone() for a in args], kw)
@@ -2672,9 +2755,28 @@ class _Capture:
             return fn(*args, **kw)
         return call
 
-    def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(self.ops, name, fn)
+
+class _NonCausal(_OpsWrap):
+    """While entered, counts the K4 and K5 launches of the calls made with
+    ``causal=False`` (a vlm's cross attention): each such call's share of
+    ``ops.launch_counts()``, read just before and just after it, summed
+    per op in ``counts``."""
+
+    NAMES = ("flash_attention_fwd", "flash_attention_bwd")
+
+    def __enter__(self):
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        return super().__enter__()
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            if kw.get("causal", True):
+                return fn(*args, **kw)
+            before = self.ops.launch_counts()[name]
+            out = fn(*args, **kw)
+            self.counts[name] += self.ops.launch_counts()[name] - before
+            return out
+        return call
 
 
 def _first_divergence(tok, tok_r, lg, lg_r, d0: float) -> tuple:
@@ -2700,28 +2802,38 @@ def _first_divergence(tok, tok_r, lg, lg_r, d0: float) -> tuple:
     return first, equal
 
 
-def _time_flash(q, k, v, heads: int = LM_HEADS) -> dict:
-    """K4, its plain version and SDPA at the captured (BH, S, hd) inputs."""
+def _attn_pairs(sq: int, skv: int, causal: bool) -> int:
+    """The (query, key) pairs attention computes: k <= q when causal (the
+    model's causal calls have sq == skv), all of them otherwise."""
+    return sq * (sq + 1) // 2 if causal else sq * skv
+
+
+def _time_flash(q, k, v, heads: int = LM_HEADS, causal: bool = True) -> dict:
+    """K4, its plain version and SDPA at the captured (BH, S, hd) inputs
+    (q's S may differ from k's and v's when not causal)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash, ref
 
-    bh, s, hd = q.shape
-    q4, k4, v4 = (t.view(bh // heads, heads, s, hd) for t in (q, k, v))
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    q4 = q.view(bh // heads, heads, sq, hd)
+    k4, v4 = (t.view(bh // heads, heads, skv, hd) for t in (k, v))
     esz = q.element_size()
-    nbytes = 4 * bh * s * hd * esz + bh * s * 4
-    flops = 4 * hd * bh * s * (s + 1) // 2  # causal: q.k and p.v, k <= q
+    # q, o and k, v once each, lse written
+    nbytes = (2 * sq + 2 * skv) * bh * hd * esz + bh * sq * 4
+    flops = 4 * hd * bh * _attn_pairs(sq, skv, causal)  # q.k and p.v
     peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else TF32_FLOPS_PER_S
     b, by = bound_ms(nbytes, flops, peak)
     res = dict(
-        kernel_ms=time_ms(lambda: flash.flash_attention_fwd(q, k, v, True)),
+        kernel_ms=time_ms(lambda: flash.flash_attention_fwd(q, k, v, causal)),
         route=flash.last_route["fwd"],
-        plain_ms=time_ms(lambda: ref.flash_attention_fwd(q, k, v, True),
+        plain_ms=time_ms(lambda: ref.flash_attention_fwd(q, k, v, causal),
                          warmup=1, reps=5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True)),
+            q4, k4, v4, is_causal=causal)),
         bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
-        shape=[bh, s, hd], dtype=str(q.dtype))
+        shape=[bh, sq, skv, hd], causal=causal, dtype=str(q.dtype))
     return _rates(res)
 
 
@@ -2784,9 +2896,9 @@ def _blockwise_prefill(lm, params, prompts, g) -> dict:
     ctx_r = lm.context(params, B, S, force="ref")
     worst, worst_at = 0.0, None
     for si, i, kind, p in lm.blocks(params):
-        yk, _ = block_apply_full(kind, p, x, ctx_k, want_cache=False)
-        x, _ = block_apply_full(kind, p, x, ctx_r, want_cache=False)
-        xn, _ = block_apply_full(kind, p, xn, ctx_r, want_cache=False)
+        yk, _, _ = block_apply_full(kind, p, x, ctx_k, want_cache=False)
+        x, _, _ = block_apply_full(kind, p, x, ctx_r, want_cache=False)
+        xn, _, _ = block_apply_full(kind, p, xn, ctx_r, want_cache=False)
         err = float((yk.float() - x.float()).abs().max()
                     / x.float().abs().max())
         if err > worst:
@@ -3190,37 +3302,41 @@ def _train_cli(seed: int, exact: bool, spread: float) -> dict:
                 uninterrupted_run_s=full_s)
 
 
-def _time_flash_bwd(q, k, v, o, lse, do, heads: int) -> dict:
+def _time_flash_bwd(q, k, v, o, lse, do, heads: int,
+                    causal: bool = True) -> dict:
     """K5, its plain version and the backward alone of SDPA at one layer's
-    captured (BH, S, hd) inputs, causal."""
+    captured (BH, S, hd) inputs (q's S may differ from k's and v's when
+    not causal)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash, ref
 
-    bh, s, hd = q.shape
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
     esz = q.element_size()
-    # q, k, v, o, do read and dq, dk, dv written once, lse read
-    nbytes = 8 * bh * s * hd * esz + bh * s * 4
-    # S, dP, dv, dq, dk: five products over the causal pairs
-    flops = 5 * 2 * hd * bh * s * (s + 1) // 2
+    # q, o, do read and dq written; k, v read and dk, dv written; lse read
+    nbytes = (4 * sq + 4 * skv) * bh * hd * esz + bh * sq * 4
+    # S, dP, dv, dq, dk: five products over the attended pairs
+    flops = 5 * 2 * hd * bh * _attn_pairs(sq, skv, causal)
     peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else TF32_FLOPS_PER_S
     b, by = bound_ms(nbytes, flops, peak)
-    q4, k4, v4 = (t.view(bh // heads, heads, s, hd).detach()
-                  .requires_grad_(True) for t in (q, k, v))
-    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-    do4 = do.view(bh // heads, heads, s, hd)
+    q4 = q.view(bh // heads, heads, sq, hd).detach().requires_grad_(True)
+    k4, v4 = (t.view(bh // heads, heads, skv, hd).detach()
+              .requires_grad_(True) for t in (k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+    do4 = do.view(bh // heads, heads, sq, hd)
     res = dict(
         kernel_ms=time_ms(lambda: flash.flash_attention_bwd(
-            q, k, v, o, lse, do, True)),
+            q, k, v, o, lse, do, causal)),
         route=flash.last_route["bwd"],
         plain_ms=time_ms(lambda: ref.flash_attention_bwd(
-            q, k, v, o, lse, do, True), warmup=1, reps=5),
+            q, k, v, o, lse, do, causal), warmup=1, reps=5),
         library_ms=time_ms(lambda: torch.autograd.grad(
             out, (q4, k4, v4), do4, retain_graph=True)),
-        library_note="the backward alone of scaled_dot_product_attention("
-                     "is_causal=True): autograd.grad after one forward",
+        library_note=f"the backward alone of scaled_dot_product_attention("
+                     f"is_causal={causal}): autograd.grad after one forward",
         bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
-        shape=[bh, s, hd], dtype=str(q.dtype))
+        shape=[bh, sq, skv, hd], causal=causal, dtype=str(q.dtype))
     del out
     return _rates(res)
 
@@ -3708,6 +3824,497 @@ def phase_train_ssm(seed: int) -> dict:
                 k6b_h_launches=launches_h["ssd_intra_chunk_bwd"])
 
 
+class _Routes:
+    """While entered, records the experts (``eidx``) and kept masks of
+    every ``moe_route`` call on a sequence of ``seq`` tokens (a prefill's
+    or a training forward's; decode steps pass), in call order. With
+    ``replay`` (another run's recorded experts, in the same order) each
+    call routes to the recorded experts instead, and the (layer, token)
+    rows where its own choice differed are counted, each with the gap
+    between its own probability and the replayed expert's."""
+
+    def __init__(self, seq=None, replay=None):
+        self.seq, self.replay = seq, replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig = moe, moe.moe_route
+        self.eidx, self.keep, self.flips, self.gap = [], [], 0, 0.0
+        moe.moe_route = self._call
+        return self
+
+    def _call(self, x, router, **kw):
+        r = self.orig(x, router, **kw)
+        if self.seq is not None and x.shape[1] != self.seq:
+            return r
+        if self.replay is not None:
+            want = self.replay[len(self.eidx)]
+            rows = (want != r.eidx).any(-1)
+            if bool(rows.any()):
+                probs = r.probs[rows]
+                own = probs.gather(-1, r.eidx[rows]).min(-1).values
+                theirs = probs.gather(-1, want[rows]).min(-1).values
+                self.flips += int(rows.sum())
+                self.gap = max(self.gap, float((own - theirs).max()))
+            r = self.orig(x, router, eidx=want, **kw)
+        self.eidx.append(r.eidx.clone())
+        self.keep.append(r.keep.clone())
+        return r
+
+    def __exit__(self, *exc):
+        self.moe.moe_route = self.orig
+
+    def kept_share(self) -> float:
+        return (sum(int(k.sum()) for k in self.keep)
+                / sum(k.numel() for k in self.keep))
+
+    def agreement(self, other) -> float:
+        """The share of (layer, token, choice) routes equal in two runs."""
+        same = sum(int((a == b).sum()) for a, b in zip(self.eidx, other.eidx))
+        return same / sum(a.numel() for a in self.eidx)
+
+
+def _nudged_logits(lm, params, prompts, g, img=None,
+                   routes=None) -> "torch.Tensor":
+    """The last position's logits of a plain-path prefill whose embedding
+    is nudged by one bf16 step on 1e-4 of its entries: the model's own
+    bf16 sensitivity. With ``routes`` it is routed to those experts, and
+    the largest gap between its own choice's probability and the
+    replayed expert's comes with the logits."""
+    import torch
+    from repro_torch.models.model import block_apply_full
+
+    B, S = prompts.shape
+    x = params["embed"][prompts]
+    hit = torch.rand(x.shape, generator=g, device=x.device) < 1e-4
+    x = torch.where(hit, (x.float() * (1 + 2**-7)).to(x.dtype), x)
+    ctx = lm.context(params, B, S, img=img, force="ref")
+    with _Routes(seq=S, replay=routes) as rt:
+        for _, _, kind, p in lm.blocks(params):
+            x, _, _ = block_apply_full(kind, p, x, ctx, want_cache=False)
+    return lm.head(params, x[:, -1:])[:, 0].float(), rt.gap
+
+
+def _serve_family(lm, params, prompts, steps: int, g, attn_layers: int,
+                  img=None, cross_layers: int = 0) -> dict:
+    """``Engine.generate`` of ``prompts`` and ``steps`` new tokens on the
+    kernel path (launch counts set to 0 before and read after: K4 once an
+    attention layer, cross attention included, and ``cross_layers`` of
+    those launches from not-causal calls, counted apart) and on the plain
+    path; the greedy tokens as in the ``lm`` phase. K4 is held to its
+    plain version at the first attention layer's captured inputs (and
+    the first cross-attention layer's): that is the kernel's gate. The
+    prefill logits must agree within LM_LOGIT_TOL of the largest logit
+    or within twice the largest difference that TRAIN_SSM_NUDGES nudged
+    embeddings make on the plain path. With experts, a route may go the
+    other way on the two paths and change a token's output wholly, and
+    the model (random weights) carries such a flip to every later token;
+    so that comparison is made between the kernel path's prefill and a
+    plain prefill routed as the kernel path routed, the nudged ones
+    routed so too. Each replayed flip is counted, and its lead (the
+    plain path's own choice's probability over the replayed expert's)
+    must be at most LM_LOGIT_TOL or at most twice the largest lead that
+    a nudged prefill's own choices take over the replayed experts: no
+    larger than the model's own bf16 sensitivity. On random weights that
+    sensitivity can be large (phi3.5-moe's, PERF.md §6), and then this
+    model-level comparison says little of the kernel. Printed beside it:
+    the kept share of the kernel path's prefill routes and the share of
+    (layer, token, choice) routes on which the two paths' own prefills
+    agree."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Engine
+
+    B, P = prompts.shape
+    max_len = P + steps
+    with _Capture() as cap:  # also the warm-up
+        lm.prefill(params, prompts, img, cache_len=max_len)
+    torch.cuda.synchronize()
+    fa, fkw = cap.args["flash_attention_fwd"]
+    checks = [_check_flash(*fa, fkw["causal"], "first attention layer")]
+    cross = cap.args.get("flash_attention_fwd@full")
+    if cross is not None:
+        checks.append(_check_flash(*cross[0], False,
+                                   "first cross-attention layer"))
+    del cap
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with _Routes(seq=P) as rk, _NonCausal() as nc:
+        eng = Engine(lm, params, max_len)
+        tok, lg = eng.generate(prompts, steps, img, return_logits=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention_fwd"] == attn_layers,
+          f"K4 launched {launches['flash_attention_fwd']} times in generate, "
+          f"expected {attn_layers}")
+    want_nc = dict(flash_attention_fwd=cross_layers, flash_attention_bwd=0)
+    check(nc.counts == want_nc, f"not-causal K4/K5 launches in generate "
+                                f"{nc.counts}, expected {want_nc}")
+    check(tok.shape == (B, steps) and bool(torch.isfinite(lg).all()),
+          "generate gave tokens of another shape or non-finite logits")
+    with _Routes(seq=P) as rr:
+        eng_r = Engine(lm, params, max_len, force="ref")
+        tok_r, lg_r = eng_r.generate(prompts, steps, img, return_logits=True)
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == launches, "the plain path launched a kernel")
+    d0 = float((lg[:, 0].float() - lg_r[:, 0].float()).abs().max())
+    first, rows_equal = _first_divergence(tok, tok_r, lg, lg_r, d0)
+    routes = rk.eidx or None
+    lg_h = lg_r[:, 0].float()
+    with _Routes(seq=P, replay=routes) as rh:  # routed as the kernel path
+        if routes is not None:
+            lg_h = lm.prefill(params, prompts, img, force="ref")[0].float()
+    d_held = float((lg[:, 0].float() - lg_h).abs().max())
+    scale = float(lg_h.abs().max())
+    nudges, nudge_gaps = [], []
+    for _ in range(TRAIN_SSM_NUDGES):
+        lg_n, gap_n = _nudged_logits(lm, params, prompts, g, img, routes)
+        nudges.append(float((lg_n - lg_h).abs().max()))
+        nudge_gaps.append(gap_n)
+    check(rh.gap <= max(LM_LOGIT_TOL, 2 * max(nudge_gaps)),
+          f"a replayed route's lead {rh.gap} (the plain path's own "
+          f"choice's probability over the replayed expert's) is over "
+          f"{LM_LOGIT_TOL} and twice the nudges' {max(nudge_gaps)}")
+    check(d_held <= max(LM_LOGIT_TOL * scale, 2 * max(nudges)),
+          f"prefill logits differ by {d_held}: over {LM_LOGIT_TOL} x "
+          f"{scale} and over twice the plain path's noise floor "
+          f"{max(nudges)}")
+    dec = eng.timings["decode_steps"]
+    out = dict(
+        batch=B, prompt=P, new_tokens=steps, params=lm.param_count(),
+        active_params=lm.active_param_count(),
+        prefill_s=eng.timings["prefill_s"],
+        prompt_tokens_per_s=B * P / eng.timings["prefill_s"],
+        decode_ms_per_token=eng.timings["decode_s"] / dec * 1e3,
+        peak_device_bytes=peak, launches=launches,
+        launches_not_causal=nc.counts,
+        plain=dict(prefill_s=eng_r.timings["prefill_s"],
+                   decode_ms_per_token=eng_r.timings["decode_s"] / dec
+                   * 1e3),
+        prefill_logit_max_abs_diff=d0,
+        held_prefill_logit_max_abs_diff=d_held,
+        held_prefill_logit_max_abs=scale,
+        nudged_plain_logit_max_abs_diffs=nudges,
+        requests_with_equal_tokens=rows_equal, first_divergent_step=first,
+        checks=checks)
+    if rk.eidx:
+        check(len(rk.eidx) == len(rr.eidx), "the paths routed other layers")
+        out.update(moe_layers=len(rk.eidx), kept_share=rk.kept_share(),
+                   plain_kept_share=rr.kept_share(),
+                   route_agreement=rk.agreement(rr),
+                   replayed_route_flips=rh.flips,
+                   replayed_route_max_gap=rh.gap,
+                   nudged_replayed_route_max_gaps=nudge_gaps)
+    return dict(line=out, fa=(fa, fkw["causal"]),
+                cross=None if cross is None else cross[0])
+
+
+def _moe_f32_check(lm, params, tokens) -> dict:
+    """``_train_f32_check`` for a MoE model: the plain path replays the
+    kernel path's routes (a near-tie may go the other way under f32
+    rounding; such flips are counted, and each must be a near-tie), and
+    neither checkpoints its blocks, so each layer routes once."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_leaves, tree_map
+
+    lm32 = LM(dataclasses.replace(lm.cfg, dtype="float32"))
+    out, routes = {}, None
+    for force in (None, "ref"):
+        p32 = tree_map(lambda t: t.detach().float().requires_grad_(True),
+                       params)
+        with _Routes(replay=routes) as rt:
+            loss, m = lm32.loss(p32, tokens, remat=False, force=force)
+        grads = torch.autograd.grad(loss, tree_leaves(p32))
+        out[force] = (float(loss.detach()), float(m["aux"].detach()), grads)
+        routes = rt.eidx if routes is None else routes
+        del p32, loss
+    (lk, ak, gk), (lr, ar, gr) = out[None], out["ref"]
+    loss_rel = abs(lk - lr) / abs(lr)
+    grad_rel = max(float((a - b).norm() / (b.norm() + 1e-30))
+                   for a, b in zip(gk, gr))
+    del out, gk, gr
+    torch.cuda.empty_cache()
+    check(rt.gap <= 1e-4, f"a replayed f32 route was no near-tie: its "
+                          f"probability {rt.gap} under the plain path's own")
+    check(loss_rel <= TRAIN_F32_LOSS_TOL,
+          f"f32 step-0 loss differs by {loss_rel} relative")
+    check(grad_rel <= TRAIN_F32_GRAD_TOL,
+          f"an f32 gradient leaf differs by {grad_rel} relative L2")
+    return dict(loss=lk, loss_plain=lr, aux=ak, aux_plain=ar,
+                loss_rel_diff=loss_rel, grad_max_rel_l2_diff=grad_rel,
+                replayed_route_flips=rt.flips, replayed_route_max_gap=rt.gap)
+
+
+def phase_moe(seed: int) -> dict:
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.models.moe import capacity
+    from repro_torch.train import AdamWConfig
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    launches = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    # (a), (b) serving at full width, reduced depth
+    lines, k4 = {}, None
+    for arch, layers, batch, steps in (
+            (MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_STEPS),
+            (MAV_ARCH, MAV_LAYERS, MAV_BATCH, MAV_STEPS)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        lm = LM(cfg)
+        t0 = time.perf_counter()
+        params = lm.init(seed, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = torch.randint(0, cfg.vocab, (batch, MOE_PROMPT),
+                                generator=g, device="cuda")
+        res = _serve_family(lm, params, prompts, steps, g, layers)
+        add(res["line"]["launches"])
+        line = dict(phase="moe_serve", arch=arch, layers=layers,
+                    of_layers=get_config(arch).n_layers, plan=lm.plan,
+                    experts=cfg.n_experts, top_k=cfg.top_k,
+                    capacity_factor=cfg.capacity_factor,
+                    capacity=capacity(MOE_PROMPT, cfg.top_k,
+                                      cfg.capacity_factor, cfg.n_experts),
+                    param_bytes=sum(t.numel() * t.element_size()
+                                    for t in tree_leaves(params)),
+                    init_s=init_s, **res["line"])
+        emit(line)
+        lines[arch] = line
+        if arch == MOE_ARCH:  # K4 at phi's GQA 32/8 layer
+            k4 = _time_flash(*res["fa"][0], heads=cfg.n_heads)
+        del params, res, prompts
+        torch.cuda.empty_cache()
+
+    # (c) phi training at full width, MOE_TRAIN_LAYERS layers
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    lm = LM(cfg)
+    params = lm.init(seed, device="cuda")
+    batches = [torch.randint(0, cfg.vocab, (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ),
+                             generator=g, device="cuda")
+               for _ in range(MOE_TRAIN_STEPS)]
+    opt_cfg = AdamWConfig(total_steps=MOE_TRAIN_STEPS, warmup_steps=1)
+    with _Capture() as cap:  # also the warm-up
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, m = lm.loss(live, batches[0])
+        torch.autograd.grad(loss, tree_leaves(live))
+        aux = float(m["aux"].detach())
+        del live, loss, m
+    torch.cuda.synchronize()
+    ba, bkw = cap.args["flash_attention_bwd"]
+    del cap
+    k5_line = _check_flash_bwd(*ba, bkw["causal"], "a phi3.5-moe layer's "
+                                                   "backward")
+    with torch.no_grad():
+        aux_r = float(lm.loss(params, batches[0], force="ref")[1]["aux"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    losses = _run_steps(lm, params, batches, opt_cfg)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    train_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(gmm_update=0, pairwise_sqdist=0, center_precheck=0,
+                flash_attention_fwd=MOE_TRAIN_STEPS * 2 * MOE_TRAIN_LAYERS,
+                flash_attention_bwd=MOE_TRAIN_STEPS * MOE_TRAIN_LAYERS,
+                ssd_intra_chunk=0, ssd_intra_chunk_bwd=0)
+    check(train_launches == want,
+          f"moe train launches {train_launches}, expected {want}")
+    add(train_launches)
+    check(all(map(math.isfinite, losses)) and aux > 0,
+          f"losses {losses}, aux {aux}")
+    losses_r = _run_steps(lm, params, batches, opt_cfg, force="ref")
+    losses_n = [_run_steps(lm, _nudged(params, g), batches, opt_cfg,
+                           force="ref") for _ in range(TRAIN_SSM_NUDGES)]
+    diffs, floors, limits = _loss_rule(losses, losses_r, losses_n)
+    del params, batches
+    torch.cuda.empty_cache()
+    cfg1 = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS)
+    lm1 = LM(cfg1)
+    params1 = lm1.init(seed, device="cuda")
+    tok1 = torch.randint(0, cfg.vocab, (1, MOE_F32_SEQ), generator=g,
+                         device="cuda")
+    f32 = _moe_f32_check(lm1, params1, tok1)
+    del params1
+    torch.cuda.empty_cache()
+    emit(dict(phase="moe_train", arch=MOE_ARCH, layers=MOE_TRAIN_LAYERS,
+              batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
+              steps=MOE_TRAIN_STEPS, params=lm.param_count(),
+              run_s=run_s, step_s=run_s / MOE_TRAIN_STEPS,
+              peak_device_bytes=peak, launches=train_launches,
+              losses=losses, plain_losses=losses_r,
+              nudged_plain_losses=losses_n, loss_abs_diffs=diffs,
+              nudge_abs_diffs=floors, loss_abs_diff_limits=limits,
+              aux_step0=aux, aux_step0_plain=aux_r, k5_check=k5_line,
+              f32=dict(f32, layers=MOE_F32_LAYERS, seq=MOE_F32_SEQ)))
+    k5 = _time_flash_bwd(*ba, cfg.n_heads, bkw["causal"])
+    emit(dict(phase="moe_timing", flash_attention_fwd_phi=k4,
+              flash_attention_bwd_phi=k5))
+    del ba
+    torch.cuda.empty_cache()
+    return dict(launches=launches, k4=k4, k5=k5,
+                k4_err=lines[MOE_ARCH]["checks"][0]["max_abs_err"],
+                k5_err=k5_line["max_abs_err"],
+                k4_launches=lines[MOE_ARCH]["launches"]["flash_attention_fwd"],
+                k5_launches=train_launches["flash_attention_bwd"])
+
+
+def _grads(lm, params, tokens, img, force=None) -> tuple:
+    """(loss, gradient leaves) of one forward and backward."""
+    import torch
+    from repro_torch.models.model import tree_leaves, tree_map
+
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = lm.loss(live, tokens, img, force=force)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    return float(loss.detach()), grads
+
+
+def phase_vlm(seed: int) -> dict:
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_leaves
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    full = get_config(VLM_ARCH)
+    e = full.cross_attn_every
+
+    # (a) serving, VLM_SUPERS super blocks, the image embeddings seeded
+    cfg = dataclasses.replace(full, n_layers=VLM_SUPERS * e)
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab, (VLM_BATCH, VLM_PROMPT),
+                            generator=g, device="cuda")
+    img = (torch.randn(VLM_BATCH, cfg.n_img_tokens, cfg.d_model, generator=g,
+                       device="cuda") * 0.1).to(lm.dtype)
+    res = _serve_family(lm, params, prompts, VLM_STEPS, g, cfg.n_layers, img,
+                        cross_layers=VLM_SUPERS)
+    serve_launches = res["line"]["launches"]
+    serve_nc = res["line"]["launches_not_causal"]
+    emit(dict(phase="vlm_serve", arch=VLM_ARCH, layers=cfg.n_layers,
+              of_layers=full.n_layers, supers=VLM_SUPERS,
+              n_img_tokens=cfg.n_img_tokens,
+              param_bytes=sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params)),
+              init_s=init_s, **res["line"]))
+    k4_err = res["line"]["checks"][-1]["max_abs_err"]
+    k4 = _time_flash(*res["cross"], heads=cfg.n_heads, causal=False)
+    del params, res, prompts, img
+    torch.cuda.empty_cache()
+
+    # (b) training, VLM_TRAIN_SUPERS super block: loss and every gradient
+    # leaf on the kernel path against the plain path, each leaf's
+    # difference within twice the largest that a nudged embedding makes
+    cfg = dataclasses.replace(full, n_layers=VLM_TRAIN_SUPERS * e)
+    lm = LM(cfg)
+    params = lm.init(seed, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (VLM_TRAIN_BATCH, VLM_TRAIN_SEQ),
+                           generator=g, device="cuda")
+    img = (torch.randn(VLM_TRAIN_BATCH, cfg.n_img_tokens, cfg.d_model,
+                       generator=g, device="cuda") * 0.1).to(lm.dtype)
+    with _Capture() as cap:  # also the warm-up
+        _grads(lm, params, tokens, img)
+    torch.cuda.synchronize()
+    ba = cap.args["flash_attention_bwd@full"][0]
+    del cap
+    k5_line = _check_flash_bwd(*ba, False, "a cross-attention layer's "
+                                           "backward")
+    loss_r, g_r = _grads(lm, params, tokens, img, force="ref")
+    floors = [0.0] * len(g_r)
+    loss_n = []
+    for _ in range(TRAIN_SSM_NUDGES):
+        ln, g_n = _grads(lm, _nudged(params, g), tokens, img, force="ref")
+        loss_n.append(ln)
+        floors = [max(f, float((a.float() - b.float()).norm()))
+                  for f, a, b in zip(floors, g_n, g_r)]
+        del g_n
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with _NonCausal() as nc:
+        loss_k, g_k = _grads(lm, params, tokens, img)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    train_launches = ops.launch_counts()
+    train_nc = nc.counts
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(gmm_update=0, pairwise_sqdist=0, center_precheck=0,
+                flash_attention_fwd=2 * cfg.n_layers,
+                flash_attention_bwd=cfg.n_layers,
+                ssd_intra_chunk=0, ssd_intra_chunk_bwd=0)
+    check(train_launches == want,
+          f"vlm train launches {train_launches}, expected {want}")
+    # the cross attention's: twice in the checkpointed forward, once back
+    want_nc = dict(flash_attention_fwd=2 * VLM_TRAIN_SUPERS,
+                   flash_attention_bwd=VLM_TRAIN_SUPERS)
+    check(train_nc == want_nc, f"not-causal K4/K5 launches in training "
+                               f"{train_nc}, expected {want_nc}")
+    diffs = [float((a.float() - b.float()).norm()) for a, b in zip(g_k, g_r)]
+    norms = [float(b.float().norm()) for b in g_r]
+    del g_k, g_r
+    torch.cuda.empty_cache()
+    worst = max(range(len(diffs)),
+                key=lambda i: diffs[i] / (2 * floors[i] + 1e-30))
+    loss_floor = max(abs(x - loss_r) for x in loss_n)
+    check(abs(loss_k - loss_r) <= 2 * loss_floor,
+          f"vlm loss differs by {abs(loss_k - loss_r)}, over twice the "
+          f"nudge's {loss_floor}")
+    check(all(d <= 2 * f for d, f in zip(diffs, floors)),
+          f"vlm gradient leaf {worst} differs by {diffs[worst]}, over twice "
+          f"the nudge's {floors[worst]}")
+    emit(dict(phase="vlm_train", arch=VLM_ARCH, layers=cfg.n_layers,
+              supers=VLM_TRAIN_SUPERS, batch=VLM_TRAIN_BATCH,
+              seq=VLM_TRAIN_SEQ, params=lm.param_count(), fwd_bwd_s=step_s,
+              peak_device_bytes=peak, launches=train_launches,
+              launches_not_causal=train_nc, loss=loss_k,
+              plain_loss=loss_r, nudged_plain_losses=loss_n,
+              grad_leaves=len(diffs),
+              grad_rel_l2_diff_max=max(d / (n + 1e-30)
+                                       for d, n in zip(diffs, norms)),
+              grad_diff_over_nudge_max=diffs[worst] / (floors[worst]
+                                                       + 1e-30),
+              k5_check=k5_line))
+    k5 = _time_flash_bwd(*ba, cfg.n_heads, False)
+    emit(dict(phase="vlm_timing", flash_attention_fwd_cross=k4,
+              flash_attention_bwd_cross=k5))
+    del params, ba
+    torch.cuda.empty_cache()
+    launches = {name: serve_launches[name] + train_launches[name]
+                for name in serve_launches}
+    # K4 and K5 at the cross-attention shape: the not-causal launches
+    # counted in the two runs
+    return dict(launches=launches, k4=k4, k5=k5, k4_err=k4_err,
+                k5_err=k5_line["max_abs_err"],
+                k4_launches=(serve_nc["flash_attention_fwd"]
+                             + train_nc["flash_attention_fwd"]),
+                k5_launches=(serve_nc["flash_attention_bwd"]
+                             + train_nc["flash_attention_bwd"]))
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3751,6 +4358,10 @@ def main() -> int:
     train = phase_train(args.seed)
     torch.cuda.empty_cache()
     train_ssm = phase_train_ssm(args.seed)
+    torch.cuda.empty_cache()
+    moe = phase_moe(args.seed)
+    torch.cuda.empty_cache()
+    vlm = phase_vlm(args.seed)
 
     # launches: the sum over the main paths, each read around its own run
     # (per path beside it)
@@ -3762,7 +4373,9 @@ def main() -> int:
                            mapreduce=mr["launches"][name],
                            lm=lm["launches"][name],
                            train=train["launches"][name],
-                           train_ssm=train_ssm["launches"][name])
+                           train_ssm=train_ssm["launches"][name],
+                           moe=moe["launches"][name],
+                           vlm=vlm["launches"][name])
                 for name in launches}
     total = {name: sum(v.values()) for name, v in per_path.items()}
     for name, n in total.items():
@@ -3823,6 +4436,42 @@ def main() -> int:
              bound_ms=train["k5"]["bound_ms"],
              bound_by=train["k5"]["bound_by"],
              library_ms=train["k5"]["library_ms"]),
+        # K4 and K5 at the moe and vlm shapes: their launches are part of
+        # the moe and vlm counts above
+        dict(name="flash_attention_fwd_gqa", route="cuda",
+             source=f"{csrc}/csrc/flash_fwd.cu",
+             replaces="src/repro/kernels/flash.py:75",
+             launches=moe["k4_launches"], max_abs_err=moe["k4_err"],
+             ms=moe["k4"]["kernel_ms"], plain_ms=moe["k4"]["plain_ms"],
+             bound_ms=moe["k4"]["bound_ms"], bound_by=moe["k4"]["bound_by"],
+             library_ms=moe["k4"]["library_ms"], shape=moe["k4"]["shape"],
+             note="phi3.5-moe's self-attention (GQA 32/8, hd 128), causal"),
+        dict(name="flash_attention_fwd_cross", route="cuda",
+             source=f"{csrc}/csrc/flash_fwd.cu",
+             replaces="src/repro/kernels/flash.py:75",
+             launches=vlm["k4_launches"], max_abs_err=vlm["k4_err"],
+             ms=vlm["k4"]["kernel_ms"], plain_ms=vlm["k4"]["plain_ms"],
+             bound_ms=vlm["k4"]["bound_ms"], bound_by=vlm["k4"]["bound_by"],
+             library_ms=vlm["k4"]["library_ms"], shape=vlm["k4"]["shape"],
+             note="llama-3.2-vision's cross attention over 1,024 image "
+                  "tokens, not causal"),
+        dict(name="flash_attention_bwd_gqa", route="cuda",
+             source=f"{csrc}/csrc/flash_bwd.cu",
+             replaces="src/repro/kernels/flash.py:219",
+             launches=moe["k5_launches"], max_abs_err=moe["k5_err"],
+             ms=moe["k5"]["kernel_ms"], plain_ms=moe["k5"]["plain_ms"],
+             bound_ms=moe["k5"]["bound_ms"], bound_by=moe["k5"]["bound_by"],
+             library_ms=moe["k5"]["library_ms"], shape=moe["k5"]["shape"],
+             note="phi3.5-moe's training layer, causal"),
+        dict(name="flash_attention_bwd_cross", route="cuda",
+             source=f"{csrc}/csrc/flash_bwd.cu",
+             replaces="src/repro/kernels/flash.py:219",
+             launches=vlm["k5_launches"], max_abs_err=vlm["k5_err"],
+             ms=vlm["k5"]["kernel_ms"], plain_ms=vlm["k5"]["plain_ms"],
+             bound_ms=vlm["k5"]["bound_ms"], bound_by=vlm["k5"]["bound_by"],
+             library_ms=vlm["k5"]["library_ms"], shape=vlm["k5"]["shape"],
+             note="llama-3.2-vision's cross attention, training, not "
+                  "causal"),
         dict(name="ssd_intra_chunk", route="cuda",
              source=f"{csrc}/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd.py:53",

@@ -4,6 +4,8 @@
         --steps 200 --batch 16 --seq 2048 --ckpt-dir ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \
         --device cpu --steps 20 --batch 8 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch phi3.5-moe-42b-a6.6b --reduced --device cpu --steps 20
 
 Reference: ``repro/launch/train.py`` (``main`` :56). The contract is the
 reference's:
@@ -21,6 +23,13 @@ SeqCoreset on K2 (``data/pipeline.py``). One device: the reference's
 (``repro/models/sharding.py`` ``param_specs``), which waits for a model
 sharded across cards (ROADMAP.md step 13.5); they are left out rather
 than accepted and ignored.
+
+Every text family trains here (dense, audio, moe, ssm, hybrid); the loss
+adds 0.01 times the MoE load-balancing aux. A vlm (``llama-3.2-vision-
+90b``) is refused: the data pipeline makes token batches only, and its
+loss needs image embeddings beside them (``LM.loss(params, tokens, img)``
+and ``make_train_step``'s ``{"tokens", "img"}`` batches train it from
+Python).
 
 ``main(argv)`` returns the losses of the steps it ran, so a caller can
 drive it in process; ``after_step(n)``, if given, is called after step n
@@ -78,6 +87,11 @@ def main(argv=None, *,
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "vlm":
+        raise ValueError(
+            f"--arch {args.arch} is a vlm: its loss needs image embeddings, "
+            f"and the data pipeline makes token batches only; train it from "
+            f"Python with make_train_step and {{'tokens', 'img'}} batches")
     lm = LM(cfg)
     print(f"[train] {cfg.name}: {lm.param_count():,} params "
           f"({'reduced' if args.reduced else 'full'}) on {dev}", flush=True)

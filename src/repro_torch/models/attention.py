@@ -51,8 +51,10 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _heads_first(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B * H, S, hd), contiguous as the kernels take it
+    (at B = 1 the reshape alone is a strided view)."""
     B, S, H, hd = t.shape
-    return t.transpose(1, 2).reshape(B * H, S, hd)
+    return t.transpose(1, 2).reshape(B * H, S, hd).contiguous()
 
 
 def _repeat_heads(t: torch.Tensor, rep: int) -> torch.Tensor:

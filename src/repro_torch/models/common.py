@@ -12,8 +12,9 @@ reference leaves them to XLA.
 Parameters are described before they exist: an ``*_init`` returns a tree
 of ``Init`` specs (shape, dtype, distribution), which ``LM.init`` draws
 from a ``torch.Generator`` and ``LM.param_count`` sums without
-allocating. ``blockwise_attention_ref`` (the reference's autodiff oracle)
-is not ported: the plain path of K4 is ``force="ref"``.
+allocating. ``blockwise_attention_ref`` is the reference's autodiff
+oracle (:73), K4's plain version under autograd; the plain path of K4
+inside the model is ``force="ref"``.
 """
 from __future__ import annotations
 
@@ -99,6 +100,38 @@ def blockwise_attention(
     from .attention import flash_attention
 
     return flash_attention(q, k, v, causal=causal, force=force)
+
+
+def blockwise_attention_ref(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, KV, hd)
+    v: torch.Tensor,  # (B, Skv, KV, hd)
+    *,
+    causal: bool,
+    q_offset: int = 0,
+    q_block: int = 512,
+    kv_block: int = 1024,
+    skip_masked_blocks: bool = False,
+) -> torch.Tensor:
+    """The reference's autodiff oracle over K4's plain version
+    (``kernels/ref.py``), differentiated by autograd: the kv heads
+    repeated for GQA, query i at position ``q_offset + i`` (the queries
+    padded in front by ``q_offset`` rows, dropped after). With a bf16 v,
+    P is rounded to bf16 before P V, as the reference casts it to v's
+    dtype. The block sizes and ``skip_masked_blocks`` change no value
+    but rounding and are taken for the reference's signature."""
+    from ..kernels import ref
+
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    pad = q_offset if causal else 0
+    qh = F.pad(q, (0, 0, 0, 0, pad, 0)).transpose(1, 2).reshape(
+        B * H, Sq + pad, hd)
+    kh, vh = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).reshape(
+        B * H, Skv, hd) for t in (k, v))
+    o, _ = ref.flash_attention_fwd(qh, kh, vh, causal=causal,
+                                   bf16_p=v.dtype == torch.bfloat16)
+    return o.reshape(B, H, Sq + pad, hd)[:, :, pad:].transpose(1, 2)
 
 
 def decode_attention(

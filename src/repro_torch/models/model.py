@@ -1,9 +1,9 @@
-"""LM assembly for the dense, ssm and hybrid families, and their training
-loss.
+"""LM assembly for every family of the reference (dense, audio, moe, ssm,
+hybrid, vlm), and their training loss.
 
 Reference: ``repro/models/model.py`` (``layer_plan`` :50, ``block_init``
-:114, ``block_apply_full`` :227, ``block_apply_decode`` :311, ``LM`` :341,
-``LM.loss`` :431).
+:106, ``block_apply_full`` :205, ``block_apply_decode`` :293, ``LM`` :339,
+``LM.loss`` :431, ``init_caches`` :517, ``active_param_count`` :588).
 A model is a sequence of segments; each segment is ``count`` identical
 blocks whose parameters are stacked on a leading axis, exactly the
 reference's parameter tree (so ``convert.lm_params_from_arrays`` carries a
@@ -11,30 +11,40 @@ JAX tree across leaf by leaf). The reference's ``lax.scan`` and
 ``fori_loop`` over a segment become Python loops over its blocks, and
 the reference's ``jax.checkpoint(body)`` per block (:413-414) is
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per block
-when ``forward(remat=True)`` runs under grad mode.
+when ``forward(remat=True)`` runs under grad mode; the checkpointed
+function returns the block's aux with its output, so remat changes no
+loss.
 
-Training: ``LM.loss`` is differentiable for the dense (and audio), ssm
-and hybrid families. Their kernels sit behind ``torch.autograd.Function``s:
-K4 with its backward K5 (``attention.FlashAttention``), K6 with its
-backward K6b (``mamba.SSDIntraChunk``). The hybrid family's shared
-attention block is one set of weights used once a super block; autograd
-sums its gradient over the uses, as ``jax.grad`` does through the
-reference's ``lax.scan``. moe and vlm are not ported, and their ``loss``
-raises (ROADMAP.md steps 13.3 and 13.4).
+Training: ``LM.loss`` is differentiable for every family. The kernels sit
+behind ``torch.autograd.Function``s: K4 with its backward K5
+(``attention.FlashAttention``, causal self-attention and the vlm's
+non-causal cross attention), K6 with its backward K6b
+(``mamba.SSDIntraChunk``). The MoE dispatch (``moe.moe_apply``) is plain
+torch, differentiated by autograd. The hybrid family's shared attention
+block is one set of weights used once a super block; autograd sums its
+gradient over the uses, as ``jax.grad`` does through the reference's
+``lax.scan``. The loss is the cross-entropy plus 0.01 times the sum of the
+MoE blocks' load-balancing aux.
 
 Families -> layer plans:
   dense/audio   [("dense", L)]
+  moe           [("moe", L)] or [("moe_pair", L/2)] (interleaved, llama4)
   ssm           [("mamba", L)]
   hybrid        [("zamba_super", L//e), ("mamba", L%e)]   e = shared_attn_every
                 (each super = e mamba blocks + ONE shared attn block)
-  moe, vlm      planned as in the reference; their blocks raise
-                NotImplementedError (ROADMAP.md steps 13.3, 13.4)
+  vlm           [("vlm_super", L//e)]                      e = cross_attn_every
+                (each super = e-1 self-attn blocks + 1 cross-attn block
+                 attending to the image embeddings ``img``,
+                 (B, n_img_tokens, d))
 
 Caches: ``forward(want_caches=True)`` allocates them once (``init_caches``,
 at ``cache_len`` positions, so a server can prefill straight into caches
 of its full length) and fills them block by block; ``decode_step`` updates
-them in place and returns the same tensors. ``models/sharding.constrain``
-is the identity on one device and has no counterpart here.
+them in place and returns the same tensors. A vlm's cross-attention cache
+holds the image's ``n_img_tokens`` keys whatever the cache length, and
+an image of another length is refused.
+``models/sharding.constrain`` is the identity on one device and has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -61,21 +71,9 @@ from .common import (
     rope,
 )
 from .mamba import mamba_apply, mamba_decode, mamba_dims, mamba_init
+from .moe import moe_apply, moe_init
 
 Params = Any
-
-_NOT_PORTED = {
-    "moe": "ROADMAP.md step 13.3 (models/moe.py)",
-    "moe_pair": "ROADMAP.md step 13.3 (models/moe.py)",
-    "vlm_super": "ROADMAP.md step 13.4 (the VLM family)",
-}
-
-# families whose loss has a backward path in the port
-_TRAINABLE = ("dense", "audio", "ssm", "hybrid")
-_NO_BACKWARD = {
-    "moe": "ROADMAP.md step 13.3 (models/moe.py)",
-    "vlm": "ROADMAP.md step 13.4 (the VLM family)",
-}
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -103,11 +101,6 @@ def layer_plan(cfg: ArchConfig) -> list[tuple[str, int]]:
         assert cfg.n_layers % e == 0
         return [("vlm_super", cfg.n_layers // e)]
     raise ValueError(cfg.family)
-
-
-def _not_ported(kind: str):
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
 
 
 # --------------------------------------------------------------------------
@@ -142,13 +135,14 @@ def _index(tree, i: int):
 
 
 def _write(dst, src) -> None:
-    """Copy a block's cache into its slot; attention caches may be longer
-    than the block's sequence (positions past it stay as they are)."""
+    """Copy a block's cache into its slot; self-attention caches (..., S,
+    KV, hd) may be longer than the block's sequence (positions past it
+    stay as they are)."""
     def put(d, s):
         if d is s:
             return
         if d.shape != s.shape:
-            d = d[:, :s.shape[1]]
+            d = d[..., :s.shape[-3], :, :]
         d.copy_(s)
 
     _map(put, dst, src)
@@ -194,6 +188,15 @@ def _dense_block_init(cfg: ArchConfig, dtype):
     }
 
 
+def _moe_block_init(cfg: ArchConfig, dtype):
+    return {
+        "ln1": ones((cfg.d_model,), dtype),
+        "attn": attn_init(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, dtype),
+        "ln2": ones((cfg.d_model,), dtype),
+        "moe": moe_init(cfg.d_model, cfg.d_ff, cfg.n_experts, dtype),
+    }
+
+
 def _mamba_block_init(cfg: ArchConfig, dtype):
     return {
         "ln": ones((cfg.d_model,), dtype),
@@ -205,13 +208,20 @@ def block_init(kind: str, cfg: ArchConfig, dtype):
     """The parameter specs of one block of ``kind``."""
     if kind == "dense":
         return _dense_block_init(cfg, dtype)
+    if kind == "moe":
+        return _moe_block_init(cfg, dtype)
+    if kind == "moe_pair":
+        return {"dense": _dense_block_init(cfg, dtype),
+                "moe": _moe_block_init(cfg, dtype)}
     if kind == "mamba":
         return _mamba_block_init(cfg, dtype)
     if kind == "zamba_super":
         return {"mamba": _stack(_mamba_block_init(cfg, dtype),
                                 cfg.shared_attn_every)}
-    if kind in _NOT_PORTED:
-        raise _not_ported(kind)
+    if kind == "vlm_super":
+        return {"dense": _stack(_dense_block_init(cfg, dtype),
+                                cfg.cross_attn_every - 1),
+                "cross": _dense_block_init(cfg, dtype)}
     raise ValueError(kind)
 
 
@@ -232,42 +242,97 @@ def _self_attn_full(p, x, positions, cfg: ArchConfig, want_cache, force):
     return x, cache
 
 
+def _cross_attn_full(p, x, img, cfg: ArchConfig, want_cache, force):
+    """Text queries against the image embeddings: q from the normed text,
+    k and v from the raw ``img``, no RoPE, no mask (K4 non-causal)."""
+    h = rms_norm(x, p["ln1"])
+    B, S, _ = x.shape
+    q = (h @ p["attn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    ni = img.shape[1]
+    k = (img @ p["attn"]["wk"]).reshape(B, ni, cfg.n_kv, cfg.hd)
+    v = (img @ p["attn"]["wv"]).reshape(B, ni, cfg.n_kv, cfg.hd)
+    cache = (k, v) if want_cache else None
+    o = blockwise_attention(q, k, v, causal=False, force=force)
+    x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+    return x, cache
+
+
 def _mlp_sub(p, x, cfg: ArchConfig):
     return x + mlp_apply(rms_norm(x, p["ln2"]), p["mlp"], cfg.mlp)
 
 
+def _moe_sub(p, x, cfg: ArchConfig):
+    y, aux = moe_apply(rms_norm(x, p["ln2"]), p["moe"], top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor)
+    return x + y, aux
+
+
+def _add(a, b):
+    """The sum of two aux terms, either of which may be None (none)."""
+    if a is None:
+        return b
+    return a if b is None else a + b
+
+
+def _stacked(caches):
+    return tuple(torch.stack(parts) for parts in zip(*caches))
+
+
 def block_apply_full(kind, p, x, ctx, *, want_cache: bool):
-    """Returns (x, cache). ctx: dict(cfg, positions, shared, force)."""
+    """Returns (x, aux, cache); aux is the block's MoE load-balancing term
+    (0-d f32), or None for a block without experts. ctx: dict(cfg,
+    positions, img, shared, force)."""
     cfg: ArchConfig = ctx["cfg"]
-    if kind == "dense":
+    if kind in ("dense", "moe"):
         x, cache = _self_attn_full(p, x, ctx["positions"], cfg, want_cache,
                                    ctx["force"])
-        return _mlp_sub(p, x, cfg), cache
+        if kind == "dense":
+            return _mlp_sub(p, x, cfg), None, cache
+        x, aux = _moe_sub(p, x, cfg)
+        return x, aux, cache
+    if kind == "moe_pair":
+        x, aux1, c1 = block_apply_full("dense", p["dense"], x, ctx,
+                                       want_cache=want_cache)
+        x, aux2, c2 = block_apply_full("moe", p["moe"], x, ctx,
+                                       want_cache=want_cache)
+        cache = {"dense": c1, "moe": c2} if want_cache else None
+        return x, _add(aux1, aux2), cache
     if kind == "mamba":
         h = rms_norm(x, p["ln"])
         y, cache = mamba_apply(h, p["mamba"], cfg, chunk=cfg.ssd_chunk,
                                want_cache=want_cache, force=ctx["force"])
-        return x + y, cache
+        return x + y, None, cache
     if kind == "zamba_super":
         mcaches = []
         for i in range(cfg.shared_attn_every):
-            x, cache = block_apply_full("mamba", _index(p["mamba"], i), x,
-                                        ctx, want_cache=want_cache)
+            x, _, cache = block_apply_full("mamba", _index(p["mamba"], i), x,
+                                           ctx, want_cache=want_cache)
             mcaches.append(cache)
-        x, acache = block_apply_full("dense", ctx["shared"], x, ctx,
-                                     want_cache=want_cache)
+        x, _, acache = block_apply_full("dense", ctx["shared"], x, ctx,
+                                        want_cache=want_cache)
         if not want_cache:
-            return x, None
-        stacked = tuple(torch.stack(parts) for parts in zip(*mcaches))
-        return x, {"mamba": stacked, "attn": acache}
-    if kind in _NOT_PORTED:
-        raise _not_ported(kind)
+            return x, None, None
+        return x, None, {"mamba": _stacked(mcaches), "attn": acache}
+    if kind == "vlm_super":
+        dcaches = []
+        for i in range(cfg.cross_attn_every - 1):
+            x, _, cache = block_apply_full("dense", _index(p["dense"], i), x,
+                                           ctx, want_cache=want_cache)
+            dcaches.append(cache)
+        x, ccache = _cross_attn_full(p["cross"], x, ctx["img"], cfg,
+                                     want_cache, ctx["force"])
+        x = _mlp_sub(p["cross"], x, cfg)
+        if not want_cache:
+            return x, None, None
+        return x, None, {"dense": _stacked(dcaches), "cross": ccache}
     raise ValueError(kind)
 
 
 def _block_out(kind, p, x, ctx):
-    """One block's output alone: the function each checkpoint recomputes."""
-    return block_apply_full(kind, p, x, ctx, want_cache=False)[0]
+    """One block's output and aux: the function each checkpoint
+    recomputes."""
+    x, aux, _ = block_apply_full(kind, p, x, ctx, want_cache=False)
+    return x, aux
 
 
 # --------------------------------------------------------------------------
@@ -290,6 +355,16 @@ def _self_attn_decode(p, x, pos, cache, cfg: ArchConfig):
     return x, (kc, vc)
 
 
+def _cross_attn_decode(p, x, cache, cfg: ArchConfig):
+    kc, vc = cache  # the image's keys and values, from the prefill
+    h = rms_norm(x, p["ln1"])
+    B = x.shape[0]
+    q = (h @ p["attn"]["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+    o = decode_attention(q, kc, vc, kc.shape[1] - 1)
+    x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+    return x, (kc, vc)
+
+
 def block_apply_decode(kind, p, x, cache, ctx):
     """Returns (x, cache); attention caches are updated in place."""
     cfg: ArchConfig = ctx["cfg"]
@@ -297,6 +372,14 @@ def block_apply_decode(kind, p, x, cache, ctx):
     if kind == "dense":
         x, cache = _self_attn_decode(p, x, pos, cache, cfg)
         return _mlp_sub(p, x, cfg), cache
+    if kind == "moe":
+        x, cache = _self_attn_decode(p, x, pos, cache, cfg)
+        return _moe_sub(p, x, cfg)[0], cache
+    if kind == "moe_pair":
+        x, c1 = block_apply_decode("dense", p["dense"], x, cache["dense"],
+                                   ctx)
+        x, c2 = block_apply_decode("moe", p["moe"], x, cache["moe"], ctx)
+        return x, {"dense": c1, "moe": c2}
     if kind == "mamba":
         h = rms_norm(x, p["ln"])
         y, cache = mamba_decode(h, p["mamba"], cfg, cache)
@@ -310,8 +393,15 @@ def block_apply_decode(kind, p, x, cache, ctx):
         x, acache = block_apply_decode("dense", ctx["shared"], x,
                                        cache["attn"], ctx)
         return x, {"mamba": cache["mamba"], "attn": acache}
-    if kind in _NOT_PORTED:
-        raise _not_ported(kind)
+    if kind == "vlm_super":
+        for i in range(cfg.cross_attn_every - 1):
+            cl = _index(cache["dense"], i)
+            x, cl_new = block_apply_decode("dense", _index(p["dense"], i), x,
+                                           cl, ctx)
+            _write(cl, cl_new)
+        x, ccache = _cross_attn_decode(p["cross"], x, cache["cross"], cfg)
+        x = _mlp_sub(p["cross"], x, cfg)
+        return x, {"dense": cache["dense"], "cross": ccache}
     raise ValueError(kind)
 
 
@@ -367,6 +457,17 @@ class LM:
     def param_count(self) -> int:
         return sum(s.numel() for s in _leaves(self.param_specs()))
 
+    def active_param_count(self) -> int:
+        """MoE: parameters touched per token (6 * N_active * D accounting),
+        the reference's formula."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.n_experts:
+            return total
+        per_expert = 3 * cfg.d_model * cfg.d_ff
+        n_moe_layers = cfg.n_layers // cfg.moe_every
+        return total - (cfg.n_experts - cfg.top_k) * per_expert * n_moe_layers
+
     # ---- forward (prefill) ----
 
     def blocks(self, params: Params):
@@ -376,14 +477,35 @@ class LM:
             for i in range(count):
                 yield si, i, kind, _index(seg, i)
 
+    def _image(self, params: Params, img, batch: int):
+        """``img`` as a (batch, n_img_tokens, d_model) tensor of the model's
+        dtype on the parameters' device; a vlm needs one, other families
+        none."""
+        if self.cfg.family != "vlm":
+            return None
+        if img is None:
+            raise ValueError(
+                f"{self.cfg.name} is a vlm: pass img, the (batch, "
+                f"n_img_tokens, d_model) image embeddings")
+        img = torch.as_tensor(img, device=params["embed"].device).to(
+            self.dtype)
+        want = (batch, self.cfg.n_img_tokens, self.cfg.d_model)
+        if tuple(img.shape) != want:
+            # the image cache holds n_img_tokens keys (init_caches): a
+            # shorter image would leave zero keys for decode to attend to
+            raise ValueError(f"img of shape {tuple(img.shape)}, expected "
+                             f"{want}")
+        return img
+
     def context(self, params: Params, batch: int, seq_len: int, *,
-                force: Optional[str] = None) -> dict:
+                img=None, force: Optional[str] = None) -> dict:
         """The ``ctx`` of ``block_apply_full`` for a (batch, seq_len)
-        sequence."""
+        sequence (and, for a vlm, its image embeddings ``img``)."""
         dev = params["embed"].device
         positions = torch.arange(seq_len, dtype=torch.int32,
                                  device=dev).expand(batch, seq_len)
         return dict(cfg=self.cfg, positions=positions,
+                    img=self._image(params, img, batch),
                     shared=params.get("shared"), force=force)
 
     def head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -396,6 +518,7 @@ class LM:
         self,
         params: Params,
         tokens: torch.Tensor,  # (B, S) int
+        img: Optional[torch.Tensor] = None,  # (B, n_img_tokens, d) for a vlm
         *,
         want_caches: bool = False,
         cache_len: Optional[int] = None,
@@ -403,9 +526,10 @@ class LM:
         skip_masked: bool = False,
         force: Optional[str] = None,
     ):
-        """Returns (logits (B,S,V), aux scalar, caches list | None). With
-        ``want_caches`` only the last position's logits are made, and the
-        caches hold ``cache_len`` positions (default S). ``remat``: under
+        """Returns (logits (B,S,V), aux scalar, caches list | None); aux is
+        the sum of the MoE blocks' load-balancing terms (0 without experts).
+        With ``want_caches`` only the last position's logits are made, and
+        the self-attention caches hold ``cache_len`` positions (default S). ``remat``: under
         grad mode each block is checkpointed (its activations are
         recomputed in the backward). ``skip_masked`` is the reference's
         causal block skipping; it is accepted and changes no value: K4 and
@@ -415,41 +539,38 @@ class LM:
         tokens = torch.as_tensor(tokens, device=embed.device).long()
         B, S = tokens.shape
         x = F.embedding(tokens, embed)
-        ctx = self.context(params, B, S, force=force)
+        ctx = self.context(params, B, S, img=img, force=force)
         caches = (self.init_caches(B, cache_len or S, device=x.device)
                   if want_caches else None)
         remat = remat and not want_caches and torch.is_grad_enabled()
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, i, kind, p in self.blocks(params):
             if remat:
-                x = checkpoint(_block_out, kind, p, x, ctx,
-                               use_reentrant=False)
-                continue
-            x, cache = block_apply_full(kind, p, x, ctx,
-                                        want_cache=want_caches)
-            if want_caches:
-                _write(_index(caches[si], i), cache)
+                x, aux = checkpoint(_block_out, kind, p, x, ctx,
+                                    use_reentrant=False)
+            else:
+                x, aux, cache = block_apply_full(kind, p, x, ctx,
+                                                 want_cache=want_caches)
+                if want_caches:
+                    _write(_index(caches[si], i), cache)
+            if aux is not None:
+                aux_total = aux_total + aux
         if want_caches:
             # prefill only needs next-token logits: never make (B,S,V)
             x = x[:, -1:]
         logits = self.head(params, x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return logits, aux, caches
+        return logits, aux_total, caches
 
     # ---- losses ----
 
-    def loss(self, params: Params, tokens, *, remat: bool = True,
+    def loss(self, params: Params, tokens, img=None, *, remat: bool = True,
              skip_masked: bool = False, force: Optional[str] = None):
         """Next-token cross-entropy + 0.01 * aux, as the reference's
         ``LM.loss``: over all ``vocab_padded`` classes, the mean over
         B x (S - 1) positions, logsumexp in f32. Returns (loss, dict(ce,
         aux)), 0-d f32 tensors. ``skip_masked`` changes no value (see
         ``forward``)."""
-        fam = self.cfg.family
-        if fam not in _TRAINABLE:
-            raise NotImplementedError(
-                f"LM.loss for the {fam} family has no backward path in the "
-                f"port yet: {_NO_BACKWARD.get(fam, 'ROADMAP.md step 13')}")
-        logits, aux, _ = self.forward(params, tokens, remat=remat,
+        logits, aux, _ = self.forward(params, tokens, img, remat=remat,
                                       skip_masked=skip_masked, force=force)
         tokens = torch.as_tensor(tokens, device=logits.device).long()
         tgt = tokens[:, 1:]
@@ -461,18 +582,21 @@ class LM:
 
     # ---- serving ----
 
-    def prefill(self, params, tokens, *, cache_len: Optional[int] = None,
+    def prefill(self, params, tokens, img=None, *,
+                cache_len: Optional[int] = None,
                 force: Optional[str] = None):
         logits, _aux, caches = self.forward(
-            params, tokens, want_caches=True, cache_len=cache_len,
+            params, tokens, img, want_caches=True, cache_len=cache_len,
             force=force)
         return logits[:, -1], caches
 
-    def decode_step(self, params, token, caches, pos: int, *,
+    def decode_step(self, params, token, caches, pos: int, img=None, *,
                     force: Optional[str] = None):
         """token: (B, 1) int; pos: the write position. Returns (logits
         (B, V), caches), the caches updated in place. Nothing here runs K4
-        or K6 (decode attention and the Mamba2 step are plain torch)."""
+        or K6 (decode attention, the Mamba2 step and the MoE dispatch are
+        plain torch). ``img`` is accepted as in the reference and not read:
+        a vlm attends to the image keys and values its prefill cached."""
         embed = params["embed"]
         token = torch.as_tensor(token, device=embed.device).long()
         x = embed[token]
@@ -489,7 +613,8 @@ class LM:
     def init_caches(self, batch: int, seq_len: int, *,
                     device: DeviceLike = CUDA) -> list:
         """Zeroed caches for ``seq_len`` positions, in the reference's
-        tree, shapes and dtypes."""
+        tree, shapes and dtypes; a vlm's cross-attention cache holds
+        ``n_img_tokens`` positions."""
         dev = resolve_device(device)
         cfg = self.cfg
         d_inner, H, N = mamba_dims(cfg) if cfg.ssm_state else (0, 0, 0)
@@ -509,8 +634,11 @@ class LM:
 
         caches = []
         for kind, count in self.plan:
-            if kind == "dense":
+            if kind in ("dense", "moe"):
                 caches.append(attn_cache((count,)))
+            elif kind == "moe_pair":
+                caches.append({"dense": attn_cache((count,)),
+                               "moe": attn_cache((count,))})
             elif kind == "mamba":
                 caches.append(mamba_cache((count,)))
             elif kind == "zamba_super":
@@ -518,8 +646,12 @@ class LM:
                     "mamba": mamba_cache((count, cfg.shared_attn_every)),
                     "attn": attn_cache((count,)),
                 })
-            elif kind in _NOT_PORTED:
-                raise _not_ported(kind)
+            elif kind == "vlm_super":
+                img = (count, batch, cfg.n_img_tokens, cfg.n_kv, cfg.hd)
+                caches.append({
+                    "dense": attn_cache((count, cfg.cross_attn_every - 1)),
+                    "cross": (z(img, self.dtype), z(img, self.dtype)),
+                })
             else:
                 raise ValueError(kind)
         return caches

@@ -2,10 +2,13 @@
 
 Reference: ``repro/serve/engine.py`` (``pad_caches`` :13, ``Engine`` :35).
 The reference prefills into caches of the prompt's length and pads the
-attention caches to ``max_len`` by a shape heuristic; here the prefill
-writes straight into caches allocated at ``max_len`` (the same tokens,
-without the padded copy), and ``pad_caches`` grows a cache tree by its
-shapes from ``LM.init_caches``. Decode steps update the caches in place.
+attention caches to ``max_len`` by a shape heuristic (any leaf whose
+axis -3 is the prompt's length, so a vlm's image cache too when the prompt
+is ``n_img_tokens`` long); here the prefill writes straight into caches
+allocated at ``max_len`` (the same tokens, without the padded copy), and
+``pad_caches`` grows a cache tree by the shapes ``LM.init_caches`` gives
+it: the self-attention caches of every plan kind grow, the Mamba2 and
+image caches keep their length. Decode steps update the caches in place.
 """
 from __future__ import annotations
 
@@ -15,15 +18,17 @@ from typing import Optional
 import torch
 
 from ..device import CUDA, DeviceLike, resolve_device
-from ..models.model import LM, tree_map
+from ..models.model import LM, tree_leaves, tree_map
 
 
 def pad_caches(lm: LM, caches, cur_len: int, target_len: int):
-    """Grow attention KV caches from cur_len to target_len along the seq
-    axis (mamba/conv caches are length-independent and pass through)."""
-    seg0 = caches[0]["attn"] if lm.plan[0][0] == "zamba_super" else caches[0]
-    first = seg0[0]  # (count, B, ...)
-    grown = lm.init_caches(first.shape[1], target_len, device=first.device)
+    """Grow the self-attention KV caches from cur_len to target_len along
+    the seq axis (Mamba2 state, conv and image caches are
+    length-independent and pass through)."""
+    first = tree_leaves(caches)[0]
+    one = tree_leaves(lm.init_caches(1, cur_len, device="meta"))[0]
+    batch = first.numel() // one.numel()
+    grown = lm.init_caches(batch, target_len, device=first.device)
 
     def put(new, old):
         if new.shape == old.shape:
@@ -53,18 +58,21 @@ class Engine:
         self,
         tokens,  # (B, P) prompt
         steps: int,
+        img=None,  # (B, n_img_tokens, d) image embeddings of a vlm
         *,
         return_logits: bool = False,
     ):
         """Greedy continuation: (B, steps) int32 tokens; with
         ``return_logits`` also the (B, steps, V) logits each token was
-        picked from. Afterwards ``timings`` holds the host seconds of the
-        prefill and of the decode steps, each ending in a device sync."""
+        picked from. ``img`` goes to the prefill, which caches its keys and
+        values for the decode steps. Afterwards ``timings`` holds the host
+        seconds of the prefill and of the decode steps, each ending in a
+        device sync."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         B, P = tokens.shape
         assert P + steps <= self.max_len
         t0 = self._synced_clock()
-        logits, caches = self.lm.prefill(self.params, tokens,
+        logits, caches = self.lm.prefill(self.params, tokens, img,
                                          cache_len=self.max_len,
                                          force=self.force)
         out = [torch.argmax(logits, -1).to(torch.int32)]

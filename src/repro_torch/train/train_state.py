@@ -5,9 +5,10 @@ Reference: ``repro/train/train_state.py`` (``StepConfig`` :22,
 returns ``(state, batch) -> (state, metrics)``. Gradients come from
 ``torch.autograd.grad`` over the parameter leaves (taken as detached
 views that require grad, so the state's own tensors never carry an
-autograd flag); with M > 1 microbatches the batch is split along its
-first axis and ``g / M`` is summed in ``accum_dtype``, as the reference's
-scan does. The update is ``optimizer.adamw_update``, in place.
+autograd flag). A batch is ``{"tokens"[, "img"]}``, the image embeddings
+of a vlm going to ``LM.loss`` beside the tokens; with M > 1 microbatches
+both are split along their first axis alike and ``g / M`` is summed in
+``accum_dtype``, as the reference's scan does. The update is ``optimizer.adamw_update``, in place.
 ``StepConfig.skip_masked`` is passed to ``LM.loss`` as in the reference;
 it changes no value, because K4 and K5 always skip the tiles the causal
 mask hides. No
@@ -73,9 +74,9 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
     M = step_cfg.microbatches
     adt = DTYPES[step_cfg.accum_dtype]
 
-    def grad_fn(params, tokens):
+    def grad_fn(params, tokens, img):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, metrics = lm.loss(live, tokens,
+        loss, metrics = lm.loss(live, tokens, img,
                                 skip_masked=step_cfg.skip_masked,
                                 force=force)
         leaves = tree_leaves(live)
@@ -87,9 +88,10 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
 
     def train_step(state: dict, batch: dict):
         tokens = torch.as_tensor(batch["tokens"])
+        img = batch.get("img")
         params = state["params"]
         if M == 1:
-            _loss, metrics, grads = grad_fn(params, tokens)
+            _loss, metrics, grads = grad_fn(params, tokens, img)
         else:
             B = tokens.shape[0]
             assert B % M == 0, (B, M)
@@ -99,7 +101,9 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
                 params)
             loss_acc = None
             for i in range(M):
-                loss, _m, g = grad_fn(params, tokens[i * mb:(i + 1) * mb])
+                part = slice(i * mb, (i + 1) * mb)
+                loss, _m, g = grad_fn(params, tokens[part],
+                                      None if img is None else img[part])
                 for a, gg in zip(tree_leaves(grads), tree_leaves(g)):
                     a.add_(gg.to(adt) / M)
                 loss_acc = (loss / M if loss_acc is None

@@ -40,7 +40,9 @@ PRECHECK_SHAPES = [(8, 5, 4), (37, 17, 7), (128, 33, 100), (200, 129, 25),
 # (BH, Sq, Skv, hd, causal): tests/test_kernels.py's FLASH_SHAPES, then
 # hd in {64, 112, 128, 256} with S off the 64-row tile, Sq != Skv, one row;
 # then the edges of the bf16 tensor-core tiles: S off the 128-row tile (129,
-# 255), Sq != Skv both ways under the causal mask, Sq = 1, hd 8, 40 and 256
+# 255), Sq != Skv both ways under the causal mask, Sq = 1, hd 8, 40 and 256;
+# then a vlm's cross attention (text queries against 1,024 image tokens,
+# hd 128, not causal): prompts shorter, as long, longer and off the tiles
 FLASH_SHAPES = [
     (4, 64, 64, 16, True), (2, 48, 80, 32, False), (3, 33, 33, 8, True),
     (1, 128, 128, 64, True), (2, 96, 32, 16, False),
@@ -51,6 +53,8 @@ FLASH_SHAPES = [
     (2, 129, 300, 112, True), (2, 300, 129, 64, True), (2, 1, 200, 64, False),
     (1, 1, 9, 8, False), (2, 255, 255, 256, True), (2, 129, 200, 256, False),
     (3, 255, 255, 8, False),
+    (4, 100, 1024, 128, False), (2, 1024, 1024, 128, False),
+    (3, 1300, 1024, 128, False), (2, 1, 1024, 128, False),
 ]
 # (g, q, p, n): tests/test_kernels.py's SSD_SHAPES, then the model's chunk
 # widths (q up to 256, p = 64, n = 64 or 128) and ragged q
@@ -423,6 +427,29 @@ def test_flash_fwd_kernel_matches_model_attention(cuda):
     got = flash_attention(q, k, v, causal=True)
     want = flash_attention(q, k, v, causal=True, force="ref")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_model_attention_at_batch_one_on_the_card(cuda):
+    """One sequence (B = 1, where the heads-first reshape alone is a
+    strided view) through K4 and K5 from the model's layout, GQA and not
+    causal too, against the plain path."""
+    from repro_torch.models.attention import flash_attention
+
+    rng = np.random.default_rng(8)
+    for sq, skv, H, KV, causal in ((100, 100, 8, 2, True),
+                                   (40, 130, 4, 4, False)):
+        q, k, v = (torch.as_tensor(rng.normal(size=(1, s, h, 64)),
+                                   dtype=torch.float32, device=cuda)
+                   .requires_grad_(True)
+                   for s, h in ((sq, H), (skv, KV), (skv, KV)))
+        do = torch.as_tensor(rng.normal(size=(1, sq, H, 64)),
+                             dtype=torch.float32, device=cuda)
+        outs = []
+        for force in (None, "ref"):
+            o = flash_attention(q, k, v, causal=causal, force=force)
+            outs.append((o, *torch.autograd.grad(o, (q, k, v), do)))
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 def _ssd_inputs(cuda, g, q, p, n):
@@ -1188,3 +1215,102 @@ def test_seq_coreset_transversal_on_the_card_equals_the_cpu(cuda):
                        device="cpu")[0]
     for x, y in zip(got, want):
         assert torch.equal(x.cpu(), y), x.dtype
+
+
+def _moe_inputs(E, seed):
+    from repro_torch.models.moe import moe_init
+    from repro_torch.models.model import _draw
+
+    gen = torch.Generator().manual_seed(seed)
+    p = {k: _draw(spec, gen, torch.device("cpu"))
+         for k, spec in moe_init(48, 80, E, torch.float32).items()}
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (3, 64, 48), dtype=np.float32))
+    return x, p
+
+
+@pytest.mark.parametrize("top_k,cf", [(1, 1.25), (2, 0.5), (2, 1.25)])
+def test_moe_apply_on_the_card_equals_the_cpu(cuda, top_k, cf):
+    """The MoE FFN (plain torch: dispatch, expert products, combine) on
+    the card against the CPU, f32: the same routes, slots and drops (some
+    tokens dropped), y and aux within 1e-5 of their scale; each gradient
+    within 1e-4 relative L2 of the f64 gradient (the CPU in float64), or
+    no farther from it than twice the CPU's own f32 gradient (with top-1
+    routing the gate is p / p, whose derivative cancels to rounding noise
+    in the router's gradient); bit-identical on a repeat."""
+    from repro_torch.models.moe import moe_apply, moe_route
+
+    x, p = _moe_inputs(8, 11)
+    r = moe_route(x, p["router"], top_k=top_k, capacity_factor=cf)
+    rc = moe_route(x.to(cuda), p["router"].to(cuda), top_k=top_k,
+                   capacity_factor=cf)
+    assert torch.equal(rc.eidx.cpu(), r.eidx)
+    assert torch.equal(rc.keep.cpu(), r.keep) and not bool(r.keep.all())
+    runs = []
+    for dev, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
+                       (cuda, torch.float32), (cuda, torch.float32)):
+        xd = x.to(dev, dtype).requires_grad_(True)
+        pd = {k: v.to(dev, dtype).requires_grad_(True) for k, v in p.items()}
+        y, aux = moe_apply(xd, pd, top_k=top_k, capacity_factor=cf)
+        keys = sorted(pd)
+        grads = torch.autograd.grad(y.square().sum() + aux,
+                                    [xd] + [pd[k] for k in keys])
+        runs.append([t.detach().cpu().double() for t in (y, aux, *grads)])
+    truth, want, got, again = runs
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    scale = float(want[0].abs().max())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                               atol=1e-5 * scale)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+
+    def rel(a, b):
+        return float((a - b).norm() / (b.norm() + 1e-30))
+
+    for a, b, t in zip(got[2:], want[2:], truth[2:]):
+        assert rel(a, t) <= max(1e-4, 2 * rel(b, t)), (rel(a, t), rel(b, t))
+
+
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "llama-3.2-vision-90b"])
+def test_moe_pair_and_vlm_engine_on_the_card_equal_the_cpu(cuda, arch):
+    """A reduced ``moe_pair`` model (top-1 of 4 experts) and a reduced
+    ``vlm_super`` model (cross attention over 8 image tokens) through
+    ``Engine.generate`` on the card, K4 launched once an attention layer of
+    the prefill: the CPU engine's tokens, the logits within 1e-4 of their
+    largest; the image cache stays at ``n_img_tokens``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_map
+    from repro_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    lm = LM(cfg)
+    params = lm.init(0, device="cpu")
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 24)))
+    img = None
+    if cfg.family == "vlm":
+        img = torch.as_tensor(0.1 * rng.standard_normal(
+            (2, cfg.n_img_tokens, cfg.d_model), dtype=np.float32))
+    want, wl = Engine(lm, params, 32, device="cpu").generate(
+        toks, 6, img, return_logits=True)
+    params_c = tree_map(lambda t: t.to(cuda), params)
+    ops.reset_launches()
+    got, gl = Engine(lm, params_c, 32, device=cuda).generate(
+        toks.to(cuda), 6, None if img is None else img.to(cuda),
+        return_logits=True)
+    attn = sum(count * {"moe_pair": 2, "vlm_super": cfg.cross_attn_every
+                        }[kind] for kind, count in lm.plan)
+    assert ops.launch_counts()["flash_attention_fwd"] == attn
+    assert torch.equal(got.cpu(), want)
+    scale = float(wl.abs().max())
+    torch.testing.assert_close(gl.cpu(), wl, rtol=1e-4, atol=1e-4 * scale)
+    _, caches = lm.prefill(params_c, toks.to(cuda),
+                           None if img is None else img.to(cuda),
+                           cache_len=32)
+    if cfg.family == "vlm":
+        for t in caches[0]["cross"]:
+            assert t.shape[2] == cfg.n_img_tokens

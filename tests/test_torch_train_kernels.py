@@ -182,17 +182,15 @@ def test_kernel_paths_refuse_to_cut_a_graph(monkeypatch):
         FlashAttention.apply(q, q, q, True, None)
 
 
-@pytest.mark.parametrize("arch,step", [("phi3.5-moe-42b-a6.6b", "13.3"),
-                                       ("llama-3.2-vision-90b", "13.4")])
-def test_loss_raises_for_families_without_a_backward(arch, step):
-    """moe and vlm are not ported: their loss raises with its ROADMAP step
-    before it reaches the parameters (which cannot be drawn either)."""
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
-    lm = LM(cfg)
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md step {step}"):
-        lm.loss({}, toks)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md step {step}"):
-        lm.init(0, device="cpu")
+@pytest.mark.parametrize("B", [1, 3])
+def test_heads_first_layout_is_contiguous(B):
+    """The kernels take contiguous (BH, S, hd) tensors: the model's (B, S,
+    H, hd) q, k and v reach them so at every batch size (at B = 1 the
+    transpose and reshape alone give a strided view)."""
+    from repro_torch.models.attention import _heads_first
+
+    t = torch.randn(B, 7, 4, 16)
+    got = _heads_first(t)
+    assert got.is_contiguous() and got.shape == (B * 4, 7, 16)
+    torch.testing.assert_close(got.reshape(B, 4, 7, 16),
+                               t.transpose(1, 2), rtol=0, atol=0)
