@@ -213,7 +213,31 @@ exits non-zero:
                under the profiler, and K5 beside its plain version, its
                bound and the backward of ``scaled_dot_product_attention``
                (route, TFLOP/s, ratio).
-14. ``train_ssm`` the training path of the ssm and hybrid families: (a) K6b
+14. ``train_sharded`` training sharded over a data axis (FSDP) on an
+               in-process ``("data",)`` mesh whose positions all sit on
+               the one card (they run in turn; NCCL takes no two ranks on
+               one GPU, so no collective crosses a wire here):
+               smollm-135m at full width and depth, 16 x 2,048, bf16, 3
+               steps on 4 positions (diverse selection inside, launch
+               counts set to 0 before and read after: K2 tau a step, K4
+               and K5 4 x the unsharded step's) against 3 unsharded steps
+               from the same state under the ``train`` phase's bf16 rule
+               (three nudged unsharded runs give its floor); in f32 at 4 x
+               1,024, one step on 4 positions against one unsharded (loss
+               within 1e-5, every parameter and moment leaf within 1e-3
+               relative L2), then a second, a checkpoint, restored onto 2
+               positions for a third, against 3 unsharded steps to the
+               same limits; zamba2-7b at full width and one super block
+               (6 layers, the least depth whose shared attention block
+               trains), f32, 1 step on 2 positions against unsharded
+               (K4, K5, K6, K6b inside), then 3 warm steps of each arm,
+               alternating, for their median step times. Printed: both
+               arms' step times and peaks, each position's share of
+               parameter and optimizer bytes from the specs, each arm's
+               launches (the kernels line's column sums the sharded steps
+               of all three, each counted from its own reset), and that
+               the NCCL run did not run (one card).
+15. ``train_ssm`` the training path of the ssm and hybrid families: (a) K6b
                (the SSD intra-chunk backward) against its plain version at
                test shapes (q 1, 16, 48, 100, 256; per-cell B and C, and
                the model's layout with B and C shared by the heads), and at
@@ -242,7 +266,7 @@ exits non-zero:
                training), one step at batch 2 x 2,048 through K4, K5, K6
                and K6b in one graph, its launches counted, against the
                plain path under the rules of (b).
-15. ``moe``    the moe family at full width and reduced depth (bf16,
+16. ``moe``    the moe family at full width and reduced depth (bf16,
                random weights): (a) phi3.5-moe-42b-a6.6b at 16 of its 32
                layers (top-2 of 16 experts, capacity 1.25: 160 slots a
                sequence) serving 8 prompts of 1,024 tokens + 16 new, and
@@ -267,7 +291,7 @@ exits non-zero:
                1 layer on 1 x 1,024 (the plain path replaying the kernel
                path's routes); K4 and K5 timed at phi3.5-moe's shapes
                beside SDPA and their bounds.
-16. ``vlm``    llama-3.2-vision-90b at full width: (a) 2 of its 20 super
+17. ``vlm``    llama-3.2-vision-90b at full width: (a) 2 of its 20 super
                blocks (10 layers) serving 4 prompts of 1,024 tokens + 16
                new over seeded image embeddings (4 x 1,024 x 8,192, 0.1 x
                normal) on both paths as in ``moe`` (K4 10 launches a
@@ -359,6 +383,16 @@ TRAIN_ARCH = "smollm-135m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 2048, 5  # SmolLM-135M's context
 TRAIN_CLI_STEPS, TRAIN_PREEMPT_AT = 6, 4
 TRAIN_F32_LOSS_TOL, TRAIN_F32_GRAD_TOL = 1e-5, 1e-3
+# the train_sharded phase: positions of the in-process data axis on the
+# one card, the f32 check's batch, the elastic restore's positions, and
+# zamba2-7b at one super block (shared_attn_every = 6 layers: at fewer the
+# plan has no super block, and the shared attention block would get no
+# gradient)
+SHARD_POSITIONS, SHARD_STEPS, SHARD_NUDGES = 4, 3, 3
+SHARD_F32_BATCH, SHARD_F32_SEQ, SHARD_RESTORE_ONTO = 4, 1024, 2
+SHARD_HYBRID_LAYERS, SHARD_HYBRID_POSITIONS = 6, 2
+SHARD_HYBRID_BATCH, SHARD_HYBRID_SEQ = 2, 1024
+SHARD_HYBRID_TIMED = 3  # warm steps of each arm behind the step times
 TRAIN_SSM_ARCH = "mamba2-2.7b"
 TRAIN_SSM_BATCH, TRAIN_SSM_SEQ, TRAIN_SSM_STEPS = 8, 2048, 3
 TRAIN_SSM_F32_BATCH = 1  # the f32 copy of 2.83 B parameters and its grads
@@ -3504,6 +3538,294 @@ def phase_train(seed: int) -> dict:
     return dict(launches=launches, k5=k5, k5_err=k5_err)
 
 
+def _on_positions(state, specs, n: int):
+    """A copy of ``state`` placed on an in-process ("data",) mesh of ``n``
+    positions of the card, and the mesh."""
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import sharding as sh
+
+    mesh = make_mesh((n,), ("data",), devices=["cuda"] * n)
+    return sh.shard_tree(state, specs, mesh, donate=True), mesh
+
+
+def _leaves_rel(sharded, plain, part: str) -> tuple[float, str]:
+    """The largest relative L2 difference over the leaves of ``part``
+    ("params", or "opt" for the moments: after a first step, m is 0.1 x
+    the clipped gradient) of a sharded state (gathered) and an unsharded
+    one, and that leaf's path."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.train.checkpoint import _paths
+
+    full = sh.gather_tree(sharded[part])
+    return max((float((a.double() - b.double()).norm()
+                      / (b.double().norm() + 1e-30)), key)
+               for (key, a), (_, b) in zip(_paths(full), _paths(plain[part]))
+               if a.dim())
+
+
+def _step_synced(step, state, batch) -> tuple:
+    """One step with the card synced before and after: (state, loss,
+    seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    return state, loss, time.perf_counter() - t0
+
+
+def _f32_pair(what: str, loss, loss_plain, sharded=None,
+              plain=None) -> dict:
+    """The f32 rule: the loss within TRAIN_F32_LOSS_TOL; given the two
+    states, every parameter leaf and every moment leaf within
+    TRAIN_F32_GRAD_TOL relative L2 (the worst of each printed, with its
+    leaf)."""
+    loss_rel = abs(loss - loss_plain) / abs(loss_plain)
+    check(loss_rel <= TRAIN_F32_LOSS_TOL,
+          f"{what}: sharded and unsharded f32 losses differ by {loss_rel} "
+          f"relative")
+    out = dict(loss=loss, loss_unsharded=loss_plain, loss_rel_diff=loss_rel)
+    for part in ("params", "opt") if sharded is not None else ():
+        rel, leaf = _leaves_rel(sharded, plain, part)
+        check(rel <= TRAIN_F32_GRAD_TOL,
+              f"{what}: leaf {part}/{leaf} differs by {rel} relative L2")
+        out[f"{part}_max_rel_l2_diff"] = rel
+        out[f"{part}_worst_leaf"] = leaf
+    return out
+
+
+def phase_train_sharded(seed: int) -> dict:
+    """Training sharded over a data axis (FSDP) on in-process positions of
+    the one card, against the unsharded step (see the module's list)."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import LM
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import tree_map
+    from repro_torch.train import (
+        AdamWConfig, CheckpointManager, abstract_train_state,
+        make_train_step,
+    )
+    from repro_torch.train.train_state import state_specs
+
+    cfg = get_config(TRAIN_ARCH)
+    lm = LM(cfg)
+    params = lm.init(seed, device="cuda")
+    opt_cfg = AdamWConfig(total_steps=SHARD_STEPS,
+                          warmup_steps=min(100, SHARD_STEPS // 10 + 1))
+    specs = state_specs(sh.param_specs(lm.abstract_params(), ("data",),
+                                       tp=None), opt_cfg)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=seed)
+    pipe = Pipeline(data_cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    # (a) the main path: 3 steps on 4 positions, the selection inside
+    state, mesh = _on_positions(_fresh_state(params, opt_cfg), specs,
+                                SHARD_POSITIONS)
+    step = make_train_step(lm, opt_cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    batches, losses, times = [], [], []
+    for i in range(SHARD_STEPS):
+        batches.append(pipe.batch_at(i)["tokens"])
+        state, loss, dt = _step_synced(step, state,
+                                       {"tokens": batches[-1]})
+        losses.append(loss)
+        times.append(dt)
+    launches = ops.launch_counts()
+    arms = dict(smollm=launches)
+    peak = torch.cuda.max_memory_allocated()
+    del state, step
+    want = dict(gmm_update=SHARD_STEPS * data_cfg.selector_tau,
+                flash_attention_fwd=SHARD_STEPS * SHARD_POSITIONS * 2
+                * cfg.n_layers,
+                flash_attention_bwd=SHARD_STEPS * SHARD_POSITIONS
+                * cfg.n_layers,
+                pairwise_sqdist=0, center_precheck=0, ssd_intra_chunk=0,
+                ssd_intra_chunk_bwd=0)
+    check(launches == want, f"train_sharded launches {launches}, "
+                            f"expected {want}")
+    # the unsharded arm on the same batches, and its nudged runs
+    torch.cuda.reset_peak_memory_stats()
+    plain = _fresh_state(params, opt_cfg)
+    step = make_train_step(lm, opt_cfg)
+    ops.reset_launches()
+    plain_losses, plain_times = [], []
+    for b in batches:
+        plain, loss, dt = _step_synced(step, plain, {"tokens": b})
+        plain_losses.append(loss)
+        plain_times.append(dt)
+    plain_launches = ops.launch_counts()
+    plain_peak = torch.cuda.max_memory_allocated()
+    del plain
+    nudged = [_run_steps(lm, _nudged(params, g), batches, opt_cfg)
+              for _ in range(SHARD_NUDGES)]
+    diffs, floors, limits = _loss_rule(losses, plain_losses, nudged)
+    check(all(map(math.isfinite, losses)), f"non-finite {losses}")
+    abstract = abstract_train_state(lm, opt_cfg)
+    one = make_mesh((1,), ("data",), devices=["cuda"])
+    share = {key: dict(
+        whole_bytes=sh.local_bytes(abstract[key], specs[key], one),
+        position_bytes=sh.local_bytes(abstract[key], specs[key], mesh))
+        for key in ("params", "opt")}
+    emit(dict(phase="train_sharded_mesh", positions=SHARD_POSITIONS,
+              devices=[str(d) for d in mesh.devices],
+              note="every position sits on the one card and they run in "
+                   "turn: the peak is not FSDP's saving, each "
+                   "position's bytes below are",
+              bytes_per_position=share))
+    emit(dict(phase="train_sharded_steps", arch=TRAIN_ARCH,
+              batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=SHARD_STEPS,
+              positions=SHARD_POSITIONS, launches=launches,
+              unsharded_launches=plain_launches, losses=losses,
+              unsharded_losses=plain_losses,
+              nudged_unsharded_losses=nudged, loss_abs_diffs=diffs,
+              nudge_abs_diffs=floors, loss_abs_diff_limits=limits,
+              step_s=statistics.median(times), step_times_s=times,
+              unsharded_step_s=statistics.median(plain_times),
+              unsharded_step_times_s=plain_times,
+              peak_device_bytes=peak,
+              unsharded_peak_device_bytes=plain_peak))
+
+    # (b) f32 at 4 x 1,024: a step on 4 positions against unsharded,
+    # then a second, a checkpoint restored onto 2, a third
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32"))
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    toks = [b[:SHARD_F32_BATCH, :SHARD_F32_SEQ].contiguous()
+            for b in batches]
+    plain = _fresh_state(p32, opt_cfg)
+    pstep = make_train_step(lm32, opt_cfg)
+    state, m4 = _on_positions(_fresh_state(p32, opt_cfg), specs,
+                              SHARD_POSITIONS)
+    del p32
+    sstep = make_train_step(lm32, opt_cfg, mesh=m4)
+    pl, sl = [], []
+    f32_launches = {}
+    for i in range(2):
+        plain, loss, _dt = _step_synced(pstep, plain,
+                                        {"tokens": toks[i]})
+        pl.append(loss)
+        ops.reset_launches()
+        state, loss, _dt = _step_synced(sstep, state,
+                                        {"tokens": toks[i]})
+        f32_launches = _add_counts(f32_launches, ops.launch_counts())
+        sl.append(loss)
+        if i == 0:
+            first = _f32_pair("f32 step", sl[0], pl[0], state, plain)
+    root = Path(__file__).resolve().parent / "build" / \
+        "chip_smoke_ckpt_sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = CheckpointManager(str(root))
+    t0 = time.perf_counter()
+    mgr.save(2, state)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    del state
+    t0 = time.perf_counter()
+    m2 = make_mesh((SHARD_RESTORE_ONTO,), ("data",),
+                   devices=["cuda"] * SHARD_RESTORE_ONTO)
+    state = mgr.restore(2, abstract_train_state(lm32, opt_cfg), mesh=m2,
+                        specs=specs)
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    ops.reset_launches()
+    state, loss, _dt = _step_synced(
+        make_train_step(lm32, opt_cfg, mesh=m2), state,
+        {"tokens": toks[2]})
+    f32_launches = _add_counts(f32_launches, ops.launch_counts())
+    arms["f32"] = f32_launches
+    sl.append(loss)
+    plain, loss, _dt = _step_synced(pstep, plain, {"tokens": toks[2]})
+    pl.append(loss)
+    elastic = _f32_pair("elastic restore", sl[-1], pl[-1], state,
+                        plain)
+    for i in range(len(sl)):
+        _f32_pair(f"f32 step {i}", sl[i], pl[i])
+    del state, plain
+    emit(dict(phase="train_sharded_f32", batch=SHARD_F32_BATCH,
+              seq=SHARD_F32_SEQ, positions=SHARD_POSITIONS,
+              first_step=first, restored_onto=SHARD_RESTORE_ONTO,
+              losses=sl, unsharded_losses=pl, elastic=elastic,
+              launches=f32_launches,
+              save_s=save_s, restore_s=restore_s))
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) zamba2-7b at full width, one super block, f32, 2 positions
+    cfg_h = dataclasses.replace(get_config(HYBRID_ARCH),
+                                n_layers=SHARD_HYBRID_LAYERS,
+                                dtype="float32")
+    lm_h = LM(cfg_h)
+    specs_h = state_specs(sh.param_specs(lm_h.abstract_params(),
+                                         ("data",), tp=None), opt_cfg)
+    tok_h = torch.randint(0, cfg_h.vocab, (SHARD_HYBRID_BATCH,
+                                           SHARD_HYBRID_SEQ),
+                          generator=g, device="cuda")
+    p_h = lm_h.init(seed, device="cuda")
+    plain = _fresh_state(p_h, opt_cfg)
+    pstep = make_train_step(lm_h, opt_cfg)
+    plain, loss_p, _dt = _step_synced(pstep, plain, {"tokens": tok_h})
+    state, mh = _on_positions(_fresh_state(p_h, opt_cfg), specs_h,
+                              SHARD_HYBRID_POSITIONS)
+    del p_h
+    sstep = make_train_step(lm_h, opt_cfg, mesh=mh)
+    ops.reset_launches()
+    state, loss_s, _dt = _step_synced(sstep, state, {"tokens": tok_h})
+    hybrid_launches = ops.launch_counts()
+    arms["zamba2"] = hybrid_launches
+    hybrid = _f32_pair("zamba2-7b f32 step", loss_s, loss_p, state,
+                       plain)
+    # warm step times, the arms alternating: the median of a few each
+    plain_times, times = [], []
+    for _ in range(SHARD_HYBRID_TIMED):
+        plain, _loss, dt = _step_synced(pstep, plain, {"tokens": tok_h})
+        plain_times.append(dt)
+        state, _loss, dt = _step_synced(sstep, state, {"tokens": tok_h})
+        times.append(dt)
+    del state, plain, pstep, sstep
+    supers = SHARD_HYBRID_LAYERS // cfg_h.shared_attn_every
+    check(hybrid_launches["ssd_intra_chunk_bwd"] > 0
+          and hybrid_launches["flash_attention_bwd"] == supers
+          * SHARD_HYBRID_POSITIONS,
+          f"zamba2-7b sharded launches {hybrid_launches}")
+    emit(dict(phase="train_sharded_hybrid", arch=HYBRID_ARCH,
+              layers=SHARD_HYBRID_LAYERS, params=lm_h.param_count(),
+              batch=SHARD_HYBRID_BATCH, seq=SHARD_HYBRID_SEQ,
+              positions=SHARD_HYBRID_POSITIONS, launches=hybrid_launches,
+              step_s=statistics.median(times), step_times_s=times,
+              unsharded_step_s=statistics.median(plain_times),
+              unsharded_step_times_s=plain_times, **hybrid))
+    n_cards = torch.cuda.device_count()
+    emit(dict(phase="train_sharded_nccl", ran=False,
+              why=(f"{n_cards} card: NCCL takes no two ranks on one GPU"
+                   if n_cards < 2 else
+                   f"{n_cards} cards: this script drives one card; the "
+                   f"multi-rank run is held across gloo ranks on the CPU"),
+              cards=n_cards))
+    torch.cuda.empty_cache()
+    # the column: every sharded step of the phase, each arm counted from
+    # its own reset (the unsharded arms and the kernel checks excluded)
+    total = {}
+    for counts in arms.values():
+        total = _add_counts(total, counts)
+    emit(dict(phase="train_sharded_launches", arms=arms, total=total))
+    return dict(launches=total)
+
+
+def _add_counts(a: dict, b: dict) -> dict:
+    """Two launch-count dicts summed key by key."""
+    return {k: a.get(k, 0) + b.get(k, 0) for k in a.keys() | b.keys()}
+
+
 def _check_ssd_bwd(xbar, loga, B, C, dy, ds, what: str, route: str) -> dict:
     """K6b against its plain version: dxbar, dloga, dB and dC each within
     SSD_BWD_TOL of the plain version's largest |entry|, the shapes the
@@ -4357,6 +4679,8 @@ def main() -> int:
     torch.cuda.empty_cache()  # the zamba2 weights went with phase_lm
     train = phase_train(args.seed)
     torch.cuda.empty_cache()
+    train_sharded = phase_train_sharded(args.seed)
+    torch.cuda.empty_cache()
     train_ssm = phase_train_ssm(args.seed)
     torch.cuda.empty_cache()
     moe = phase_moe(args.seed)
@@ -4373,6 +4697,7 @@ def main() -> int:
                            mapreduce=mr["launches"][name],
                            lm=lm["launches"][name],
                            train=train["launches"][name],
+                           train_sharded=train_sharded["launches"][name],
                            train_ssm=train_ssm["launches"][name],
                            moe=moe["launches"][name],
                            vlm=vlm["launches"][name])

@@ -26,6 +26,14 @@ A caller hands a collective the list of its local positions' tensors
 multi-rank mesh. So one code path serves both, and both give the same
 result bit for bit.
 
+The collectives: ``all_gather`` (tiled, along any dimension), ``pmax``,
+and for FSDP training ``psum`` (a sum, a scalar's included) and
+``psum_scatter`` (a reduce-scatter along a dimension). Sums are added in
+shard order, on the first position's device in process and after a
+gather across ranks (of the whole tensors for ``psum``, of each shard's
+slices onto its rank for ``psum_scatter``), so that they too agree bit
+for bit and do not depend on the backend's reduction order.
+
 Nothing here touches device state at import.
 """
 from __future__ import annotations
@@ -120,6 +128,11 @@ class Mesh:
             out.append((s, self.devices[self.position(coords)]))
         return out
 
+    def local_positions(self) -> list[int]:
+        """The positions this process drives: every one on an in-process
+        mesh, its own on a multi-rank one."""
+        return [self.rank] if self.multi_rank else list(range(self.size))
+
     # ---- collectives -------------------------------------------------
 
     def group(self, axes: Sequence[str]):
@@ -148,22 +161,97 @@ class Mesh:
         return self._groups[key]
 
     def all_gather(self, parts: Sequence[torch.Tensor],
-                   axes: Sequence[str]) -> torch.Tensor:
-        """Tiled all-gather along dim 0 over ``axes``: the shard-major
+                   axes: Sequence[str], dim: int = 0) -> torch.Tensor:
+        """Tiled all-gather along ``dim`` over ``axes``: the shard-major
         concatenation of every shard's tensor (equal shapes), on the
         first local device. ``parts`` are this process's shards'
         tensors, in ``local_shards`` order."""
         axes = self._check_axes(axes)
         if not self.multi_rank:
             dev = parts[0].device
-            return torch.cat([p.to(dev) for p in parts])
+            return torch.cat([p.to(dev) for p in parts], dim)
         (x,) = parts
         is_bool = x.dtype == torch.bool
         src = (x.to(torch.uint8) if is_bool else x).contiguous()
         out = [torch.empty_like(src) for _ in range(self.axis_size(axes))]
         dist.all_gather(out, src, group=self.group(axes))
-        y = torch.cat(out)
+        y = torch.cat(out, dim)
         return y.to(torch.bool) if is_bool else y
+
+    def _every_shard(self, parts: Sequence[torch.Tensor],
+                     axes: tuple[str, ...]) -> list[torch.Tensor]:
+        """Every shard's tensor along ``axes``, in shard order, on the
+        first local device."""
+        if not self.multi_rank:
+            dev = parts[0].device
+            return [p.to(dev) for p in parts]
+        (x,) = parts
+        out = [torch.empty_like(x) for _ in range(self.axis_size(axes))]
+        dist.all_gather(out, x.contiguous(), group=self.group(axes))
+        return out
+
+    def psum(self, parts: Sequence[torch.Tensor],
+             axes: Sequence[str]) -> list[torch.Tensor]:
+        """Elementwise sum over ``axes``, added in shard order; one result
+        per local shard, on its device."""
+        axes = self._check_axes(axes)
+        red = _ordered_sum(self._every_shard(parts, axes))
+        return [red.to(p.device) for p in parts]
+
+    def psum_scatter(self, parts: Sequence[torch.Tensor],
+                     axes: Sequence[str], dim: int,
+                     dtype: Optional[torch.dtype] = None
+                     ) -> list[torch.Tensor]:
+        """Reduce-scatter: the elementwise sum over ``axes``, added in
+        shard order (in ``dtype``, by default the parts'), of which each
+        local shard gets its slice along ``dim`` (shard s the s-th of
+        ``axis_size(axes)`` equal slices), on its device. A multi-rank mesh
+        gathers each shard's slice of every rank's tensor, cast a slice at
+        a time, onto that shard's rank (one ``dist.gather`` a shard) and
+        sums them there in shard order, so both kinds give the same bits.
+        A rank sends (n-1)/n of its tensor, as a reduce-scatter does, and
+        holds n slices in ``dtype``, one tensor's elements, beside its own
+        (NCCL's ``reduce_scatter_tensor`` would hold no more than its
+        slice and sum on the wire, in its own order)."""
+        axes = self._check_axes(axes)
+        if dtype is not None and not self.multi_rank:
+            parts = [p.to(dtype) for p in parts]
+        n = self.axis_size(axes)
+        size = parts[0].shape[dim]
+        if size % n:
+            raise ValueError(f"psum_scatter: dim {dim} of size {size} does "
+                             f"not split over {n} shards")
+        c = size // n
+        if not self.multi_rank:
+            red = _ordered_sum(self._every_shard(parts, axes))
+            return [red.narrow(dim, s * c, c).to(dev)
+                    for s, dev in self.local_shards(axes)]
+        (x,) = parts
+        ((s, _dev),) = self.local_shards(axes)
+        ranks = self._shard_ranks(axes)
+        by_rank = sorted(ranks)  # a gather list is in group-rank order
+        group = self.group(axes)
+        mine = None
+        for t, dst in enumerate(ranks):
+            piece = x.narrow(dim, t * c, c).to(dtype or x.dtype).contiguous()
+            out = [torch.empty_like(piece) for _ in ranks] if t == s else None
+            dist.gather(piece, out, dst=dst, group=group)
+            if t == s:
+                mine = [out[by_rank.index(r)] for r in ranks]
+        return [_ordered_sum(mine)]
+
+    def _shard_ranks(self, axes: tuple[str, ...]) -> list[int]:
+        """The ranks of this rank's group along ``axes``, in shard
+        order."""
+        mine = list(self.coords(self.rank))
+        out = []
+        for s in range(self.axis_size(axes)):
+            coords, rest = list(mine), s
+            for a in reversed(axes):
+                rest, c = divmod(rest, self.shape[a])
+                coords[self.axis_names.index(a)] = c
+            out.append(self.position(coords))
+        return out
 
     def pmax(self, parts: Sequence[torch.Tensor],
              axes: Sequence[str]) -> list[torch.Tensor]:
@@ -178,6 +266,14 @@ class Mesh:
         y = x.clone()
         dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group(axes))
         return [y]
+
+
+def _ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """parts[0] + parts[1] + ..., added left to right."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
 
 
 def _default_rank_device(rank: int) -> torch.device:

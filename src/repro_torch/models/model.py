@@ -43,8 +43,9 @@ of its full length) and fills them block by block; ``decode_step`` updates
 them in place and returns the same tensors. A vlm's cross-attention cache
 holds the image's ``n_img_tokens`` keys whatever the cache length, and
 an image of another length is refused.
-``models/sharding.constrain`` is the identity on one device and has no
-counterpart here.
+The reference's ``constrain`` calls are left out: the port's
+``models.sharding.constrain`` is the identity (a position of a data mesh
+computes on its own batch slice already).
 """
 from __future__ import annotations
 

@@ -18,10 +18,11 @@ from .train_state import (
     abstract_train_state,
     init_train_state,
     make_train_step,
+    state_specs,
 )
 
 __all__ = ["AdamWConfig", "CheckpointManager", "StepConfig",
            "abstract_train_state", "adamw_init", "adamw_update",
            "compress_with_feedback", "dequantize", "global_norm",
            "init_residual", "init_train_state", "lr_at", "make_train_step",
-           "pod_allreduce_compressed", "quantize"]
+           "pod_allreduce_compressed", "quantize", "state_specs"]

@@ -11,9 +11,13 @@ checkpoint written by the JAX package restores into the port and the
 reverse. Writes go to ``step_<n>.tmp`` and are published by an atomic
 ``os.rename``; with ``async_write`` the device-to-host copy is taken in
 ``save`` and the disk write overlaps the next steps on a thread.
-Arrays are stored unsharded; restoring onto another device count waits
-for a model sharded across cards (``models/sharding.py``, ROADMAP.md step
-13.5).
+
+Elastic, as the reference: arrays are stored unsharded. ``save`` of a
+sharded state (``models.sharding.ShardedTree``) gathers it first; on a
+multi-rank mesh every rank gathers, rank 0 alone writes, and every rank
+waits for the publish in ``wait`` (the next ``save`` waits too).
+``restore(step, like, mesh=..., specs=...)`` places the tree onto any
+mesh (the reference's ``shardings``), whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -26,8 +30,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import CUDA, DeviceLike, resolve_device
+from ..models.sharding import ShardedTree, gather_tree, shard_tree
 
 _NUMPY = (np.float32, np.float64, np.int32, np.int64, np.uint32, np.uint64,
           np.int8, np.uint8, np.int16, np.uint16, np.bool_)
@@ -95,14 +101,22 @@ class CheckpointManager:
         self.keep = keep
         self.async_write = async_write
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False  # the ranks of the last save meet in wait()
         os.makedirs(directory, exist_ok=True)
 
     # ---- write ----
 
     def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> None:
-        flat = _flatten(tree)  # device -> host, synchronous
+        mesh = tree.mesh if isinstance(tree, ShardedTree) else None
+        if mesh is not None:
+            tree = gather_tree(tree, device="cpu")
+        writes = mesh is None or not mesh.multi_rank or mesh.rank == 0
+        flat = _flatten(tree) if writes else None  # device -> host, sync
         meta = dict(step=int(step), time=time.time(), **(extra or {}))
         self.wait()
+        self._barrier = mesh is not None and mesh.multi_rank
+        if not writes:
+            return
         if self.async_write:
             self._thread = threading.Thread(
                 target=self._write, args=(step, flat, meta), daemon=True)
@@ -128,6 +142,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -150,12 +167,19 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, like: Any, *,
-                device: DeviceLike = CUDA) -> Any:
+                device: DeviceLike = CUDA, mesh=None, specs=None) -> Any:
         """The checkpoint of ``step`` in the structure, shapes and dtypes of
         ``like`` (a tree of tensors, e.g. ``abstract_train_state``'s meta
-        tensors), on ``device``."""
-        dev = resolve_device(device)
+        tensors), on ``device``; with a ``mesh``, a ``ShardedTree`` placed
+        on it by ``specs`` (each position's slice on its device)."""
+        if mesh is not None and specs is None:
+            raise ValueError("restore onto a mesh needs the specs to place "
+                             "the tree by")
+        dev = torch.device("cpu") if mesh is not None else \
+            resolve_device(device)
         path = os.path.join(self.dir, f"step_{step:010d}", "arrays.npz")
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
-        return _unflatten_into(like, flat, dev)
+        tree = _unflatten_into(like, flat, dev)
+        return (tree if mesh is None
+                else shard_tree(tree, specs, mesh, donate=True))

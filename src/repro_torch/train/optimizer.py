@@ -15,6 +15,12 @@ returns the same trees. Weight decay applies where ``p.ndim >= 2``, the
 reference's mask: a stacked segment's RMSNorm gain, shape (count, d), is
 decayed, while ``final_norm`` (d,) is not. Kept as it is for parity.
 
+Sharded (FSDP: grads, state and params as ``models.sharding.ShardedTree``s
+on one mesh): the clip norm is the square root of the mesh's sum of each
+position's sum of squares (a slice that several positions hold counted
+once), and each position updates its own slices in place. The decay mask
+is still the leaf's rank, which a slice keeps.
+
 A stacked segment's leaf can be large (mamba2-2.7b's stacked ``in_proj``
 is 1.7 B entries: 6.9 GB for each f32 temporary), so the update and the
 norm walk a leaf of more than ``_SLICE_ELEMS`` entries in slices along
@@ -30,6 +36,7 @@ from typing import Any, Optional
 import torch
 
 from ..models.model import DTYPES, tree_leaves, tree_map
+from ..models.sharding import ShardedTree, entry_axes, spec_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,23 +102,64 @@ def _slices(t: torch.Tensor) -> list:
     return [slice(r, r + rows) for r in range(0, t.shape[0], rows)]
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32 (0-d tensor)."""
-    leaves = tree_leaves(tree)
-    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+def _sum_squares(leaves: list, dev: torch.device) -> torch.Tensor:
+    total = torch.zeros((), dtype=torch.float32, device=dev)
     for leaf in leaves:
         for sl in _slices(leaf):
             total = total + torch.sum(leaf[sl].to(torch.float32) ** 2)
-    return torch.sqrt(total)
+    return total
+
+
+def _counted(spec, mesh, position: int) -> bool:
+    """Whether ``position`` adds a leaf of ``spec`` to the norm: each
+    slice once, so of the positions holding the same slice (those that
+    differ only along axes the spec does not name) the first."""
+    named = {a for e in spec for a in entry_axes(e)}
+    coords = dict(zip(mesh.axis_names, mesh.coords(position)))
+    return all(coords[a] == 0 for a in mesh.axis_names if a not in named)
+
+
+def _sharded_norms(tree: ShardedTree) -> list[torch.Tensor]:
+    """The global norm of a sharded tree, one copy a local position: the
+    square root of the mesh's sum of each position's sum of squares."""
+    mesh = tree.mesh
+    specs = spec_leaves(tree.shards[0], tree.specs)
+    parts = [_sum_squares([leaf for leaf, spec in zip(tree_leaves(shard),
+                                                      specs)
+                           if _counted(spec, mesh, p)], dev)
+             for p, dev, shard in zip(tree.positions, tree.devices,
+                                      tree.shards)]
+    return [torch.sqrt(t) for t in mesh.psum(parts, mesh.axis_names)]
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32 (0-d tensor); of a
+    ``ShardedTree``, over the whole tree (on its first local device)."""
+    if isinstance(tree, ShardedTree):
+        return _sharded_norms(tree)[0]
+    leaves = tree_leaves(tree)
+    return torch.sqrt(_sum_squares(leaves, leaves[0].device))
 
 
 @torch.no_grad()
-def adamw_update(grads: Any, state: dict, params: Any,
-                 cfg: AdamWConfig) -> tuple[Any, dict, dict]:
+def adamw_update(grads: Any, state: Any, params: Any,
+                 cfg: AdamWConfig) -> tuple[Any, Any, dict]:
     """Returns (params, state, stats); params and the moments are updated
-    in place and returned, ``state["step"]`` is a new 0-d int32 tensor."""
+    in place and returned, ``state["step"]`` is a new 0-d int32 tensor.
+    Sharded (``ShardedTree`` grads, state and params on one mesh): the
+    clip norm is the whole tree's, and each position updates its own
+    slices; stats come from the first local position."""
+    if not isinstance(params, ShardedTree):
+        return _update(grads, state, params, cfg, global_norm(grads))
+    outs = [_update(g, s, p, cfg, gn) for g, s, p, gn in zip(
+        grads.shards, state.shards, params.shards, _sharded_norms(grads))]
+    return (params, ShardedTree(state.mesh, state.specs,
+                                [o[1] for o in outs]), outs[0][2])
+
+
+def _update(grads: Any, state: dict, params: Any, cfg: AdamWConfig,
+            gnorm: torch.Tensor) -> tuple[Any, dict, dict]:
     step = state["step"] + 1
-    gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -179,7 +179,10 @@ def _four_tenants(fe, uniform):
 
 def test_tenant_fanout_isolated_entries_one_stream_as_reference(rng):
     P, cats, caps, sp, k = _instance(rng)
-    rt = StreamRuntime(MatroidSpec(*sp), k, tau=12, caps=caps, device=CPU)
+    # its own registry: the coalescer's counters below must count this
+    # frontend's groups only, not those of every frontend in the process
+    rt = StreamRuntime(MatroidSpec(*sp), k, tau=12, caps=caps, device=CPU,
+                       registry=obs.MetricsRegistry())
     fe = QueryFrontend(rt)
     tenants = _four_tenants(fe, MatroidSpec("uniform"))
     jrt = jdiv.StreamRuntime(JSpec(*sp), k, tau=12, caps=caps)
