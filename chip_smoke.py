@@ -237,7 +237,27 @@ exits non-zero:
                launches (the kernels line's column sums the sharded steps
                of all three, each counted from its own reset), and that
                the NCCL run did not run (one card).
-15. ``train_ssm`` the training path of the ssm and hybrid families: (a) K6b
+15. ``dryrun``  the port's dry run (``launch/dryrun.py``) of the ``train``
+               phase's own cell, smollm-135m at 16 x 2,048 on one position,
+               counted on meta tensors (no kernel launches: the counts are
+               read around it and must stay 0): its ``argument_bytes``
+               within 1% of what ``init_train_state`` and the batch
+               allocate on the card; its predicted peak against the peak
+               of the traced program itself (one plain-path step from that
+               state) and against the ``train`` phase's measured peak,
+               both ratios within ``DRYRUN_PEAK_BAND``; one full-size
+               production cell on meta (``DRYRUN_FULL_CELL``), timed.
+               Printed on a line of its own: MODEL_FLOPS of the cell over
+               the ``train`` phase's step time at 989 TFLOP/s, the port's
+               first share of a whole step.
+16. ``examples`` the five twins of ``examples/*.py``
+               (``python -m repro_torch.examples.<name>``) on the card at
+               their default sizes, all at once, each a subprocess that
+               must exit 0 within ``EXAMPLES_TIMEOUT_S``; each one's
+               seconds and its kernel launches (``diverse_training``'s are
+               in its two ``launch.train`` children), logs under
+               ``build/chip_smoke_examples/``.
+17. ``train_ssm`` the training path of the ssm and hybrid families: (a) K6b
                (the SSD intra-chunk backward) against its plain version at
                test shapes (q 1, 16, 48, 100, 256; per-cell B and C, and
                the model's layout with B and C shared by the heads), and at
@@ -266,7 +286,7 @@ exits non-zero:
                training), one step at batch 2 x 2,048 through K4, K5, K6
                and K6b in one graph, its launches counted, against the
                plain path under the rules of (b).
-16. ``moe``    the moe family at full width and reduced depth (bf16,
+18. ``moe``    the moe family at full width and reduced depth (bf16,
                random weights): (a) phi3.5-moe-42b-a6.6b at 16 of its 32
                layers (top-2 of 16 experts, capacity 1.25: 160 slots a
                sequence) serving 8 prompts of 1,024 tokens + 16 new, and
@@ -291,7 +311,7 @@ exits non-zero:
                1 layer on 1 x 1,024 (the plain path replaying the kernel
                path's routes); K4 and K5 timed at phi3.5-moe's shapes
                beside SDPA and their bounds.
-17. ``vlm``    llama-3.2-vision-90b at full width: (a) 2 of its 20 super
+19. ``vlm``    llama-3.2-vision-90b at full width: (a) 2 of its 20 super
                blocks (10 layers) serving 4 prompts of 1,024 tokens + 16
                new over seeded image embeddings (4 x 1,024 x 8,192, 0.1 x
                normal) on both paths as in ``moe`` (K4 10 launches a
@@ -422,6 +442,20 @@ MOE_F32_LAYERS, MOE_F32_SEQ = 1, 1024
 VLM_ARCH, VLM_SUPERS, VLM_BATCH, VLM_PROMPT, VLM_STEPS = (
     "llama-3.2-vision-90b", 2, 4, 1024, 16)
 VLM_TRAIN_SUPERS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 1, 2, 1024
+# the dryrun phase: the train phase's own cell counted on meta tensors at
+# one position; the band its predicted peak must keep against the measured
+# peaks (PERF.md section 6, PR 26: stated before the first chip run); the
+# arguments within 1% of what init_train_state allocates; one full-size
+# production cell on meta, timed
+DRYRUN_PEAK_BAND = (0.90, 1.05)
+DRYRUN_ARG_TOL = 0.01
+DRYRUN_FULL_CELL = ("llama4-maverick-400b-a17b", "decode_32k", "single")
+BF16_FLOPS_PER_S_DENSE = 989e12  # the step share's denominator
+# the examples phase: the five twins of examples/*.py at their own default
+# sizes, all at once, each a subprocess
+EXAMPLES = ("quickstart", "streaming_topics", "diversity_service",
+            "serving_diverse", "diverse_training")
+EXAMPLES_TIMEOUT_S = 900
 BLOCK = 128  # the streaming scan's block size on the main path
 INGEST_BATCH = 16_384
 PREFIX = 2048
@@ -3535,7 +3569,8 @@ def phase_train(seed: int) -> dict:
               flash_attention_fwd_train_shape=k4))
     del state, params
     torch.cuda.empty_cache()
-    return dict(launches=launches, k5=k5, k5_err=k5_err)
+    return dict(launches=launches, k5=k5, k5_err=k5_err, step_s=step_s,
+                peak=peak)
 
 
 def _on_positions(state, specs, n: int):
@@ -3945,6 +3980,184 @@ def _nudged(params, g):
     return dict(params, embed=torch.where(
         hit, (params["embed"].float() * (1 + 2**-7)).to(torch.bfloat16),
         params["embed"]))
+
+
+def phase_dryrun(seed: int, train: dict) -> dict:
+    """The port's dry run of the ``train`` phase's own cell, held to the
+    card (see the module's list)."""
+    import torch
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.train import (
+        AdamWConfig, init_train_state, make_train_step,
+    )
+    from repro_torch.train.train_state import StepConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_16x2048", "train", TRAIN_SEQ, TRAIN_BATCH)
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS,
+                          warmup_steps=min(100, TRAIN_STEPS // 10 + 1))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cell = dryrun.count_cell(cfg, shape,
+                             dryrun.meta_mesh((1, 1), ("data", "model")),
+                             opt_cfg=opt_cfg, step_cfg=StepConfig())
+    trace_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(not any(launches.values()), f"the dry run launched {launches}")
+    lm, mem = cell["lm"], cell["memory"]
+    predicted = mem["argument_bytes"] + mem["output_bytes"] \
+        + mem["temp_bytes"] - mem["alias_bytes"]
+
+    # (a) the arguments against what the state and the batch take
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    state = init_train_state(lm, seed, opt_cfg, device="cuda")
+    tokens = torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                         device="cuda")
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    arg_rel = abs(allocated - mem["argument_bytes"]) / mem["argument_bytes"]
+    check(arg_rel <= DRYRUN_ARG_TOL,
+          f"argument_bytes {mem['argument_bytes']} against {allocated} "
+          f"allocated: {arg_rel:.4f} relative, over {DRYRUN_ARG_TOL}")
+
+    # (b) the traced program itself, the plain path's step, on the card
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(lm, opt_cfg, force="ref")
+    t0 = time.perf_counter()
+    state, m = step(state, {"tokens": tokens})
+    torch.cuda.synchronize()
+    plain_step_s = time.perf_counter() - t0
+    plain_peak = torch.cuda.max_memory_allocated() - before
+    del state, m, tokens
+    torch.cuda.empty_cache()
+    lo, hi = DRYRUN_PEAK_BAND
+    r_plain = predicted / plain_peak
+    r_train = predicted / train["peak"]
+    check(lo <= r_plain <= hi,
+          f"predicted peak {predicted} / the plain step's {plain_peak} = "
+          f"{r_plain:.4f}, outside {DRYRUN_PEAK_BAND}")
+    check(lo <= r_train <= hi,
+          f"predicted peak {predicted} / the train phase's {train['peak']} "
+          f"= {r_train:.4f}, outside {DRYRUN_PEAK_BAND}")
+
+    # (c) one full-size production cell on meta
+    arch, shape_name, mesh_kind = DRYRUN_FULL_CELL
+    t0 = time.perf_counter()
+    full = dryrun.count_cell(get_config(arch), SHAPES[shape_name],
+                             dryrun.production_mesh(mesh_kind))
+    full_s = time.perf_counter() - t0
+    check(not any(ops.launch_counts().values()),
+          "the full-size dry run launched a kernel")
+    dev = cell["per_device"]
+    emit(dict(phase="dryrun", arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+              seq=TRAIN_SEQ, positions=1, trace_s=trace_s,
+              ops=cell["counted"]["ops"], per_device=dev,
+              counted=cell["counted"], kernels=[
+                  {key: k[key] for key in ("kernel", "launches",
+                                           "plain_flops", "kernel_flops",
+                                           "plain_bytes", "kernel_bytes")}
+                  for k in cell["kernels"]],
+              memory=mem, argument_bytes=mem["argument_bytes"],
+              allocated_bytes=allocated, argument_rel_diff=arg_rel,
+              predicted_peak_bytes=predicted,
+              plain_step_peak_bytes=plain_peak, plain_step_s=plain_step_s,
+              train_phase_peak_bytes=train["peak"],
+              peak_ratio_plain=r_plain, peak_ratio_train=r_train,
+              peak_band=DRYRUN_PEAK_BAND, full_cell=dict(
+                  arch=arch, shape=shape_name, mesh=mesh_kind,
+                  seconds=full_s, ops=full["counted"]["ops"],
+                  per_device=full["per_device"],
+                  peak_estimate_gib=full["memory"]["peak_estimate_gib"])))
+    # the port's first share of a whole step: MODEL_FLOPS over the measured
+    # step time at the bf16 dense peak
+    mf = dryrun.model_flops(cfg, shape, lm)
+    share = mf / (train["step_s"] * BF16_FLOPS_PER_S_DENSE)
+    emit(dict(phase="dryrun_step_share", arch=TRAIN_ARCH,
+              model_flops=mf, step_s=train["step_s"],
+              peak_flops=BF16_FLOPS_PER_S_DENSE, step_share=share,
+              kernel_path_flops=dev["flops"],
+              kernel_path_share=dev["flops"] / (
+                  train["step_s"] * BF16_FLOPS_PER_S_DENSE)))
+    return dict(launches=launches, step_share=share)
+
+
+_EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "from repro_torch.kernels import ops\n"
+    "name = sys.argv[1]\n"
+    "sys.argv = [name] + sys.argv[2:]\n"
+    "ops.reset_launches()\n"
+    "runpy.run_module('repro_torch.examples.' + name, run_name='__main__')\n"
+    "print('LAUNCHES ' + json.dumps(ops.launch_counts()))\n")
+
+
+def phase_examples() -> dict:
+    """The five twins of ``examples/*.py`` on the card, each a subprocess,
+    all at once (see the module's list)."""
+    import os
+    import shutil
+
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "chip_smoke_examples"
+    shutil.rmtree(out, ignore_errors=True)  # a rerun would resume training
+    out.mkdir(parents=True)
+    args = {"diversity_service": ["--out-dir", str(out)],
+            "diverse_training": ["--ckpt-dir", str(out / "ckpt")]}
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = {}
+    ends: dict = {}
+    t0 = time.perf_counter()
+    try:
+        for name in EXAMPLES:
+            log = open(out / f"{name}.log", "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", _EXAMPLE_RUNNER, name,
+                 *args.get(name, [])], cwd=root, env=env, stdout=log,
+                stderr=subprocess.STDOUT), log)
+        while len(ends) < len(procs) \
+                and time.perf_counter() - t0 < EXAMPLES_TIMEOUT_S:
+            for name, (proc, _log) in procs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            time.sleep(0.2)
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    results = {}
+    for name, (proc, _log) in procs.items():
+        text = (out / f"{name}.log").read_text()
+        if proc.returncode != 0 or name not in ends:
+            sys.stderr.write(text[-4000:])
+        check(name in ends, f"the {name} twin ran past "
+                            f"{EXAMPLES_TIMEOUT_S} s")
+        check(proc.returncode == 0,
+              f"the {name} twin exited {proc.returncode}")
+        counts = [json.loads(line[len("LAUNCHES "):])
+                  for line in text.splitlines()
+                  if line.startswith("LAUNCHES ")]
+        results[name] = dict(seconds=ends[name],
+                             launches=counts[-1] if counts else None,
+                             log_tail=text.strip().splitlines()[-3:])
+    launches = {k: 0 for k in ops.launch_counts()}
+    for r in results.values():
+        for k, n in (r["launches"] or {}).items():
+            launches[k] += n
+    emit(dict(phase="examples", wall_s=time.perf_counter() - t0,
+              examples=results, launches=launches,
+              note="diverse_training's kernels launch in its two "
+                   "launch.train children, not counted here"))
+    return dict(launches=launches)
 
 
 def phase_train_ssm(seed: int) -> dict:
@@ -4681,6 +4894,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_sharded = phase_train_sharded(args.seed)
     torch.cuda.empty_cache()
+    dry = phase_dryrun(args.seed, train)
+    torch.cuda.empty_cache()
+    examples = phase_examples()
+    torch.cuda.empty_cache()
     train_ssm = phase_train_ssm(args.seed)
     torch.cuda.empty_cache()
     moe = phase_moe(args.seed)
@@ -4698,6 +4915,8 @@ def main() -> int:
                            lm=lm["launches"][name],
                            train=train["launches"][name],
                            train_sharded=train_sharded["launches"][name],
+                           dryrun=dry["launches"][name],
+                           examples=examples["launches"][name],
                            train_ssm=train_ssm["launches"][name],
                            moe=moe["launches"][name],
                            vlm=vlm["launches"][name])

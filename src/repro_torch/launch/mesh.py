@@ -34,18 +34,50 @@ gather across ranks (of the whole tensors for ``psum``, of each shard's
 slices onto its rank for ``psum_scatter``), so that they too agree bit
 for bit and do not depend on the backend's reduction order.
 
+Each collective adds its operand bytes (one position's tensor, in the
+dtype it is summed in) to a counter by kind: ``collective_bytes()`` reads
+it and ``reset_collective_bytes()`` clears it, as ``ops.launch_counts``
+does for the kernels. ``models.sharding.gather_tree`` counts its
+in-process assembly as the all-gather it stands for.
+
 Nothing here touches device state at import.
 """
 from __future__ import annotations
 
 import itertools
 import math
+import threading
+from collections import defaultdict
 from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..device import DeviceLike
+
+_BYTES: dict = defaultdict(int)
+_BYTES_MU = threading.Lock()
+
+
+def note_collective(kind: str, x: torch.Tensor,
+                    dtype: Optional[torch.dtype] = None) -> None:
+    """Add one position's operand, ``x`` (in ``dtype`` if given), to the
+    ``kind`` counter ("all-gather", "all-reduce", "reduce-scatter")."""
+    size = (dtype or x.dtype).itemsize
+    with _BYTES_MU:
+        _BYTES[kind] += x.numel() * size
+
+
+def collective_bytes() -> dict[str, int]:
+    """Operand bytes of one position by collective kind since the last
+    ``reset_collective_bytes``."""
+    with _BYTES_MU:
+        return dict(_BYTES)
+
+
+def reset_collective_bytes() -> None:
+    with _BYTES_MU:
+        _BYTES.clear()
 
 
 class Mesh:
@@ -167,6 +199,7 @@ class Mesh:
         first local device. ``parts`` are this process's shards'
         tensors, in ``local_shards`` order."""
         axes = self._check_axes(axes)
+        note_collective("all-gather", parts[0])
         if not self.multi_rank:
             dev = parts[0].device
             return torch.cat([p.to(dev) for p in parts], dim)
@@ -195,6 +228,7 @@ class Mesh:
         """Elementwise sum over ``axes``, added in shard order; one result
         per local shard, on its device."""
         axes = self._check_axes(axes)
+        note_collective("all-reduce", parts[0])
         red = _ordered_sum(self._every_shard(parts, axes))
         return [red.to(p.device) for p in parts]
 
@@ -214,6 +248,7 @@ class Mesh:
         (NCCL's ``reduce_scatter_tensor`` would hold no more than its
         slice and sum on the wire, in its own order)."""
         axes = self._check_axes(axes)
+        note_collective("reduce-scatter", parts[0], dtype)
         if dtype is not None and not self.multi_rank:
             parts = [p.to(dtype) for p in parts]
         n = self.axis_size(axes)
@@ -258,6 +293,7 @@ class Mesh:
         """Elementwise max over ``axes``; one result per local shard, on
         its device."""
         axes = self._check_axes(axes)
+        note_collective("all-reduce", parts[0])
         if not self.multi_rank:
             dev = parts[0].device
             red = torch.amax(torch.stack([p.to(dev) for p in parts]), dim=0)

@@ -38,6 +38,8 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from ..launch.mesh import note_collective
+
 FSDP = ("data",)
 TP = "model"
 
@@ -385,6 +387,7 @@ def _gather_leaf(parts: list, spec: P, mesh, dev: torch.device):
             if mesh.axis_size(axes) > 1:
                 x = mesh.all_gather([x], axes, dim=dim)
         return x.to(dev)
+    note_collective("all-gather", parts[0])
     full = torch.empty(shape, dtype=parts[0].dtype, device=dev)
     for p, part in enumerate(parts):
         full[slices_of(shape, spec, mesh, p)] = part

@@ -284,7 +284,7 @@ def _unflatten(like, leaves: list):
 def _check_fsdp(specs: list, mesh) -> None:
     """The step trains FSDP: a leaf is whole or split along one dim over
     every axis of the mesh of size > 1 (tensor parallelism is step
-    13.6)."""
+    13.7)."""
     busy = tuple(a for a in mesh.axis_names if mesh.shape[a] > 1)
     for spec in specs:
         dims = [e for e in spec if entry_axes(e)]
@@ -295,5 +295,5 @@ def _check_fsdp(specs: list, mesh) -> None:
             raise NotImplementedError(
                 f"spec {spec} on mesh {mesh.shape}: the train step shards "
                 f"a leaf along one dim over every data axis (FSDP); tensor "
-                f"parallel training is ROADMAP.md step 13.6")
+                f"parallel training is ROADMAP.md step 13.7")
 

@@ -25,6 +25,7 @@ from repro.serve import diversity as jdiv
 from repro_torch import obs
 from repro_torch.core.diversity import diversity
 from repro_torch.core.matroid import MatroidSpec
+from repro_torch.core.solvers import CostModel
 from repro_torch.serve.diversity import (
     CoalesceConfig,
     DiversityQuery,
@@ -325,13 +326,77 @@ def test_frontend_close_idempotent_and_coalescer_refuses_after(rng):
     rt.close()
 
 
+class _FrozenCostModel(CostModel):
+    """The seeds' estimates, never refined: routing does not depend on
+    how long a solve took."""
+
+    def observe(self, *args, **kwargs) -> None:
+        return None
+
+
+class _OneWindowRounds:
+    """Makes each round of concurrent calls one window, however late a
+    loaded host schedules a thread: the round's unfinished calls count as
+    active from its start (so the window's early close waits for every
+    one of them to park), and a caller that took the solo path is held
+    until the others are parked (so at most one call is solo: while it is
+    inside the frontend every later call sees another active caller)."""
+
+    def __init__(self, fe):
+        self.fe = fe
+        self.pending = 0
+        self.mu = threading.Lock()
+        real_active, real_direct = fe.active_calls, fe._query_batch_direct
+
+        def active_calls():
+            return max(real_active(), self.pending)
+
+        def direct(*args, **kwargs):
+            if self.pending:
+                _wait(lambda: fe.coalescer.parked >= self.pending - 1)
+            return real_direct(*args, **kwargs)
+
+        fe.active_calls = active_calls
+        fe._query_batch_direct = direct
+
+    def run(self, calls):
+        self.pending = len(calls)
+
+        def call(t, qs):
+            try:
+                return self.fe.query_batch(qs, tenant=t)
+            finally:
+                with self.mu:
+                    self.pending -= 1
+
+        return _concurrently(_Caller(call), calls)
+
+
+class _Caller:
+    """``_concurrently``'s frontend: ``query_batch`` through ``fn``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def query_batch(self, qs, tenant):
+        return self.fn(tenant, qs)
+
+
 def test_cross_tenant_stacked_parity_through_frontend(rng):
     """A mixed multi-tenant window executes as stacked cross-tenant solves
     and every answer equals the direct per-tenant path. dispatchers=1
-    keeps window assembly deterministic."""
+    keeps window assembly deterministic; each round is one window
+    (``_OneWindowRounds``, a fixed window that only the early close ends)
+    and the cost model is frozen, so which lanes stack does not depend on
+    the host's load."""
     reg = obs.MetricsRegistry()
-    rt, fe = _frontend(rng, reg,
-                       coalesce=CoalesceConfig(window_s=0.02, dispatchers=1))
+    spec = MatroidSpec("partition", num_categories=4, gamma=1)
+    rt = StreamRuntime(spec, 5, tau=24, caps=np.full(4, 3, np.int32),
+                       registry=reg, device=CPU)
+    fe = QueryFrontend(rt, registry=reg, cost_model=_FrozenCostModel(),
+                       coalesce=CoalesceConfig(window_s=10.0, adaptive=False,
+                                               dispatchers=1))
+    rt.ingest(*_data(rng, 300))
     fe.register_tenant("uniform", spec=MatroidSpec("uniform"))
     fe.register_tenant("uniform2", spec=MatroidSpec("uniform"))
     fe.register_tenant("part2", spec=MatroidSpec("partition",
@@ -348,8 +413,9 @@ def test_cross_tenant_stacked_parity_through_frontend(rng):
     ]
     baseline = [fe._query_batch_direct(list(qs), tenant=fe.tenants.get(t))
                 for t, qs in calls]
+    rounds = _OneWindowRounds(fe)
     for _round in range(3):
-        for got, want in zip(_concurrently(fe, calls), baseline):
+        for got, want in zip(rounds.run(calls), baseline):
             for a, b in zip(got, want):
                 _assert_same(a, b)
     assert reg.counter("serve.coalesce.stacked_solves").value >= 1

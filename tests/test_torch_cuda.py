@@ -1417,3 +1417,66 @@ def test_sharded_restore_from_two_positions_onto_one(cuda, tmp_path):
                                rtol=1e-6)
     for (k, a), (_, b) in zip(_paths(sh.gather_tree(state)), _paths(plain)):
         assert _rel(a, b) <= 1e-4, (k, _rel(a, b))
+
+
+# --------------------------------------------------------------------------
+# the dry run (launch/dryrun.py) held to the card
+# --------------------------------------------------------------------------
+
+
+def _dryrun_cell(batch, seq):
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.train_state import StepConfig
+
+    opt = AdamWConfig()
+    cell = dryrun.count_cell(
+        get_config("smollm-135m"), ShapeConfig("t", "train", seq, batch),
+        dryrun.meta_mesh((1, 1), ("data", "model")), opt_cfg=opt,
+        step_cfg=StepConfig())
+    return cell, opt
+
+
+def test_dryrun_argument_bytes_equal_the_allocated_state(cuda):
+    """smollm-135m's state and a 4 x 1,024 batch: what the dry run counts
+    on meta tensors against what the card allocates, within 1% (the
+    caching allocator leaves a large tensor the rest of its block: 0.36%
+    at chip_smoke.py's 16 x 2,048)."""
+    from repro_torch.train import init_train_state
+
+    cell, opt = _dryrun_cell(4, 1024)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(cuda)
+    state = init_train_state(cell["lm"], 0, opt, device=cuda)
+    tokens = torch.zeros((4, 1024), dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    got = torch.cuda.memory_allocated(cuda) - before
+    want = cell["memory"]["argument_bytes"]
+    assert abs(got - want) <= 1e-2 * want, (got, want)
+    del state, tokens
+
+
+def test_dryrun_peak_matches_the_plain_step_on_the_card(cuda):
+    """The traced plain-path step's predicted peak against the same step's
+    measured peak on the card (smollm-135m, 4 x 1,024): within the band
+    chip_smoke.py holds (0.90-1.05)."""
+    from repro_torch.train import init_train_state, make_train_step
+
+    cell, opt = _dryrun_cell(4, 1024)
+    mem = cell["memory"]
+    predicted = (mem["argument_bytes"] + mem["output_bytes"]
+                 + mem["temp_bytes"] - mem["alias_bytes"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(cuda)
+    state = init_train_state(cell["lm"], 0, opt, device=cuda)
+    tokens = torch.zeros((4, 1024), dtype=torch.int32, device=cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    step = make_train_step(cell["lm"], opt, force="ref")
+    state, _m = step(state, {"tokens": tokens})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - before
+    assert 0.90 <= predicted / peak <= 1.05, (predicted, peak)
+    del state, tokens

@@ -49,7 +49,12 @@ def test_port_files_exist():
               "serve/diversity/health.py", "serve/diversity/replication.py",
               "serve/diversity/audit.py", "core/mapreduce.py",
               "core/distributed_gmm.py", "launch/mesh.py",
-              "train/compression.py"):
+              "train/compression.py", "launch/dryrun.py",
+              "launch/op_cost.py", "examples/quickstart.py",
+              "examples/streaming_topics.py",
+              "examples/diversity_service.py",
+              "examples/serving_diverse.py",
+              "examples/diverse_training.py"):
         assert f"src/repro_torch/{f}" in names
 
 

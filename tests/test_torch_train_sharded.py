@@ -295,7 +295,7 @@ def test_sharding_arguments_are_checked():
     tp_specs = state_specs(sh.param_specs(lm.abstract_params(), ("data",),
                                           tp="model"), c)
     m2 = make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="13.6"):
+    with pytest.raises(NotImplementedError, match="13.7"):
         make_train_step(lm, c, mesh=m2)(
             init_train_state(lm, 0, c, mesh=m2, specs=tp_specs), batch)
     # a batch of 3 rows does not split over 2 positions: every position
