@@ -237,7 +237,35 @@ exits non-zero:
                launches (the kernels line's column sums the sharded steps
                of all three, each counted from its own reset), and that
                the NCCL run did not run (one card).
-15. ``dryrun``  the port's dry run (``launch/dryrun.py``) of the ``train``
+15. ``train_tp`` tensor-parallel training (the reference's
+               ``param_specs(..., tp="model")``) on in-process ``("data",
+               "model")`` meshes of the one card, each position computing
+               its own heads, MLP columns and vocab columns: smollm-135m
+               at full width and depth on (2, 3) (3 query heads and 1 kv
+               head a position), 16 x 2,048, bf16, 3 steps (diverse
+               selection inside, launch counts set to 0 before and read
+               after: K4 and K5 6 x the unsharded step's, each call on a
+               sixth of its B x heads rows) against 3 unsharded steps from
+               the same state under the ``train`` phase's bf16 rule, then
+               2 warm steps of each arm, alternating, for the step times,
+               and one more of each under the profiler (busy share, top
+               kernels);
+               in f32 at 4 x 1,024, one step against one unsharded (loss
+               within 1e-5, every parameter and moment leaf within 1e-3
+               relative L2); musicgen-medium at full width and 4 of its 48
+               layers on (1, 4) (6 heads a position, GELU, untied head),
+               one bf16 step against one unsharded under the same rule,
+               K4 and K5 4 x. Each arm's step-0 collective bytes by kind
+               (the data axis's gathers and reduce-scatters, the model
+               axis's reduce-outs, copy-ins and max) must equal the dry
+               run's count for its shape (``dryrun.fsdp_collectives`` with
+               ``tp``, ``dryrun.tp_collectives``). In each arm K4 and K5
+               are held against their plain versions at the inputs of
+               their first calls on a position's own heads (the ``train``
+               phase's tolerances), after the arm's launches are read.
+               Printed: step times, peaks and those bytes beside the
+               unsharded arms'.
+16. ``dryrun``  the port's dry run (``launch/dryrun.py``) of the ``train``
                phase's own cell, smollm-135m at 16 x 2,048 on one position,
                counted on meta tensors (no kernel launches: the counts are
                read around it and must stay 0): its ``argument_bytes``
@@ -250,14 +278,14 @@ exits non-zero:
                Printed on a line of its own: MODEL_FLOPS of the cell over
                the ``train`` phase's step time at 989 TFLOP/s, the port's
                first share of a whole step.
-16. ``examples`` the five twins of ``examples/*.py``
+17. ``examples`` the five twins of ``examples/*.py``
                (``python -m repro_torch.examples.<name>``) on the card at
                their default sizes, all at once, each a subprocess that
                must exit 0 within ``EXAMPLES_TIMEOUT_S``; each one's
                seconds and its kernel launches (``diverse_training``'s are
                in its two ``launch.train`` children), logs under
                ``build/chip_smoke_examples/``.
-17. ``train_ssm`` the training path of the ssm and hybrid families: (a) K6b
+18. ``train_ssm`` the training path of the ssm and hybrid families: (a) K6b
                (the SSD intra-chunk backward) against its plain version at
                test shapes (q 1, 16, 48, 100, 256; per-cell B and C, and
                the model's layout with B and C shared by the heads), and at
@@ -286,7 +314,7 @@ exits non-zero:
                training), one step at batch 2 x 2,048 through K4, K5, K6
                and K6b in one graph, its launches counted, against the
                plain path under the rules of (b).
-18. ``moe``    the moe family at full width and reduced depth (bf16,
+19. ``moe``    the moe family at full width and reduced depth (bf16,
                random weights): (a) phi3.5-moe-42b-a6.6b at 16 of its 32
                layers (top-2 of 16 experts, capacity 1.25: 160 slots a
                sequence) serving 8 prompts of 1,024 tokens + 16 new, and
@@ -311,7 +339,7 @@ exits non-zero:
                1 layer on 1 x 1,024 (the plain path replaying the kernel
                path's routes); K4 and K5 timed at phi3.5-moe's shapes
                beside SDPA and their bounds.
-19. ``vlm``    llama-3.2-vision-90b at full width: (a) 2 of its 20 super
+20. ``vlm``    llama-3.2-vision-90b at full width: (a) 2 of its 20 super
                blocks (10 layers) serving 4 prompts of 1,024 tokens + 16
                new over seeded image embeddings (4 x 1,024 x 8,192, 0.1 x
                normal) on both paths as in ``moe`` (K4 10 launches a
@@ -413,6 +441,13 @@ SHARD_F32_BATCH, SHARD_F32_SEQ, SHARD_RESTORE_ONTO = 4, 1024, 2
 SHARD_HYBRID_LAYERS, SHARD_HYBRID_POSITIONS = 6, 2
 SHARD_HYBRID_BATCH, SHARD_HYBRID_SEQ = 2, 1024
 SHARD_HYBRID_TIMED = 3  # warm steps of each arm behind the step times
+# the train_tp phase: tensor parallel on in-process ("data", "model")
+# meshes of the one card: smollm-135m on (2, 3) (9 heads and 3 kv heads:
+# 3 and 1 a position), its f32 check's batch, and musicgen-medium at full
+# width and 4 of its 48 layers on (1, 4) (24 heads: 6 a position)
+TP_MESH, TP_STEPS, TP_NUDGES, TP_TIMED = (2, 3), 3, 3, 2
+TP_F32_BATCH, TP_F32_SEQ = 4, 1024
+TP_AUDIO_ARCH, TP_AUDIO_LAYERS, TP_AUDIO_MESH = "musicgen-medium", 4, (1, 4)
 TRAIN_SSM_ARCH = "mamba2-2.7b"
 TRAIN_SSM_BATCH, TRAIN_SSM_SEQ, TRAIN_SSM_STEPS = 8, 2048, 3
 TRAIN_SSM_F32_BATCH = 1  # the f32 copy of 2.83 B parameters and its grads
@@ -3856,6 +3891,296 @@ def phase_train_sharded(seed: int) -> dict:
     return dict(launches=total)
 
 
+class _HeadRows(_OpsWrap):
+    """While entered, the rows (B x heads, the first dim of q) of every K4
+    and K5 call, per op, and a copy of the inputs of each op's first call
+    (``args[name]``, as ``_Capture`` keeps them)."""
+
+    NAMES = ("flash_attention_fwd", "flash_attention_bwd")
+
+    def __enter__(self):
+        self.rows = {name: set() for name in self.NAMES}
+        self.args = {}
+        return super().__enter__()
+
+    def _wrap(self, name, fn):
+        def call(q, *args, **kw):
+            self.rows[name].add(int(q.shape[0]))
+            if name not in self.args:
+                self.args[name] = ([a.clone() for a in (q, *args)], kw)
+            return fn(q, *args, **kw)
+        return call
+
+
+def _tp_kernel_checks(hr: _HeadRows, what: str) -> list:
+    """K4 and K5 against their plain versions on the inputs of their first
+    calls on a position's own heads in a tensor-parallel step (K4: the
+    first layer's forward; K5: the last layer's backward), at the
+    ``train`` phase's tolerances. Called after the step's launches are
+    read, so these launches count on no path."""
+    fa, fkw = hr.args["flash_attention_fwd"]
+    ba, bkw = hr.args["flash_attention_bwd"]
+    return [_check_flash(*fa, fkw["causal"],
+                         f"{what}: a position's heads, the first layer's "
+                         f"forward"),
+            _check_flash_bwd(*ba, bkw["causal"],
+                             f"{what}: a position's heads, the last "
+                             f"layer's backward")]
+
+
+def _tp_place(lm, params, opt_cfg, shape):
+    """A fresh state from ``params`` placed by the tensor-parallel specs on
+    an in-process ("data", "model") mesh of ``shape`` positions of the
+    card, and the mesh."""
+    import math as _m
+
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.train.train_state import state_specs
+
+    mesh = make_mesh(shape, ("data", "model"),
+                     devices=["cuda"] * _m.prod(shape))
+    specs = state_specs(sh.param_specs(lm.abstract_params(), ("data",),
+                                       tp="model"), opt_cfg)
+    return sh.shard_tree(_fresh_state(params, opt_cfg), specs, mesh,
+                         donate=True), mesh
+
+
+def _tp_dry(lm, shape, batch: int, seq: int) -> dict:
+    """The dry run's count of one tensor-parallel step's collective bytes
+    a position, by kind: the data axis's and the model axis's."""
+    from repro_torch.launch import dryrun
+    from repro_torch.train.train_state import StepConfig
+
+    want = dict(dryrun.fsdp_collectives(lm, StepConfig(), shape[0], batch,
+                                        tp=shape[1]))
+    want.update(dryrun.tp_collectives(lm, StepConfig(), shape[0], shape[1],
+                                      (batch, seq)))
+    return want
+
+
+def _tp_step_counted(step, state, batch) -> tuple:
+    """One synced step with the collective counters cleared before it:
+    (state, loss, seconds, collective bytes by kind)."""
+    from repro_torch.launch.mesh import collective_bytes, \
+        reset_collective_bytes
+
+    reset_collective_bytes()
+    state, loss, dt = _step_synced(step, state, batch)
+    return state, loss, dt, collective_bytes()
+
+
+def _tp_launch_rule(what: str, launches, plain, n_pos: int,
+                    rows, plain_rows) -> None:
+    """K4 and K5 launch ``n_pos`` times as often as on the unsharded step,
+    each call on 1/n_pos of its rows (B x heads)."""
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(launches[name] == n_pos * plain[name] > 0,
+              f"{what}: {name} launched {launches[name]} times, expected "
+              f"{n_pos} x the unsharded {plain[name]}")
+        (full,) = plain_rows[name]
+        check(rows[name] == {full // n_pos},
+              f"{what}: {name} ran on rows {sorted(rows[name])}, expected "
+              f"{full // n_pos} (the unsharded {full} / {n_pos})")
+
+
+def phase_train_tp(seed: int) -> dict:
+    """Tensor-parallel training on in-process ("data", "model") meshes of
+    the one card, against the unsharded step (see the module's list)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_map
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    n_pos = TP_MESH[0] * TP_MESH[1]
+    cfg = get_config(TRAIN_ARCH)
+    lm = LM(cfg)
+    params = lm.init(seed, device="cuda")
+    opt_cfg = AdamWConfig(total_steps=TP_STEPS,
+                          warmup_steps=min(100, TP_STEPS // 10 + 1))
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=seed)
+    pipe = Pipeline(data_cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    # (a) the main path: smollm-135m on (2, 3), the selection inside
+    state, mesh = _tp_place(lm, params, opt_cfg, TP_MESH)
+    step = make_train_step(lm, opt_cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    batches, losses, times, colls = [], [], [], None
+    with _HeadRows() as hr:
+        for i in range(TP_STEPS):
+            batches.append(pipe.batch_at(i)["tokens"])
+            state, loss, dt, c = _tp_step_counted(step, state,
+                                                  {"tokens": batches[-1]})
+            if i == 0:
+                colls = c
+            losses.append(loss)
+            times.append(dt)
+    launches = ops.launch_counts()
+    arms = dict(smollm=launches)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plain = _fresh_state(params, opt_cfg)
+    pstep = make_train_step(lm, opt_cfg)
+    ops.reset_launches()
+    plain_losses, plain_times = [], []
+    with _HeadRows() as hr_plain:
+        for b in batches:
+            plain, loss, dt = _step_synced(pstep, plain, {"tokens": b})
+            plain_losses.append(loss)
+            plain_times.append(dt)
+    plain_launches = ops.launch_counts()
+    plain_peak = torch.cuda.max_memory_allocated()
+    # warm steps of both arms, alternating, for the step times
+    warm, plain_warm = [], []
+    for _ in range(TP_TIMED):
+        state, _l, dt = _step_synced(step, state, {"tokens": batches[-1]})
+        warm.append(dt)
+        plain, _l, dt = _step_synced(pstep, plain, {"tokens": batches[-1]})
+        plain_warm.append(dt)
+    # one more warm step of each under the profiler: busy share, kernels
+    prof = device_profile(lambda: step(state, {"tokens": batches[-1]}))
+    plain_prof = device_profile(lambda: pstep(plain,
+                                              {"tokens": batches[-1]}))
+    del state, plain, step, pstep
+    _tp_launch_rule("train_tp smollm", launches, plain_launches, n_pos,
+                    hr.rows, hr_plain.rows)
+    kernel_lines = _tp_kernel_checks(hr, "train_tp smollm bf16")
+    want = dict(gmm_update=TP_STEPS * data_cfg.selector_tau,
+                pairwise_sqdist=0, center_precheck=0, ssd_intra_chunk=0,
+                ssd_intra_chunk_bwd=0)
+    check(all(launches[k] == n for k, n in want.items()),
+          f"train_tp launches {launches}, expected {want} beside K4/K5")
+    dry = _tp_dry(lm, TP_MESH, TRAIN_BATCH, TRAIN_SEQ)
+    check(colls == dry, f"train_tp collective bytes {colls}, the dry run "
+                        f"counts {dry}")
+    nudged = [_run_steps(lm, _nudged(params, g), batches, opt_cfg)
+              for _ in range(TP_NUDGES)]
+    diffs, floors, limits = _loss_rule(losses, plain_losses, nudged)
+    check(all(map(math.isfinite, losses)), f"non-finite {losses}")
+    emit(dict(phase="train_tp_steps", arch=TRAIN_ARCH, mesh=list(TP_MESH),
+              axes=["data", "model"], heads_per_position=[
+                  cfg.n_heads // TP_MESH[1], cfg.n_kv // TP_MESH[1]],
+              batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TP_STEPS,
+              launches=launches, unsharded_launches=plain_launches,
+              k4_k5_rows={k: sorted(v) for k, v in hr.rows.items()},
+              unsharded_k4_k5_rows={k: sorted(v)
+                                    for k, v in hr_plain.rows.items()},
+              losses=losses, unsharded_losses=plain_losses,
+              nudged_unsharded_losses=nudged, loss_abs_diffs=diffs,
+              nudge_abs_diffs=floors, loss_abs_diff_limits=limits,
+              step_s=statistics.median(warm), step_times_s=times,
+              warm_step_times_s=warm,
+              unsharded_step_s=statistics.median(plain_warm),
+              unsharded_step_times_s=plain_times,
+              unsharded_warm_step_times_s=plain_warm,
+              peak_device_bytes=peak, unsharded_peak_device_bytes=plain_peak,
+              profiled_step=prof, unsharded_profiled_step=plain_prof,
+              collective_bytes=colls, dryrun_collective_bytes=dry,
+              note="every position sits on the one card and they run in "
+                   "turn, so the sums cross no wire; the bytes are what "
+                   "one position would send"))
+
+    # (b) f32 at 4 x 1,024: one step on (2, 3) against one unsharded
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32"))
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    toks = batches[0][:TP_F32_BATCH, :TP_F32_SEQ].contiguous()
+    plain = _fresh_state(p32, opt_cfg)
+    plain, loss_p, _dt = _step_synced(make_train_step(lm32, opt_cfg), plain,
+                                      {"tokens": toks})
+    state, m32 = _tp_place(lm32, p32, opt_cfg, TP_MESH)
+    del p32
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with _HeadRows() as hr32:
+        state, loss_s, dt32, c32 = _tp_step_counted(
+            make_train_step(lm32, opt_cfg, mesh=m32), state,
+            {"tokens": toks})
+    arms["f32"] = ops.launch_counts()
+    peak32 = torch.cuda.max_memory_allocated()
+    kernel_lines += _tp_kernel_checks(hr32, "train_tp f32")
+    f32 = _f32_pair("train_tp f32 step", loss_s, loss_p, state, plain)
+    dry32 = _tp_dry(lm32, TP_MESH, TP_F32_BATCH, TP_F32_SEQ)
+    check(c32 == dry32, f"train_tp f32 collective bytes {c32}, the dry "
+                        f"run counts {dry32}")
+    del state, plain, params
+    torch.cuda.empty_cache()
+    emit(dict(phase="train_tp_f32", mesh=list(TP_MESH), batch=TP_F32_BATCH,
+              seq=TP_F32_SEQ, launches=arms["f32"], step_s=dt32,
+              peak_device_bytes=peak32, collective_bytes=c32,
+              dryrun_collective_bytes=dry32, **f32))
+
+    # (c) musicgen-medium at full width, 4 of 48 layers, on (1, 4)
+    n_a = TP_AUDIO_MESH[0] * TP_AUDIO_MESH[1]
+    cfg_a = dataclasses.replace(get_config(TP_AUDIO_ARCH),
+                                n_layers=TP_AUDIO_LAYERS)
+    lm_a = LM(cfg_a)
+    p_a = lm_a.init(seed, device="cuda")
+    tok_a = [torch.randint(0, cfg_a.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=g, device="cuda")]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with _HeadRows() as hr_plain:
+        plain, loss_p, dt_p = _step_synced(make_train_step(lm_a, opt_cfg),
+                                           _fresh_state(p_a, opt_cfg),
+                                           {"tokens": tok_a[0]})
+    plain_launches = ops.launch_counts()
+    plain_peak = torch.cuda.max_memory_allocated()
+    del plain
+    state, m_a = _tp_place(lm_a, p_a, opt_cfg, TP_AUDIO_MESH)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with _HeadRows() as hr:
+        state, loss_s, dt_s, c_a = _tp_step_counted(
+            make_train_step(lm_a, opt_cfg, mesh=m_a), state,
+            {"tokens": tok_a[0]})
+    arms["musicgen"] = launches_a = ops.launch_counts()
+    peak_a = torch.cuda.max_memory_allocated()
+    del state
+    kernel_lines += _tp_kernel_checks(hr, "train_tp musicgen bf16")
+    _tp_launch_rule("train_tp musicgen", launches_a, plain_launches, n_a,
+                    hr.rows, hr_plain.rows)
+    dry_a = _tp_dry(lm_a, TP_AUDIO_MESH, TRAIN_BATCH, TRAIN_SEQ)
+    check(c_a == dry_a, f"train_tp musicgen collective bytes {c_a}, the "
+                        f"dry run counts {dry_a}")
+    nudged = [_run_steps(lm_a, _nudged(p_a, g), tok_a, opt_cfg)
+              for _ in range(TP_NUDGES)]
+    diffs, floors, limits = _loss_rule([loss_s], [loss_p], nudged)
+    check(math.isfinite(loss_s), f"non-finite {loss_s}")
+    del p_a
+    torch.cuda.empty_cache()
+    emit(dict(phase="train_tp_audio", arch=TP_AUDIO_ARCH,
+              layers=TP_AUDIO_LAYERS, params=lm_a.param_count(),
+              mesh=list(TP_AUDIO_MESH), heads_per_position=[
+                  cfg_a.n_heads // TP_AUDIO_MESH[1],
+                  cfg_a.n_kv // TP_AUDIO_MESH[1]],
+              batch=TRAIN_BATCH, seq=TRAIN_SEQ, launches=launches_a,
+              unsharded_launches=plain_launches,
+              k4_k5_rows={k: sorted(v) for k, v in hr.rows.items()},
+              loss=loss_s, unsharded_loss=loss_p,
+              nudged_unsharded_losses=nudged, loss_abs_diffs=diffs,
+              nudge_abs_diffs=floors, loss_abs_diff_limits=limits,
+              step_s=dt_s, unsharded_step_s=dt_p,
+              note="one step each, cold: the times include first-call "
+                   "costs",
+              peak_device_bytes=peak_a,
+              unsharded_peak_device_bytes=plain_peak,
+              collective_bytes=c_a, dryrun_collective_bytes=dry_a))
+    total = {}
+    for counts in arms.values():
+        total = _add_counts(total, counts)
+    emit(dict(phase="train_tp_kernels", checks=kernel_lines))
+    emit(dict(phase="train_tp_launches", arms=arms, total=total))
+    return dict(launches=total)
+
+
 def _add_counts(a: dict, b: dict) -> dict:
     """Two launch-count dicts summed key by key."""
     return {k: a.get(k, 0) + b.get(k, 0) for k in a.keys() | b.keys()}
@@ -4894,6 +5219,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_sharded = phase_train_sharded(args.seed)
     torch.cuda.empty_cache()
+    train_tp = phase_train_tp(args.seed)
+    torch.cuda.empty_cache()
     dry = phase_dryrun(args.seed, train)
     torch.cuda.empty_cache()
     examples = phase_examples()
@@ -4915,6 +5242,7 @@ def main() -> int:
                            lm=lm["launches"][name],
                            train=train["launches"][name],
                            train_sharded=train_sharded["launches"][name],
+                           train_tp=train_tp["launches"][name],
                            dryrun=dry["launches"][name],
                            examples=examples["launches"][name],
                            train_ssm=train_ssm["launches"][name],

@@ -29,7 +29,9 @@ Per cell:
   parameters, so its FLOPs are the unsharded step's on its rows), prefill
   ``lm.prefill``, decode ``lm.decode_step``, all with ``force="ref"``.
   Per-device FLOPs and bytes are the position's divided by the model-axis
-  size: an ideal tensor-parallel split, which the port does not run.
+  size: an ideal tensor-parallel split (the port's tensor-parallel step,
+  dense and audio only, also repeats the norms and the residual stream on
+  every model position, which this leaves out).
 * **Collectives.** The FSDP step's own (``train/train_state.py``): an
   all-gather of every sharded parameter slice once a step
   (``gather_tree``), and per microbatch, where the batch splits over the
@@ -37,8 +39,17 @@ Per cell:
   all-reduce of each whole one in ``accum_dtype`` plus the loss; the
   clip norm's all-reduce once a step. Operand bytes of one position, as
   the mesh's counters count them (``launch.mesh.collective_bytes``).
-  The tensor-parallel collectives are ``null``: the port trains no
-  tensor parallelism (ROADMAP.md step 13.7).
+  ``tp_collectives`` are the model axis's, for a train cell of the dense
+  and audio families, which the port trains tensor parallel (ROADMAP.md
+  step 13.7): a position's reduce-outs, copy-ins and max a step, worked
+  out from the step's schedule (``tp_collectives``) and added to the
+  per-device collective bytes. There the record's data-axis
+  ``collectives`` are that step's own, a device's (``fsdp_collectives``
+  with ``tp``); in other train cells they are the FSDP specs' over an
+  ideal model-axis split. The other families' train cells are
+  ``null`` with the step that would train them, as are prefill and decode
+  (the port serves unsharded); a cell whose model axis does not divide
+  ``n_kv`` is counted, with the step that would run it as its reason.
 * **Memory.** ``argument_bytes`` is ``local_bytes`` of the state (or
   parameters and caches) and the batch by the specs. ``temp_bytes`` comes
   from the traced run: the most live storage beyond the arguments and the
@@ -90,12 +101,13 @@ import torch
 
 from ..configs import ARCH_IDS, SHAPES, get_config, shape_applicable
 from ..kernels import ref as _ref
-from ..models.model import DTYPES, LM, tree_leaves
+from ..models.model import DTYPES, LM, check_tensor_parallel, tree_leaves
 from ..models.sharding import (
     cache_specs,
     local_bytes,
     param_specs,
     spec_leaves,
+    split_dims,
 )
 from ..train.optimizer import AdamWConfig
 from ..train import train_state as _train_state
@@ -114,10 +126,9 @@ HBM_BW = 3.35e12  # B/s
 LINK_BW = 900e9  # B/s, NVLink (H100 SXM data sheet, a GPU's total)
 TILE = 64  # K4/K5/K6/K6b tile rows
 
-TP_COLLECTIVES_REASON = (
-    "the port trains no tensor parallelism (train_state.py refuses a "
-    "model-axis spec; ROADMAP.md step 13.7), so no tensor-parallel "
-    "collective is issued or counted")
+TP_SERVE_REASON = (
+    "the port serves unsharded: no tensor-parallel collective runs "
+    "in prefill or decode")
 
 
 # --------------------------------------------------------------------------
@@ -390,33 +401,67 @@ def _kernel_records(totals: dict) -> list:
 
 
 def fsdp_collectives(lm: LM, step_cfg: StepConfig, n: int,
-                     global_batch: int) -> dict:
-    """Operand bytes a position puts into the sharded step's collectives
-    in one step over ``n`` positions of one data axis (what
-    ``launch.mesh.collective_bytes`` counts for it): the all-gather of
-    each sharded parameter slice (``gather_tree``, once a step); where the
-    batch splits over the positions (``global_batch % (M n) == 0``), per
-    microbatch a reduce-scatter of each sharded gradient leaf and an
-    all-reduce of each whole one, cast to ``accum_dtype``, and the loss's
-    all-reduce (f32); the clip norm's all-reduce once a step."""
-    if n <= 1:
+                     global_batch: int, tp: int = 1) -> dict:
+    """Operand bytes a position puts into the sharded step's data-axis
+    collectives in one step over ``n`` positions of one data axis and
+    ``tp`` of the model axis (the tensor-parallel specs where ``tp > 1``;
+    what ``launch.mesh.collective_bytes`` counts for it): the all-gather
+    of each data-sharded slice of the position's model slices
+    (``gather_over``, once a step); where the batch splits over the data
+    positions (``global_batch % (M n) == 0``), per microbatch a
+    reduce-scatter of each data-sharded gradient leaf (a model slice) and
+    an all-reduce of each other one, cast to ``accum_dtype``, and the
+    loss's all-reduce (f32); the clip norm's all-reduce once a step."""
+    if n * tp <= 1:
         return {}
     params = lm.abstract_params()
-    specs = spec_leaves(params, param_specs(params, ("data",), tp=None))
+    specs = spec_leaves(params, param_specs(
+        params, ("data",), tp="model" if tp > 1 else None))
     M = step_cfg.microbatches
     asz = DTYPES[step_cfg.accum_dtype].itemsize
-    out = {"all-gather": 0, "all-reduce": 4}
+    out = {"all-reduce": 4}
+    leaves = []  # (data-split?, a position's model-slice numel, the leaf)
     for leaf, spec in zip(tree_leaves(params), specs):
-        if any(e is not None for e in spec):
-            out["all-gather"] += leaf.numel() // n * leaf.element_size()
-    if global_batch % (M * n) == 0:
+        ddim, mdim = split_dims(spec, "model")
+        leaves.append((ddim is not None, leaf.numel()
+                       // (tp if mdim is not None else 1), leaf))
+    if n > 1:
+        out["all-gather"] = sum(numel // n * leaf.element_size()
+                                for split, numel, leaf in leaves if split)
+    if n > 1 and global_batch % (M * n) == 0:
         out["reduce-scatter"] = 0
-        for leaf, spec in zip(tree_leaves(params), specs):
-            kind = ("reduce-scatter" if any(e is not None for e in spec)
-                    else "all-reduce")
-            out[kind] += M * leaf.numel() * asz
+        for split, numel, _leaf in leaves:
+            out["reduce-scatter" if split else "all-reduce"] += \
+                M * numel * asz
         out["all-reduce"] += M * 4
     return out
+
+
+def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
+                   batch: tuple) -> dict:
+    """Operand bytes a position puts into the model axis's collectives in
+    one tensor-parallel step (``LM.tp_loss`` under the sharded step) over
+    ``n_dp`` data and ``tp`` model positions, ``batch`` = (global batch,
+    sequence): per microbatch of ``rows`` rows (the batch over M, and over
+    ``n_dp`` where it splits) and per dense block, the attention-out and
+    MLP-out reduce-outs, their copy-ins' backward sums and remat's
+    recompute of both reduce-outs (their operands f32: ``WideProduct``);
+    the embedding's reduce-out and the head's copy-in (the model's dtype);
+    the loss's gold and sum-of-exp reduce-outs and its max ((rows, S - 1)
+    f32 each)."""
+    if tp <= 1:
+        return {}
+    cfg = lm.cfg
+    B, S = batch
+    M = step_cfg.microbatches
+    split = n_dp > 1 and B % (M * n_dp) == 0
+    rows = B // M // (n_dp if split else 1)
+    tok = rows * S * cfg.d_model
+    act = tok * DTYPES[cfg.dtype].itemsize
+    vec = rows * (S - 1) * 4
+    L = sum(count for kind, count in lm.plan if kind == "dense")
+    return {"reduce-out": M * (act + 4 * L * tok * 4 + 2 * vec),
+            "copy-in": M * act * (2 * L + 1), "max": M * vec}
 
 
 # --------------------------------------------------------------------------
@@ -553,8 +598,30 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
     bytes_pos = (res["hbm_bytes"] - sum(k["plain_bytes"] for k in kernels)
                  + sum(k["kernel_bytes"] for k in kernels)
                  - opt["bytes"] * opt_share)
-    colls = (fsdp_collectives(lm, step_cfg, n_dp, shape.global_batch)
-             if shape.kind == "train" else {})
+    tp_colls, tp_reason = None, TP_SERVE_REASON
+    if shape.kind == "train" and tp > 1:
+        try:
+            check_tensor_parallel(cfg, tp)
+            tp_reason = None
+        except NotImplementedError as e:
+            tp_reason = str(e)
+        if cfg.family in ("dense", "audio"):
+            tp_colls = tp_collectives(lm, step_cfg, n_dp, tp,
+                                      (shape.global_batch, shape.seq_len))
+    elif shape.kind == "train":
+        tp_colls, tp_reason = {}, None
+    tp_bytes = float(sum((tp_colls or {}).values()))
+    # the data axes' bytes: a device's in the tensor-parallel step where it
+    # is counted, else the FSDP specs' over an ideal model-axis split
+    if shape.kind != "train":
+        colls_dev = colls = {}
+    elif tp > 1 and tp_colls is not None:
+        colls_dev = fsdp_collectives(lm, step_cfg, n_dp, shape.global_batch,
+                                     tp=tp)
+        colls = {k: v * tp for k, v in colls_dev.items()}
+    else:
+        colls = fsdp_collectives(lm, step_cfg, n_dp, shape.global_batch)
+        colls_dev = {k: v / tp for k, v in colls.items()}
     coll_pos = float(sum(colls.values()))
     return dict(
         lm=lm, rows=rows, n_dp=n_dp, tp=tp, shardable=shardable,
@@ -564,8 +631,9 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
         per_position=dict(flops=flops_pos, hbm_bytes=bytes_pos,
                           collective_bytes=coll_pos, collectives=colls),
         per_device=dict(flops=flops_pos / tp, hbm_bytes=bytes_pos / tp,
-                        collective_bytes=coll_pos / tp),
-        collectives={k: v / tp for k, v in sorted(colls.items())},
+                        collective_bytes=coll_pos / tp + tp_bytes),
+        collectives=dict(sorted(colls_dev.items())),
+        tp_collectives=tp_colls, tp_collectives_reason=tp_reason,
         top_dots=res["top_dots"], kernels=kernels, memory=mem,
         trace_s=trace_s, extra=extra)
 
@@ -613,19 +681,22 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, overrides: dict,
         per_device=dev,
         per_device_split=(f"a data position's counts over the {tp} "
                           f"positions of the model axis: an ideal "
-                          f"tensor-parallel split, which the port does "
-                          f"not run"),
+                          f"tensor-parallel split (the port trains the "
+                          f"dense and audio families so, and serves "
+                          f"unsharded), plus the model axis's own "
+                          f"collectives where they are counted"),
         per_position=c["per_position"],
         rows_per_position=c["rows"],
         counted=c["counted"],
         kernels=c["kernels"],
         collectives=c["collectives"],
-        tp_collectives=None,
-        tp_collectives_reason=TP_COLLECTIVES_REASON,
+        tp_collectives=c["tp_collectives"],
+        tp_collectives_reason=c["tp_collectives_reason"],
         top_dots=[[round(f / tp / 1e9, 2), m] for f, m in c["top_dots"][:8]],
         top_collectives=[
             [round(b / 1e9, 3), k] for k, b in sorted(
-                c["collectives"].items(), key=lambda kv: -kv[1])[:8]
+                {**c["collectives"], **(c["tp_collectives"] or {})}.items(),
+                key=lambda kv: -kv[1])[:8]
         ],
         terms_s=terms, dominant=dominant,
         model_flops_global=mf, useful_flops_ratio=round(useful, 4),

@@ -34,11 +34,28 @@ gather across ranks (of the whole tensors for ``psum``, of each shard's
 slices onto its rank for ``psum_scatter``), so that they too agree bit
 for bit and do not depend on the backend's reduction order.
 
+For tensor-parallel training (ROADMAP.md step 13.7) a ``ModelGroup``
+holds the positions of one row of the model axis that this process
+drives, and three collectives over them that autograd differentiates:
+``copy_in`` (the identity forward, one view a position; its backward sums
+the positions' gradients), ``reduce_out`` (the sum of the positions'
+parts forward; the identity backward) and ``pmax`` (a max with no
+gradient). Their sums too are added in shard order, a bf16 or f16 part
+widened to f32 and the sum rounded once, so an in-process row (one
+autograd graph over its positions) and the ranks of a multi-rank one
+give the same bits.
+
 Each collective adds its operand bytes (one position's tensor, in the
-dtype it is summed in) to a counter by kind: ``collective_bytes()`` reads
-it and ``reset_collective_bytes()`` clears it, as ``ops.launch_counts``
-does for the kernels. ``models.sharding.gather_tree`` counts its
-in-process assembly as the all-gather it stands for.
+dtype it is summed in) to a counter by kind ("all-gather",
+"reduce-scatter", "all-reduce" over data axes; "reduce-out", "copy-in",
+"max" over the model axis): ``collective_bytes()`` reads it and
+``reset_collective_bytes()`` clears it, as ``ops.launch_counts`` does for
+the kernels. ``models.sharding.gather_tree`` counts its in-process
+assembly as the all-gather it stands for. An in-process mesh runs each
+position's share itself; a collective called with ``count=False`` (a
+``ModelGroup`` built so) counts nothing, which the train step uses so that
+the counters hold one position's bytes, as each rank of a multi-rank mesh
+counts its own.
 
 Nothing here touches device state at import.
 """
@@ -62,7 +79,7 @@ _BYTES_MU = threading.Lock()
 def note_collective(kind: str, x: torch.Tensor,
                     dtype: Optional[torch.dtype] = None) -> None:
     """Add one position's operand, ``x`` (in ``dtype`` if given), to the
-    ``kind`` counter ("all-gather", "all-reduce", "reduce-scatter")."""
+    ``kind`` counter (see the module)."""
     size = (dtype or x.dtype).itemsize
     with _BYTES_MU:
         _BYTES[kind] += x.numel() * size
@@ -193,13 +210,16 @@ class Mesh:
         return self._groups[key]
 
     def all_gather(self, parts: Sequence[torch.Tensor],
-                   axes: Sequence[str], dim: int = 0) -> torch.Tensor:
+                   axes: Sequence[str], dim: int = 0, *,
+                   count: bool = True) -> torch.Tensor:
         """Tiled all-gather along ``dim`` over ``axes``: the shard-major
         concatenation of every shard's tensor (equal shapes), on the
         first local device. ``parts`` are this process's shards'
-        tensors, in ``local_shards`` order."""
+        tensors, in ``local_shards`` order. ``count``: add the bytes to
+        ``collective_bytes`` (so in every collective here)."""
         axes = self._check_axes(axes)
-        note_collective("all-gather", parts[0])
+        if count:
+            note_collective("all-gather", parts[0])
         if not self.multi_rank:
             dev = parts[0].device
             return torch.cat([p.to(dev) for p in parts], dim)
@@ -223,19 +243,20 @@ class Mesh:
         dist.all_gather(out, x.contiguous(), group=self.group(axes))
         return out
 
-    def psum(self, parts: Sequence[torch.Tensor],
-             axes: Sequence[str]) -> list[torch.Tensor]:
+    def psum(self, parts: Sequence[torch.Tensor], axes: Sequence[str], *,
+             count: bool = True) -> list[torch.Tensor]:
         """Elementwise sum over ``axes``, added in shard order; one result
         per local shard, on its device."""
         axes = self._check_axes(axes)
-        note_collective("all-reduce", parts[0])
+        if count:
+            note_collective("all-reduce", parts[0])
         red = _ordered_sum(self._every_shard(parts, axes))
         return [red.to(p.device) for p in parts]
 
     def psum_scatter(self, parts: Sequence[torch.Tensor],
                      axes: Sequence[str], dim: int,
-                     dtype: Optional[torch.dtype] = None
-                     ) -> list[torch.Tensor]:
+                     dtype: Optional[torch.dtype] = None, *,
+                     count: bool = True) -> list[torch.Tensor]:
         """Reduce-scatter: the elementwise sum over ``axes``, added in
         shard order (in ``dtype``, by default the parts'), of which each
         local shard gets its slice along ``dim`` (shard s the s-th of
@@ -248,7 +269,8 @@ class Mesh:
         (NCCL's ``reduce_scatter_tensor`` would hold no more than its
         slice and sum on the wire, in its own order)."""
         axes = self._check_axes(axes)
-        note_collective("reduce-scatter", parts[0], dtype)
+        if count:
+            note_collective("reduce-scatter", parts[0], dtype)
         if dtype is not None and not self.multi_rank:
             parts = [p.to(dtype) for p in parts]
         n = self.axis_size(axes)
@@ -310,6 +332,86 @@ def _ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     for p in parts[1:]:
         acc = acc + p
     return acc
+
+
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+def _wide_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The ordered sum of ``parts`` in f32 where they are bf16 or f16,
+    rounded once to their dtype; a new tensor even for one part."""
+    dt = parts[0].dtype
+    if dt not in _NARROW:
+        return _ordered_sum(parts) if len(parts) > 1 else parts[0].clone()
+    return _ordered_sum([p.to(torch.float32) for p in parts]).to(dt)
+
+
+class ModelGroup:
+    """The positions of one row of ``mesh`` along its model axis ``axis``
+    that this process drives (in-process: every position of the row, in
+    shard order; multi-rank: its own), with the tensor-parallel
+    collectives over them (see the module). ``index[i]`` is local position
+    i's shard index along the axis, ``devices[i]`` its device; ``size`` is
+    the axis's length. ``count``: its collectives add their bytes to
+    ``collective_bytes`` (an in-process mesh counts one row's)."""
+
+    def __init__(self, mesh: "Mesh", axis: str, positions: Sequence[int],
+                 count: bool = True):
+        self.mesh, self.axis, self.count = mesh, axis, bool(count)
+        self.positions = list(positions)
+        self.devices = [mesh.devices[p] for p in self.positions]
+        self.index = [mesh.shard_index(p, (axis,)) for p in self.positions]
+        self.size = mesh.shape[axis]
+
+    def _sum(self, parts: Sequence[torch.Tensor], kind: str) -> torch.Tensor:
+        if self.count:
+            note_collective(kind, parts[0])
+        return _wide_sum(self.mesh._every_shard(
+            [p.contiguous() for p in parts], (self.axis,)))
+
+    def copy_in(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``x`` on each local position (a view where it is on the
+        position's device); the backward is the sum of the positions'
+        gradients in shard order."""
+        return list(_CopyIn.apply(self, x))
+
+    def reduce_out(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum over the axis of the positions' ``parts``, on the first
+        local position's device; the backward hands each part the
+        gradient of the sum."""
+        return _ReduceOut.apply(self, *parts)
+
+    def pmax(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The elementwise max over the axis, on the first local
+        position's device, with no gradient."""
+        parts = [p.detach().contiguous() for p in parts]
+        if self.count:
+            note_collective("max", parts[0])
+        every = self.mesh._every_shard(parts, (self.axis,))
+        return torch.amax(torch.stack(every), dim=0)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group: ModelGroup, x: torch.Tensor):
+        ctx.group, ctx.device = group, x.device
+        return tuple(x.view_as(x) if d == x.device else x.to(d)
+                     for d in group.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, ctx.group._sum(grads, "copy-in").to(ctx.device)
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group: ModelGroup, *parts: torch.Tensor):
+        ctx.devices = [p.device for p in parts]
+        return group._sum(parts, "reduce-out")
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(g.to(d) for d in ctx.devices))
 
 
 def _default_rank_device(rank: int) -> torch.device:

@@ -3,7 +3,9 @@ kernel K4), SwiGLU/GELU MLPs, and the parameter specs they draw from.
 
 Reference: ``repro/models/common.py`` (``rms_norm`` :19, ``rope`` :26,
 ``blockwise_attention`` :53, ``decode_attention`` :159, ``mlp_apply``
-:194, ``mlp_init`` :206, ``attn_init`` :225, ``attn_qkv`` :238). The cast
+:194, ``mlp_init`` :206, ``attn_init`` :225, ``attn_qkv`` :238).
+``mlp_hidden`` and ``WideProduct`` serve tensor-parallel training: the MLP
+on a model slice of its columns, and a row slice's product in f32. The cast
 points are the reference's: rms_norm and RoPE in f32 and back to x's
 dtype, SiLU/GELU in f32, decode attention upcast to f32. Matmuls keep the
 config dtype (bf16 by default) and go to ``torch.matmul``, as the
@@ -154,18 +156,50 @@ def decode_attention(
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def mlp_apply(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+def mlp_hidden(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+    """The MLP's activation, the input of ``w_out``: on the columns of
+    ``w_in`` (and ``w_gate``) that ``p`` holds, all or a model slice."""
     if kind == "swiglu":
         gate = x @ p["w_gate"]
         up = x @ p["w_in"]
-        h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-        return h @ p["w_out"]
+        return F.silu(gate.to(torch.float32)).to(x.dtype) * up
     if kind == "gelu":
         # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu((x @ p["w_in"]).to(torch.float32),
-                   approximate="tanh").to(x.dtype)
-        return h @ p["w_out"]
+        return F.gelu((x @ p["w_in"]).to(torch.float32),
+                      approximate="tanh").to(x.dtype)
     raise ValueError(kind)
+
+
+def mlp_apply(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+    return mlp_hidden(x, p, kind) @ p["w_out"]
+
+
+class WideProduct(torch.autograd.Function):
+    """``x @ w`` (x: (..., K), w: (K, N)) with the product kept in f32
+    where x and w are bf16 or f16 (f32 accumulation, no rounding to their
+    dtype), for a row slice of ``wo`` or ``w_out`` whose products the
+    model axis sums: the sum then rounds once, as the whole product does.
+    The backward is the plain product's (dy rounded to x's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.dtype == torch.float32:
+            y = x2 @ w
+        elif x.is_cuda:
+            y = torch.mm(x2, w, out_dtype=torch.float32)
+        else:  # no mm.dtype on the CPU: bf16 products are exact in f32
+            y = x2.to(torch.float32) @ w.to(torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy2 = dy.to(x.dtype).reshape(-1, dy.shape[-1])
+        dx = dy2 @ w.t()
+        dw = x.reshape(-1, x.shape[-1]).t() @ dy2
+        return dx.reshape(x.shape), dw
 
 
 def mlp_init(d: int, f: int, kind: str, dtype) -> dict:

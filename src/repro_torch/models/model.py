@@ -46,6 +46,33 @@ an image of another length is refused.
 The reference's ``constrain`` calls are left out: the port's
 ``models.sharding.constrain`` is the identity (a position of a data mesh
 computes on its own batch slice already).
+
+Tensor parallel (ROADMAP.md step 13.7; the dense and audio families):
+``LM.tp_loss`` is ``LM.loss`` over the positions of one row of a model
+axis (a ``launch.mesh.ModelGroup``), each with its model slices of the
+parameters, as the reference's ``param_specs(..., tp="model")`` lays them
+out and its ``constrain(..., "tp")`` points place the work. The embedding
+is vocab-parallel: each position looks up the tokens of its vocab rows
+and writes zeros elsewhere, then a reduce-out. Each block copies its
+normed input in, runs attention on the position's own heads (its column
+slices of ``wq``/``wk``/``wv``: ``n_heads/tp`` query and ``n_kv/tp`` kv
+heads, through K4 and K5 as ever) and the MLP on its columns of
+``w_in``/``w_gate``, and sums the row slices' products with ``wo`` and
+``w_out`` by a reduce-out, each product kept in f32 and the sum rounded
+once to the model's dtype (``common.WideProduct``): a bf16 sum of bf16
+partial products would round every partial, which the whole product
+does not, so only the order of the f32 sums differs from it. The head
+makes each position's vocab columns of the logits, tied or not, and the
+loss takes the gold logit as a masked gather and a reduce-out, ``m`` from
+the no-gradient max over the axis (the reference's ``m`` carries a
+gradient that cancels to zero), and ``logz = m + log(reduce-out(sum
+exp(lg - m)))`` in f32: the full (B, S, V) logits are never gathered.
+Replicated work (norms, residual stream, RoPE angles) is done once a row
+with the first position's copy of a replicated leaf.
+Under grad mode each block is always checkpointed (remat), with the
+positions' slices as its arguments, and its recompute runs the whole block
+(early stop off), so a step makes the collectives that
+``launch.dryrun.tp_collectives`` counts, whatever the last saved tensor.
 """
 from __future__ import annotations
 
@@ -54,17 +81,19 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..configs.base import ArchConfig
 from ..device import CUDA, DeviceLike, resolve_device
 from .common import (
     Init,
+    WideProduct,
     attn_init,
     attn_qkv,
     blockwise_attention,
     decode_attention,
     mlp_apply,
+    mlp_hidden,
     mlp_init,
     normal,
     ones,
@@ -260,6 +289,75 @@ def _cross_attn_full(p, x, img, cfg: ArchConfig, want_cache, force):
 
 def _mlp_sub(p, x, cfg: ArchConfig):
     return x + mlp_apply(rms_norm(x, p["ln2"]), p["mlp"], cfg.mlp)
+
+
+# ---- tensor parallel over a model axis (see the module) ----
+
+# ROADMAP.md steps of the families that do not train on a model axis yet
+_TP_STEPS = {"ssm": "13.8", "hybrid": "13.8", "moe": "13.9", "vlm": "13.10"}
+
+
+def check_tensor_parallel(cfg: ArchConfig, tp: int) -> None:
+    """Raise, naming the ROADMAP.md step, where the port cannot train
+    ``cfg`` over a model axis of ``tp`` positions."""
+    if tp <= 1:
+        return
+    if cfg.family in _TP_STEPS:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a model axis of {tp}: tensor "
+            f"parallel training covers the dense and audio families; this "
+            f"one is ROADMAP.md step {_TP_STEPS[cfg.family]}")
+    if cfg.n_kv % tp:
+        raise NotImplementedError(
+            f"{cfg.name} on a model axis of {tp}: {tp} does not divide its "
+            f"{cfg.n_kv} kv heads, and a position takes whole kv heads "
+            f"(heads resharded across the axis are ROADMAP.md step 13.11)")
+
+
+def _vocab_rows(embed, tokens, lo: int):
+    """The embedding rows of the tokens in ``[lo, lo + rows)`` from a
+    position's vocab slice ``embed``, zeros for the others."""
+    local = tokens - lo
+    hit = (local >= 0) & (local < embed.shape[0])
+    x = F.embedding(torch.where(hit, local, 0), embed)
+    return torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+
+
+def _tp_self_attn_full(ps, x, ctx):
+    """``_self_attn_full`` over a model axis: ``ps`` are the local
+    positions' block slices, ``ctx["group"]`` their ``ModelGroup``."""
+    cfg, group = ctx["cfg"], ctx["group"]
+    tp = group.size
+    h = rms_norm(x, ps[0]["ln1"])
+    B, S = x.shape[:2]
+    outs = []
+    for p, hj in zip(ps, group.copy_in(h)):
+        q, k, v = attn_qkv(hj, p["attn"], cfg.n_heads // tp, cfg.n_kv // tp,
+                           cfg.hd)
+        pos = ctx["positions"].to(hj.device)
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+        o = blockwise_attention(q, k, v, causal=True, force=ctx["force"])
+        outs.append(WideProduct.apply(o.reshape(B, S, -1), p["attn"]["wo"]))
+    return x + group.reduce_out(outs).to(x.dtype)
+
+
+def _tp_mlp_sub(ps, x, ctx):
+    """``_mlp_sub`` over a model axis: each position's MLP columns, the
+    row slices' f32 products summed by a reduce-out."""
+    cfg, group = ctx["cfg"], ctx["group"]
+    h = rms_norm(x, ps[0]["ln2"])
+    outs = [WideProduct.apply(mlp_hidden(hj, p["mlp"], cfg.mlp),
+                              p["mlp"]["w_out"])
+            for p, hj in zip(ps, group.copy_in(h))]
+    return x + group.reduce_out(outs).to(x.dtype)
+
+
+def _tp_dense_block(ps, x, ctx):
+    """One dense block over a model axis: the function each checkpoint
+    recomputes."""
+    return _tp_mlp_sub(ps, _tp_self_attn_full(ps, x, ctx), ctx)
 
 
 def _moe_sub(p, x, cfg: ArchConfig):
@@ -581,6 +679,61 @@ class LM:
         ce = torch.mean(logz - gold)
         return ce + 0.01 * aux, dict(ce=ce, aux=aux)
 
+    def tp_loss(self, parts: list, tokens, group, *,
+                force: Optional[str] = None):
+        """``loss`` over a model axis (see the module): ``parts[i]`` is the
+        parameter tree of ``group``'s local position i, its model slices
+        whole along the data axes. Returns what ``loss`` returns, the same
+        on every position of the row (on the first local position's
+        device)."""
+        cfg = self.cfg
+        tp = group.size
+        check_tensor_parallel(cfg, tp)
+        first = parts[0]
+        dev = first["embed"].device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        B, S = tokens.shape
+        vp = cfg.vocab_padded // tp
+        x = group.reduce_out([
+            _vocab_rows(p["embed"], tokens.to(p["embed"].device), j * vp)
+            for p, j in zip(parts, group.index)])
+        ctx = dict(cfg=cfg, group=group, force=force,
+                   positions=torch.arange(S, dtype=torch.int32,
+                                          device=dev).expand(B, S))
+        remat = torch.is_grad_enabled()
+        for si, (_kind, count) in enumerate(self.plan):
+            for i in range(count):
+                ps = [_index(p[f"seg{si}"], i) for p in parts]
+                if remat:
+                    with set_checkpoint_early_stop(False):
+                        x = checkpoint(_tp_dense_block, ps, x, ctx,
+                                       use_reentrant=False)
+                else:
+                    x = _tp_dense_block(ps, x, ctx)
+        h = rms_norm(x, first["final_norm"])
+        tgt = tokens[:, 1:]
+        golds, lgs = [], []
+        for p, hj, j in zip(parts, group.copy_in(h), group.index):
+            w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+            lg = (hj @ w)[:, :-1]
+            t = tgt.to(lg.device) - j * vp
+            hit = (t >= 0) & (t < vp)
+            g = torch.gather(lg, -1, torch.where(hit, t, 0)[..., None])[..., 0]
+            golds.append(torch.where(hit, g, torch.zeros(
+                (), dtype=g.dtype, device=g.device)).to(torch.float32))
+            lgs.append(lg)
+        gold = group.reduce_out(golds)
+        m = group.pmax([lg.detach().amax(-1).to(torch.float32)
+                        for lg in lgs])
+        se = group.reduce_out([
+            torch.sum(torch.exp(lg.to(torch.float32)
+                                - m.to(lg.device)[..., None]), dim=-1)
+            for lg in lgs])
+        logz = m + torch.log(se)
+        ce = torch.mean(logz - gold)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        return ce + 0.01 * aux, dict(ce=ce, aux=aux)
+
     # ---- serving ----
 
     def prefill(self, params, tokens, img=None, *,
@@ -670,4 +823,5 @@ def tree_map(fn, *trees):
 
 
 __all__ = ["LM", "layer_plan", "block_init", "block_apply_full",
-           "block_apply_decode", "tree_leaves", "tree_map"]
+           "block_apply_decode", "check_tensor_parallel", "tree_leaves",
+           "tree_map"]

@@ -18,10 +18,12 @@ Placement is the port's ``NamedSharding`` + ``device_put``:
 ``launch.mesh.Mesh`` (every position of an in-process mesh, its own on a
 multi-rank one) its own copy of its slice of every leaf, along the
 dimensions its spec names; ``gather_tree`` gives the whole tree back.
-Splits must be even: an uneven one raises and names the leaf. Tensor
-parallelism is specs only here: the train step (``train/train_state.py``)
-trains a tree sharded over the data axes (FSDP), and a tp spec is read by
-the dry run (ROADMAP.md step 13.6).
+Splits must be even: an uneven one raises and names the leaf.
+``gather_over(tree, axes)`` gathers over some axes only: what each
+position of a ("data", "model") mesh needs for tensor-parallel training
+(ROADMAP.md step 13.7) is its model slice of every leaf, whole along the
+data axes. ``split_dims`` names the dim of a spec that the data axes split
+and the one that the model axis splits.
 
 The activation mesh is kept for the reference's API only:
 ``set_activation_mesh(dp, tp)`` records the axes and ``activation_mesh``
@@ -281,18 +283,52 @@ def _check_spec(path, shape, spec, mesh) -> None:
                 f"evenly over {n} positions of {entry_axes(entry)}")
 
 
-def slices_of(shape, spec: P, mesh, position: int) -> tuple:
-    """The index of ``position``'s slice of a leaf of ``shape``."""
+def split_dims(spec: P, tp: Optional[str]) -> tuple:
+    """(the dim that data axes split, the dim that the model axis ``tp``
+    splits) of a spec, each ``None`` where there is none: an entry that is
+    ``tp`` alone is the model dim, any other named entry the data dim.
+    Raises where two dims are of one kind."""
+    found = {"data": [], "model": []}
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if axes:
+            found["model" if tp is not None and axes == (tp,)
+                  else "data"].append(dim)
+    if len(found["data"]) > 1 or len(found["model"]) > 1:
+        raise NotImplementedError(
+            f"spec {spec}: more than one dim split over the data axes, or "
+            f"over the model axis {tp!r}")
+    return tuple(d[0] if d else None for d in found.values())
+
+
+def _within(entry, axes) -> bool:
+    """Whether ``axes`` (None: every axis) cover a spec entry's axes;
+    raises where they cover only some of them."""
+    names = entry_axes(entry)
+    if axes is None or not names:
+        return True
+    inside = [a in axes for a in names]
+    if any(inside) and not all(inside):
+        raise ValueError(f"entry {entry} is split partly over {tuple(axes)}")
+    return all(inside)
+
+
+def slices_of(shape, spec: P, mesh, position: int, axes=None) -> tuple:
+    """The index of ``position``'s slice of a leaf of ``shape``, along the
+    dims whose spec entries ``axes`` name (default: every dim)."""
     out = []
     for dim, size in enumerate(shape):
         entry = spec[dim] if dim < len(spec) else None
-        axes = entry_axes(entry)
-        n = mesh.axis_size(axes)
+        if not _within(entry, axes):
+            out.append(slice(None))
+            continue
+        axes_d = entry_axes(entry)
+        n = mesh.axis_size(axes_d)
         if n == 1:
             out.append(slice(None))
             continue
         c = size // n
-        s = mesh.shard_index(position, axes)
+        s = mesh.shard_index(position, axes_d)
         out.append(slice(s * c, (s + 1) * c))
     return tuple(out)
 
@@ -370,28 +406,50 @@ def shard_tree(tree: Any, specs: Any, mesh, *,
     return ShardedTree(mesh, specs, shards)
 
 
-def _full_shape(part_shape, spec: P, mesh) -> tuple[int, ...]:
-    return tuple(size * mesh.axis_size(entry_axes(
-        spec[dim] if dim < len(spec) else None))
-        for dim, size in enumerate(part_shape))
+def _full_shape(part_shape, spec: P, mesh, axes=None) -> tuple[int, ...]:
+    out = []
+    for dim, size in enumerate(part_shape):
+        entry = spec[dim] if dim < len(spec) else None
+        out.append(size * mesh.axis_size(entry_axes(entry))
+                   if _within(entry, axes) else size)
+    return tuple(out)
 
 
-def _gather_leaf(parts: list, spec: P, mesh, dev: torch.device):
-    shape = _full_shape(parts[0].shape, spec, mesh)
-    if tuple(parts[0].shape) == shape:  # whole on every position
+def _gather_leaf(parts: list, spec: P, mesh, dev: torch.device, axes,
+                 positions: list, count: bool = True):
+    """One leaf whole along the dims that ``axes`` split, from the slices
+    ``parts`` of ``positions`` (every position that differs only along
+    ``axes`` on an in-process mesh; this rank's on a multi-rank one).
+    ``count``: add the all-gather's bytes to ``collective_bytes``."""
+    shape = _full_shape(parts[0].shape, spec, mesh, axes)
+    if tuple(parts[0].shape) == shape:  # whole along axes already
         return parts[0].to(dev)
     if mesh.multi_rank:
         (x,) = parts
         for dim, entry in enumerate(spec):
-            axes = entry_axes(entry)
-            if mesh.axis_size(axes) > 1:
-                x = mesh.all_gather([x], axes, dim=dim)
+            named = entry_axes(entry)
+            if _within(entry, axes) and mesh.axis_size(named) > 1:
+                x = mesh.all_gather([x], named, dim=dim, count=count)
         return x.to(dev)
-    note_collective("all-gather", parts[0])
+    if count:
+        note_collective("all-gather", parts[0])
     full = torch.empty(shape, dtype=parts[0].dtype, device=dev)
-    for p, part in enumerate(parts):
-        full[slices_of(shape, spec, mesh, p)] = part
+    for p, part in zip(positions, parts):
+        full[slices_of(shape, spec, mesh, p, axes)] = part
     return full
+
+
+def _walk_parts(fn, parts: list, spec):
+    """``fn(leaves, spec)`` over the leaves of several trees of one
+    structure (one leaf of each tree at a time)."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _walk_parts(fn, [p[k] for p in parts], spec[k])
+                for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_walk_parts(fn, [p[i] for p in parts], s)
+                           for i, s in zip(range(len(first)), spec))
+    return fn(parts, spec)
 
 
 def gather_tree(tree: ShardedTree, device=None) -> Any:
@@ -400,17 +458,35 @@ def gather_tree(tree: ShardedTree, device=None) -> Any:
     tensor (not a copy): read it, do not write it. On a multi-rank mesh
     every rank calls it (the leaves are all-gathered)."""
     dev = torch.device(device) if device is not None else tree.devices[0]
+    return _walk_parts(
+        lambda parts, spec: _gather_leaf(parts, spec, tree.mesh, dev, None,
+                                         tree.positions),
+        tree.shards, tree.specs)
 
-    def walk(parts: list, spec):
-        first = parts[0]
-        if isinstance(first, dict):
-            return {k: walk([p[k] for p in parts], spec[k]) for k in first}
-        if isinstance(first, (tuple, list)):
-            return type(first)(walk([p[i] for p in parts], s)
-                               for i, s in zip(range(len(first)), spec))
-        return _gather_leaf(parts, spec, tree.mesh, dev)
 
-    return walk(tree.shards, tree.specs)
+def gather_over(tree: ShardedTree, axes: Sequence[str]) -> dict:
+    """Each local group's tree gathered over ``axes`` only (an all-gather
+    along the dims they split; the dims other axes split stay split): a
+    dict from the group's shard index along the other axes to its tree.
+    In-process every group's, on the device of its first position, each
+    leaf counted once (the first group's); multi-rank this rank's. With
+    every axis, ``{0: gather_tree(tree)}``."""
+    mesh = tree.mesh
+    axes = mesh._check_axes(axes)
+    others = tuple(a for a in mesh.axis_names if a not in axes)
+    groups: dict = {}
+    for i, p in enumerate(tree.positions):
+        groups.setdefault(mesh.shard_index(p, others), []).append(i)
+    out = {}
+    for n, key in enumerate(sorted(groups)):
+        idx = groups[key]
+        pos = [tree.positions[i] for i in idx]
+        dev = tree.devices[idx[0]]
+        out[key] = _walk_parts(
+            lambda parts, spec: _gather_leaf(parts, spec, mesh, dev, axes,
+                                             pos, count=n == 0),
+            [tree.shards[i] for i in idx], tree.specs)
+    return out
 
 
 def local_bytes(tree: Any, specs: Any, mesh) -> int:
@@ -428,6 +504,6 @@ def local_bytes(tree: Any, specs: Any, mesh) -> int:
 
 __all__ = ["FSDP", "P", "ShardedTree", "TP", "activation_mesh",
            "batch_spec", "cache_specs", "clear_activation_mesh", "constrain",
-           "entry_axes", "gather_tree", "local_bytes", "param_specs",
-           "set_activation_mesh", "shard_shape", "shard_tree", "slices_of",
-           "spec_leaves"]
+           "entry_axes", "gather_over", "gather_tree", "local_bytes",
+           "param_specs", "set_activation_mesh", "shard_shape", "shard_tree",
+           "slices_of", "spec_leaves", "split_dims"]

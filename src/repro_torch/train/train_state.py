@@ -28,6 +28,20 @@ step up to the order of the sums, and on one position the unsharded step
 bit for bit. A MoE model on more than one position is refused: its aux
 needs the expert densities summed across positions mid-forward (ROADMAP.md
 step 13.5).
+
+Tensor parallel over a ("data", "model") mesh (ROADMAP.md step 13.7; the
+reference's ``grad_specs=param_specs(..., tp="model")``): where the specs
+split a leaf over the model axis alone, each position gathers its model
+slices over the data axes only (``sharding.gather_over``), and each data
+row in turn runs one forward and backward over its model positions
+(``LM.tp_loss``: one autograd graph over the row's positions in process,
+a rank's own position across ranks). The gradients are reduce-scattered
+over the data axes only, along the dim the data axes split (embed's spec
+is ``(model, data)``); a leaf the model axis does not split (a norm) is
+summed over the data axes only, its copies along the model axis being one
+gradient and not partial sums. The dense and audio families train so;
+the others, and a model axis that does not divide ``n_kv``, raise naming
+their ROADMAP.md step. A model axis of 1 is the FSDP step bit for bit.
 """
 from __future__ import annotations
 
@@ -37,16 +51,25 @@ from typing import Any, Optional
 import torch
 
 from ..device import CUDA, DeviceLike
-from ..models.model import DTYPES, LM, tree_leaves, tree_map
+from ..launch.mesh import ModelGroup
+from ..models.model import (
+    DTYPES,
+    LM,
+    check_tensor_parallel,
+    tree_leaves,
+    tree_map,
+)
 from ..models.sharding import (
+    TP,
     P,
     ShardedTree,
     entry_axes,
-    gather_tree,
+    gather_over,
     param_specs,
     shard_tree,
     slices_of,
     spec_leaves,
+    split_dims,
 )
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
@@ -136,6 +159,8 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
         raise ValueError("grad_specs shard the gradients over a mesh: pass "
                          "mesh= (and a state placed on it)")
     if mesh is not None and mesh.size > 1 and lm.cfg.n_experts:
+        if mesh.shape.get(TP, 1) > 1:
+            check_tensor_parallel(lm.cfg, mesh.shape[TP])
         raise NotImplementedError(
             f"{lm.cfg.name} on a data axis of {mesh.size}: the MoE aux "
             f"(E * sum(density * p_mean)) is taken over the whole batch, "
@@ -192,24 +217,26 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
 
     positions = mesh.local_positions()
 
-    def reduce_grads(parts: list, specs: list, split: bool) -> list:
-        """Each local position's slices of the positions' mean gradient:
-        summed in position order in ``accum_dtype`` and divided by the
-        positions where the batch is split; else (every position's
-        gradient is the whole batch's) its own slices, as they are."""
-        cols = [[] for _ in parts]
-        for spec, leaves in zip(specs, zip(*map(tree_leaves, parts))):
-            if not split:
-                for col, g, p in zip(cols, leaves, positions):
-                    col.append(g[slices_of(g.shape, spec, mesh, p)])
-                continue
-            dims = [d for d, e in enumerate(spec) if entry_axes(e)]
-            red = (mesh.psum_scatter(list(leaves), entry_axes(spec[dims[0]]),
-                                     dims[0], dtype=adt) if dims else
-                   mesh.psum([g.to(adt) for g in leaves], mesh.axis_names))
-            for col, r in zip(cols, red):
-                col.append(r / mesh.size)
-        return [_unflatten(parts[0], col) for col in cols]
+    def tp_grad_fn(trees, dims, tokens, group):
+        """``grad_fn`` over a row of model positions: each position's own
+        leaves for the slices the model axis splits, the first position's
+        for the rest (its gradient then serves every position)."""
+        first = [p.detach().requires_grad_(True)
+                 for p in tree_leaves(trees[0])]
+        lives = [first] + [
+            [p.detach().requires_grad_(True) if mdim is not None else f
+             for p, f, (_d, mdim) in zip(tree_leaves(t), first, dims)]
+            for t in trees[1:]]
+        loss, metrics = lm.tp_loss(
+            [_unflatten(t, live) for t, live in zip(trees, lives)], tokens,
+            group, force=force)
+        uniq = list({id(t): t for live in lives for t in live}.values())
+        by_id = {id(t): g for t, g in
+                 zip(uniq, torch.autograd.grad(loss, uniq))}
+        grads = [_unflatten(t, [by_id[id(x)] for x in live])
+                 for t, live in zip(trees, lives)]
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                grads)
 
     def sharded_step(state: ShardedTree, batch: dict):
         if not isinstance(state, ShardedTree) or state.mesh is not mesh:
@@ -221,35 +248,63 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
                 state.shards[0]["params"], grad_specs):
             raise ValueError("grad_specs differ from the state's "
                              "parameter specs")
-        _check_fsdp(specs, mesh)
+        tp_axis = TP if TP in mesh.shape and any(
+            entry_axes(e) == (TP,) for spec in specs for e in spec) else None
+        daxes = tuple(a for a in mesh.axis_names if a != tp_axis)
+        dims = _check_specs(specs, mesh, tp_axis, daxes)
+        tp = mesh.shape[tp_axis] if tp_axis else 1
+        check_tensor_parallel(lm.cfg, tp)
         tokens = torch.as_tensor(batch["tokens"])
         img = batch.get("img")
         B = tokens.shape[0]
         if B % M:
             raise ValueError(f"batch {B} does not split into {M} "
                              f"microbatches")
-        split = mesh.size > 1 and B % (M * mesh.size) == 0
-        n = mesh.size if split else 1
+        n_dp = mesh.axis_size(daxes)
+        split = n_dp > 1 and B % (M * n_dp) == 0
+        n = n_dp if split else 1
         rows = B // M // n
-        full = gather_tree(state["params"])
-        on_dev = {state.devices[0]: full}
-        for dev in state.devices:
-            if dev not in on_dev:
-                on_dev[dev] = tree_map(lambda t: t.to(dev), full)
+        # each local model index's slices, whole along the data axes, on
+        # every device of a local position that takes it
+        slices = gather_over(state["params"], daxes)
+        model_idx = [mesh.shard_index(p, (tp_axis,)) if tp_axis else 0
+                     for p in positions]
+        on_dev: dict = {}
+        for j, dev in zip(model_idx, state.devices):
+            if (j, dev) not in on_dev:
+                on_dev[j, dev] = tree_map(lambda t: t.to(dev), slices[j])
+        del slices
+        # local positions by data row (rows and their positions in shard
+        # order), and by model index for the data-axis reduce
+        by_row: dict = {}
+        by_model: dict = {}
+        for k, p in enumerate(positions):
+            by_row.setdefault(mesh.shard_index(p, daxes), []).append(k)
+            by_model.setdefault(model_idx[k], []).append(k)
         grads, loss_acc = None, None
         for i in range(M):
-            parts, losses = [], []
-            for p, dev in zip(positions, state.devices):
-                r0 = (i * n + (mesh.shard_index(p, mesh.axis_names)
-                               if split else 0)) * rows
+            parts = [None] * len(positions)
+            losses = []
+            for r, (d, ks) in enumerate(sorted(by_row.items())):
+                r0 = (i * n + (d if split else 0)) * rows
                 sl = slice(r0, r0 + rows)
-                loss, m, g = grad_fn(on_dev[dev], tokens[sl],
-                                     None if img is None else img[sl])
-                parts.append(g)
+                trees = [on_dev[model_idx[k], state.devices[k]] for k in ks]
+                if tp == 1:
+                    loss, m, g = grad_fn(trees[0], tokens[sl],
+                                         None if img is None else img[sl])
+                    g = [g]
+                else:
+                    loss, m, g = tp_grad_fn(
+                        trees, dims, tokens[sl],
+                        ModelGroup(mesh, tp_axis, [positions[k] for k in ks],
+                                   count=r == 0))
+                for k, gk in zip(ks, g):
+                    parts[k] = gk
                 losses.append(m["ce"] if M == 1 else loss)
-            red = reduce_grads(parts, specs, split)
+            red = reduce_grads(parts, specs, dims, daxes, by_model, split,
+                               state.devices)
             del parts
-            loss_i = (mesh.psum(losses, mesh.axis_names)[0] / n if split
+            loss_i = (mesh.psum(losses, daxes)[0] / n if split
                       else losses[0])
             if M == 1:
                 grads, loss_acc = red, loss_i
@@ -262,7 +317,7 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
                     x.add_(y.to(adt) / M)
             loss_acc = (loss_i / M if loss_acc is None
                         else loss_acc + loss_i / M)
-        del full, on_dev
+        del on_dev
         g_tree = ShardedTree(mesh, pspecs, grads)
         new_params, new_opt, stats = adamw_update(
             g_tree, state["opt"], state["params"], opt_cfg)
@@ -271,6 +326,34 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
         new_state = ShardedTree.join({"params": new_params, "opt": new_opt,
                                       "step": steps})
         return new_state, dict(loss=loss_acc, **stats)
+
+    def reduce_grads(parts: list, specs: list, dims: list, daxes: tuple,
+                     by_model: dict, split: bool, devices: list) -> list:
+        """Each local position's slices of the positions' mean gradient:
+        for each model index, its data row's gradients summed over the data
+        axes in position order in ``accum_dtype`` (a reduce-scatter along
+        the dim the data axes split, or a sum where none does) and divided
+        by the rows where the batch is split; else (every row's gradient
+        is the whole batch's) its own slices, as they are. Counted once:
+        the first model index's."""
+        n_dp = mesh.axis_size(daxes)
+        cols = [[] for _ in parts]
+        for spec, (ddim, _m), leaves in zip(specs, dims,
+                                            zip(*map(tree_leaves, parts))):
+            for c, ks in enumerate(by_model[j] for j in sorted(by_model)):
+                g = [leaves[k] for k in ks]
+                if not split:
+                    for k, x in zip(ks, g):
+                        cols[k].append(x[slices_of(x.shape, spec, mesh,
+                                                   positions[k], daxes)])
+                    continue
+                red = (mesh.psum_scatter(g, entry_axes(spec[ddim]), ddim,
+                                         dtype=adt, count=c == 0)
+                       if ddim is not None else
+                       mesh.psum([x.to(adt) for x in g], daxes, count=c == 0))
+                for k, r in zip(ks, red):
+                    cols[k].append(r.to(devices[k]) / n_dp)
+        return [_unflatten(parts[0], col) for col in cols]
 
     return sharded_step
 
@@ -281,19 +364,21 @@ def _unflatten(like, leaves: list):
     return tree_map(lambda t: leaves[order[id(t)]], like)
 
 
-def _check_fsdp(specs: list, mesh) -> None:
-    """The step trains FSDP: a leaf is whole or split along one dim over
-    every axis of the mesh of size > 1 (tensor parallelism is step
-    13.7)."""
-    busy = tuple(a for a in mesh.axis_names if mesh.shape[a] > 1)
+def _check_specs(specs: list, mesh, tp_axis, daxes: tuple) -> list:
+    """The (data dim, model dim) of each leaf's spec: the step trains a
+    leaf split along at most one dim over every data axis of size > 1
+    (FSDP) and at most one other dim over the model axis ``tp_axis``, as
+    ``param_specs`` lays them out."""
+    busy = tuple(a for a in daxes if mesh.shape[a] > 1)
+    out = []
     for spec in specs:
-        dims = [e for e in spec if entry_axes(e)]
-        if not dims:
-            continue
-        named = tuple(a for a in entry_axes(dims[0]) if mesh.shape[a] > 1)
-        if len(dims) > 1 or named != busy:
+        ddim, mdim = split_dims(spec, tp_axis)
+        named = () if ddim is None else tuple(
+            a for a in entry_axes(spec[ddim]) if mesh.shape[a] > 1)
+        if ddim is not None and named != busy:
             raise NotImplementedError(
-                f"spec {spec} on mesh {mesh.shape}: the train step shards "
-                f"a leaf along one dim over every data axis (FSDP); tensor "
-                f"parallel training is ROADMAP.md step 13.7")
-
+                f"spec {spec} on mesh {mesh.shape}: the train step shards a "
+                f"leaf along one dim over every data axis (FSDP) and along "
+                f"another over the model axis {TP!r} (tensor parallel)")
+        out.append((ddim, mdim))
+    return out

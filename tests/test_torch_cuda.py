@@ -1337,6 +1337,15 @@ def _rel(a, b):
     return float((a - b).norm() / (b.norm() + 1e-30))
 
 
+# relative L2 a leaf between a bf16 tensor-parallel step and the unsharded
+# one (see the test below), about twice the worst reading on an H100: a
+# parameter's change (embed's, 0.127: AdamW's first update is +-lr a
+# coordinate, and a near-zero gradient's sign flips with the order of the
+# bf16 sums) and a moment (v of embed, 0.0167)
+BF16_TP_CHANGE_TOL = 0.25
+BF16_TP_MOMENT_TOL = 5e-2
+
+
 @pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-7b"])
 def test_sharded_step_on_two_positions_equals_unsharded(cuda, arch):
     """FSDP on an in-process mesh of 2 positions on the card, f32, two
@@ -1417,6 +1426,94 @@ def test_sharded_restore_from_two_positions_onto_one(cuda, tmp_path):
                                rtol=1e-6)
     for (k, a), (_, b) in zip(_paths(sh.gather_tree(state)), _paths(plain)):
         assert _rel(a, b) <= 1e-4, (k, _rel(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_tp_step_on_card_positions_equals_unsharded(cuda, dtype):
+    """Tensor parallel on an in-process (2, 2) ("data", "model") mesh of
+    card positions, one step of reduced smollm-135m (2 query heads and 1
+    kv head a position through K4 and K5): K4 and K5 launch 4 x as often
+    as on the unsharded kernel step, each on a quarter of its B x heads
+    rows; the collective bytes are the dry run's; the loss and every leaf
+    agree with the unsharded step: in f32 as the FSDP test above (1e-6,
+    1e-4). In bf16 the loss within 1e-3 (the row slices' f32 products
+    summed, one rounding, as the whole product); a parameter's step's
+    change (new minus initial, in f64; one AdamW update is ~1e-3 of a
+    weight's norm, so a limit on the new weights would pass a missing
+    update) within ``BF16_TP_CHANGE_TOL`` and a moment within
+    ``BF16_TP_MOMENT_TOL`` relative L2 a leaf (the backward's bf16 sums
+    differ in order and grouping). The worst leaf of each is printed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, make_mesh
+    from repro_torch.launch.mesh import (collective_bytes,
+                                         reset_collective_bytes)
+    from repro_torch.models import LM
+    from repro_torch.models import sharding as sh
+    from repro_torch.train import (AdamWConfig, StepConfig,
+                                   init_train_state, make_train_step)
+    from repro_torch.train.checkpoint import _paths
+    from repro_torch.train.train_state import state_specs
+
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              dtype=dtype)
+    lm = LM(cfg)
+    c = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (8, 64)), device=cuda)
+    init = dict(_paths(init_train_state(lm, 0, c, device=cuda)["params"],
+                       "params/"))
+    ops.reset_launches()
+    plain, pm = make_train_step(lm, c)(init_train_state(lm, 0, c,
+                                                        device=cuda),
+                                       {"tokens": toks})
+    want = ops.launch_counts()
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[cuda] * 4)
+    specs = state_specs(sh.param_specs(lm.abstract_params(), ("data",),
+                                       tp="model"), c)
+    state = init_train_state(lm, 0, c, mesh=mesh, specs=specs)
+    rows = {"fwd": set(), "bwd": set()}
+    fwd, bwd = ops.flash_attention_fwd, ops.flash_attention_bwd
+
+    def spy(fn, key):
+        def call(q, *a, **kw):
+            rows[key].add(q.shape[0])
+            return fn(q, *a, **kw)
+        return call
+
+    ops.reset_launches()
+    reset_collective_bytes()
+    ops.flash_attention_fwd = spy(fwd, "fwd")
+    ops.flash_attention_bwd = spy(bwd, "bwd")
+    try:
+        state, m = make_train_step(lm, c, mesh=mesh)(state, {"tokens": toks})
+    finally:
+        ops.flash_attention_fwd, ops.flash_attention_bwd = fwd, bwd
+    got = ops.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert got[name] == 4 * want[name] > 0, (name, got, want)
+    assert rows == {"fwd": {8 // 2 * cfg.n_heads // 2},
+                    "bwd": {8 // 2 * cfg.n_heads // 2}}
+    dry = dict(dryrun.fsdp_collectives(lm, StepConfig(), 2, 8, tp=2))
+    dry.update(dryrun.tp_collectives(lm, StepConfig(), 2, 2, (8, 64)))
+    assert collective_bytes() == dry
+    f32 = dtype == "float32"
+    np.testing.assert_allclose(float(m["loss"]), float(pm["loss"]),
+                               rtol=1e-6 if f32 else 1e-3)
+    errs, tols = {}, {}
+    for (k, a), (_, b) in zip(_paths(sh.gather_tree(state)), _paths(plain)):
+        tols[k] = 1e-4 if f32 else BF16_TP_MOMENT_TOL
+        if not f32 and k in init:
+            a, b = a.double() - init[k].double(), b.double() - init[k].double()
+            tols[k] = BF16_TP_CHANGE_TOL
+        errs[k] = _rel(a, b)
+    for part in ("params", "opt"):
+        worst = max((k for k in errs if k.startswith(part)), key=errs.get)
+        print(f"tp step {dtype}: worst {part} leaf {worst} "
+              f"{errs[worst]:.6g}")
+    for k, e in errs.items():
+        assert e <= tols[k], (k, e, tols[k])
 
 
 # --------------------------------------------------------------------------

@@ -21,10 +21,14 @@
   position (and the position's token rows);
 * collectives: the bytes the dry run derives for the FSDP step equal, to
   the byte, what a reduced sharded step moves on 2 and 4 in-process
-  positions (``launch.mesh.collective_bytes``);
+  positions (``launch.mesh.collective_bytes``), and those it derives for
+  the tensor-parallel step (``tp_collectives``, and ``fsdp_collectives``
+  with ``tp``) what a reduced step moves on (2, 2), (1, 2) and (1, 4)
+  ("data", "model") meshes;
 * the CLI writes a record with the reference's keys.
 """
 import ast
+import dataclasses
 import json
 import math
 import os
@@ -49,8 +53,9 @@ from repro_torch.launch.mesh import (
 from repro_torch.launch.op_cost import OpCost, analyze
 from repro_torch.models import LM
 from repro_torch.models.model import tree_leaves
+from repro_torch.models.sharding import param_specs
 from repro_torch.train import AdamWConfig, init_train_state, make_train_step
-from repro_torch.train.train_state import StepConfig
+from repro_torch.train.train_state import StepConfig, state_specs
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")
@@ -378,6 +383,42 @@ def test_collective_bytes_equal_what_a_sharded_step_moves(n, M):
     assert c["per_position"]["collective_bytes"] == sum(want.values())
 
 
+@pytest.mark.parametrize("n,tp,M", [(2, 2, 1), (2, 2, 2), (1, 2, 1),
+                                    (1, 4, 2)])
+def test_tp_collectives_equal_what_a_tp_step_moves(n, tp, M):
+    """A train cell on a (n, tp) ("data", "model") mesh: the dry run's
+    ``tp_collectives`` are the model axis's bytes that one in-process
+    tensor-parallel step of the same shape moves, by kind, and its data
+    axis's, in the record's ``collectives`` too, are ``fsdp_collectives``
+    with ``tp``."""
+    cfg = dataclasses.replace(get_config("musicgen-medium").reduced(),
+                              n_kv=4)
+    lm = LM(cfg)
+    opt = AdamWConfig()
+    step_cfg = StepConfig(microbatches=M)
+    batch, seq = 8, 16
+    mesh = make_mesh((n, tp), ("data", "model"), devices=["cpu"] * (n * tp))
+    specs = state_specs(param_specs(lm.abstract_params(), ("data",),
+                                    tp="model"), opt)
+    state = init_train_state(lm, 0, opt, mesh=mesh, specs=specs)
+    step = make_train_step(lm, opt, step_cfg, mesh=mesh, force="ref")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, seq)), dtype=torch.int32)
+    reset_collective_bytes()
+    step(state, {"tokens": tokens})
+    moved = collective_bytes()
+    c = count_cell(cfg, ShapeConfig("t", "train", seq, batch),
+                   meta_mesh((n, tp), ("data", "model")), opt_cfg=opt,
+                   step_cfg=step_cfg)
+    tp_kinds = ("reduce-out", "copy-in", "max")
+    assert c["tp_collectives"] == {k: moved[k] for k in tp_kinds}
+    assert c["tp_collectives_reason"] is None
+    data = {k: v for k, v in moved.items() if k not in tp_kinds}
+    assert data == fsdp_collectives(lm, step_cfg, n, batch, tp=tp)
+    assert c["collectives"] == data
+    assert c["per_device"]["collective_bytes"] == sum(moved.values())
+
+
 # --------------------------------------------------------------------------
 # the CLI record
 # --------------------------------------------------------------------------
@@ -416,7 +457,10 @@ def test_cli_writes_a_record_with_the_reference_keys(tmp_path):
         assert want <= set(rec), want - set(rec)
         assert mem_keys <= set(rec["memory"])
         assert rec["chips"] == chips
-        assert rec["tp_collectives"] is None and rec["tp_collectives_reason"]
+        # the port serves unsharded: decode moves nothing over the model
+        # axis (train cells count it, test_tp_collectives_equal_...)
+        assert rec["tp_collectives"] is None
+        assert "unsharded" in rec["tp_collectives_reason"]
         assert rec["dominant"] in rec["terms_s"]
         assert rec["roofline_bound_s"] == max(rec["terms_s"].values())
         assert rec["per_device"]["collective_bytes"] == 0.0  # decode
