@@ -338,7 +338,28 @@ exits non-zero:
                nudge rule, the aux on both paths, an f32 gradient check at
                1 layer on 1 x 1,024 (the plain path replaying the kernel
                path's routes); K4 and K5 timed at phi3.5-moe's shapes
-               beside SDPA and their bounds.
+               beside SDPA and their bounds; (d) the same 2-layer
+               phi3.5-moe, parameters and batches trained on meshes of
+               in-process positions of the card (ROADMAP steps 13.5 item
+               1 and 13.9): FSDP on (2,) ("data") and (2, 2) ("data",
+               "model": 16 heads, 4 kv heads and 8 of the 16 experts a
+               position), 3 steps each: every microbatch's routing pass
+               (the blocks without gradients, no head) before the
+               gradient passes, which replay its routes with the expert
+               counts summed over the data positions; launch counts (K4
+               3 x and K5 1 x layers x positions a step), the rows of
+               every K4/K5 call (B x heads over the positions), K4 and K5
+               against their plain versions at a position's first-call
+               inputs, the bf16 losses against the unsharded kernel path
+               under the ``train`` phase's nudge rule (nudges on the
+               kernel path), collective bytes a position equal to the dry
+               run's count, step time, peak and the routing pass's share
+               of the step beside the unsharded step's; then one f32 step
+               at 1 layer on 2 x 1,024 on both meshes against the
+               unsharded f32 step (routes replayed from it, each flip a
+               near-tie; loss within 1e-5, every parameter and moment
+               leaf within 1e-3 relative L2); K4 and K5 timed at the
+               (2, 2) mesh's per-position shape.
 20. ``vlm``    llama-3.2-vision-90b at full width: (a) 2 of its 20 super
                blocks (10 layers) serving 4 prompts of 1,024 tokens + 16
                new over seeded image embeddings (4 x 1,024 x 8,192, 0.1 x
@@ -469,6 +490,10 @@ MOE_PROMPT = 1024
 MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = (2, 4,
                                                                      2048, 3)
 MOE_F32_LAYERS, MOE_F32_SEQ = 1, 1024
+# the same phi3.5-moe training on meshes of the card: FSDP on 2 positions
+# and ("data", "model") (2, 2); the f32 check's rows (2: one a data row)
+MOE_MESHES = ((2,), (2, 2))
+MOE_MESH_F32_BATCH = 2
 # the vlm family: llama-3.2-vision-90b served at 2 of its 20 super blocks
 # (10 layers, 10.66 B, 21.3 GB) with seeded image embeddings of 1,024
 # tokens (tests/test_models.py:19's 0.1 x normal), trained at 1 super
@@ -4706,6 +4731,8 @@ class _Routes:
 
     def _call(self, x, router, **kw):
         r = self.orig(x, router, **kw)
+        if kw.get("eidx") is not None:
+            return r  # the model replays its own recorded route
         if self.seq is not None and x.shape[1] != self.seq:
             return r
         if self.replay is not None:
@@ -5004,7 +5031,8 @@ def phase_moe(seed: int) -> dict:
     losses_n = [_run_steps(lm, _nudged(params, g), batches, opt_cfg,
                            force="ref") for _ in range(TRAIN_SSM_NUDGES)]
     diffs, floors, limits = _loss_rule(losses, losses_r, losses_n)
-    del params, batches
+    host = tree_map(lambda t: t.cpu(), params)  # (d) places from here
+    del params
     torch.cuda.empty_cache()
     cfg1 = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS)
     lm1 = LM(cfg1)
@@ -5012,6 +5040,7 @@ def phase_moe(seed: int) -> dict:
     tok1 = torch.randint(0, cfg.vocab, (1, MOE_F32_SEQ), generator=g,
                          device="cuda")
     f32 = _moe_f32_check(lm1, params1, tok1)
+    host1 = tree_map(lambda t: t.cpu(), params1)
     del params1
     torch.cuda.empty_cache()
     emit(dict(phase="moe_train", arch=MOE_ARCH, layers=MOE_TRAIN_LAYERS,
@@ -5029,11 +5058,271 @@ def phase_moe(seed: int) -> dict:
               flash_attention_bwd_phi=k5))
     del ba
     torch.cuda.empty_cache()
+    mesh = _moe_mesh_arms(lm, host, batches, opt_cfg, g)
+    del host, batches
+    mesh_f32 = _moe_mesh_f32(lm1, host1, g)
+    del host1
+    torch.cuda.empty_cache()
     return dict(launches=launches, k4=k4, k5=k5,
+                mesh_launches=_add_counts(mesh["launches"],
+                                          mesh_f32["launches"]),
+                k4_tp=mesh["k4_tp"], k5_tp=mesh["k5_tp"],
+                k4_tp_err=mesh["k4_tp_err"], k5_tp_err=mesh["k5_tp_err"],
+                k4_tp_launches=mesh["k4_tp_launches"],
+                k5_tp_launches=mesh["k5_tp_launches"],
                 k4_err=lines[MOE_ARCH]["checks"][0]["max_abs_err"],
                 k5_err=k5_line["max_abs_err"],
                 k4_launches=lines[MOE_ARCH]["launches"]["flash_attention_fwd"],
                 k5_launches=train_launches["flash_attention_bwd"])
+
+
+def _mesh_state(lm, host, opt_cfg, shape):
+    """A fresh train state from the host parameters ``host``, placed on an
+    in-process mesh of ``shape`` positions of the card by ``param_specs``
+    (FSDP over ("data",), or tensor parallel over ("data", "model")), and
+    the mesh."""
+    import math as _m
+
+    import torch
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import tree_map
+    from repro_torch.train import adamw_init
+    from repro_torch.train.train_state import state_specs
+
+    axes = ("data", "model")[:len(shape)]
+    mesh = make_mesh(shape, axes, devices=["cuda"] * _m.prod(shape))
+    specs = state_specs(sh.param_specs(
+        lm.abstract_params(), ("data",),
+        tp="model" if len(shape) == 2 else None), opt_cfg)
+    p = tree_map(lambda t: t.to("cuda", copy=True), host)
+    state = {"params": p, "opt": adamw_init(p, opt_cfg),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    del p
+    return sh.shard_tree(state, specs, mesh, donate=True), mesh
+
+
+def _mesh_dry(lm, shape, batch: int, seq: int) -> dict:
+    """The dry run's count of one step's collective bytes a position on a
+    ("data",) or ("data", "model") mesh of ``shape``, by kind."""
+    from repro_torch.launch import dryrun
+    from repro_torch.train.train_state import StepConfig
+
+    tp = shape[1] if len(shape) == 2 else 1
+    want = dict(dryrun.fsdp_collectives(lm, StepConfig(), shape[0], batch,
+                                        tp=tp))
+    want.update(dryrun.tp_collectives(lm, StepConfig(), shape[0], tp,
+                                      (batch, seq)))
+    return want
+
+
+class _RouteClock:
+    """While entered, ``lm.route`` and ``lm.tp_route`` (the sharded step's
+    routing pass) run between two syncs of the card, their seconds added
+    to ``seconds``."""
+
+    def __init__(self, lm):
+        self.lm, self.seconds = lm, 0.0
+
+    def __enter__(self):
+        import torch
+
+        def timed(fn):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                return out
+            return call
+
+        self.lm.route = timed(self.lm.route)
+        self.lm.tp_route = timed(self.lm.tp_route)
+        return self
+
+    def __exit__(self, *exc):
+        del self.lm.route, self.lm.tp_route
+
+
+def _moe_mesh_arms(lm, host, batches, opt_cfg, g) -> dict:
+    """(d) of the ``moe`` phase: the unsharded kernel path's steps (timed,
+    with their peak) and its nudged runs, then each of MOE_MESHES (see the
+    module's list)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import tree_map
+    from repro_torch.train import make_train_step
+
+    cfg = lm.cfg
+    B, S = batches[0].shape
+    L = cfg.n_layers
+    params = tree_map(lambda t: t.to("cuda"), host)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain = _fresh_state(params, opt_cfg)
+    pstep = make_train_step(lm, opt_cfg)
+    plain_losses, plain_times = [], []
+    for b in batches:
+        plain, loss, dt = _step_synced(pstep, plain, {"tokens": b})
+        plain_losses.append(loss)
+        plain_times.append(dt)
+    plain_peak = torch.cuda.max_memory_allocated()
+    del plain, pstep
+    nudged = [_run_steps(lm, _nudged(params, g), batches, opt_cfg)
+              for _ in range(TRAIN_SSM_NUDGES)]
+    del params
+    torch.cuda.empty_cache()
+    total, kernel_lines, out = {}, [], {}
+    for shape in MOE_MESHES:
+        n_pos = math.prod(shape)
+        tp = shape[1] if len(shape) == 2 else 1
+        state, mesh = _mesh_state(lm, host, opt_cfg, shape)
+        step = make_train_step(lm, opt_cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        losses, times, route_s, colls = [], [], [], None
+        with _HeadRows() as hr, _RouteClock(lm) as rc:
+            for i, b in enumerate(batches):
+                rc.seconds = 0.0
+                state, loss, dt, c = _tp_step_counted(step, state,
+                                                      {"tokens": b})
+                if i == 0:
+                    colls = c
+                losses.append(loss)
+                times.append(dt)
+                route_s.append(rc.seconds)
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del state, step
+        torch.cuda.empty_cache()
+        what = f"moe_train_mesh {tuple(shape)}"
+        steps = len(batches)
+        want = dict(gmm_update=0, pairwise_sqdist=0, center_precheck=0,
+                    flash_attention_fwd=3 * steps * L * n_pos,
+                    flash_attention_bwd=steps * L * n_pos,
+                    ssd_intra_chunk=0, ssd_intra_chunk_bwd=0)
+        check(launches == want, f"{what}: launches {launches}, expected "
+                                f"{want} (the routing pass, the forward "
+                                f"and its recompute; the backward)")
+        rows = (B // shape[0]) * (cfg.n_heads // tp)
+        for name in ("flash_attention_fwd", "flash_attention_bwd"):
+            check(hr.rows[name] == {rows},
+                  f"{what}: {name} ran on rows {sorted(hr.rows[name])}, "
+                  f"expected {rows} (B / data positions x heads / model "
+                  f"positions)")
+        kernel_lines += _tp_kernel_checks(hr, f"{what} bf16")
+        dry = _mesh_dry(lm, shape, B, S)
+        check(colls == dry, f"{what}: collective bytes {colls}, the dry run "
+                            f"counts {dry}")
+        check(all(map(math.isfinite, losses)), f"{what}: losses {losses}")
+        diffs, floors, limits = _loss_rule(losses, plain_losses, nudged)
+        total = _add_counts(total, launches)
+        warm = statistics.median(times[1:])
+        line = dict(
+            phase="moe_train_mesh", arch=cfg.name, layers=L,
+            mesh=list(shape), axes=list(mesh.axis_names),
+            heads_per_position=[cfg.n_heads // tp, cfg.n_kv // tp],
+            experts_per_position=cfg.n_experts // tp, batch=B, seq=S,
+            steps=steps, launches=launches, k4_k5_rows=rows,
+            losses=losses, unsharded_losses=plain_losses,
+            nudged_unsharded_losses=nudged, loss_abs_diffs=diffs,
+            nudge_abs_diffs=floors, loss_abs_diff_limits=limits,
+            step_times_s=times, step_s=warm,
+            unsharded_step_times_s=plain_times,
+            unsharded_step_s=statistics.median(plain_times[1:]),
+            routing_pass_s=route_s,
+            routing_pass_share=sum(route_s[1:]) / sum(times[1:]),
+            peak_device_bytes=peak, unsharded_peak_device_bytes=plain_peak,
+            collective_bytes=colls, dryrun_collective_bytes=dry,
+            note="the positions sit on the one card and run in turn; the "
+                 "routing pass is timed between syncs, which the step "
+                 "times include")
+        emit(line)
+        out[tuple(shape)] = dict(hr=hr, launches=launches)
+    # K4 and K5 timed at the (2, 2) arm's first-call inputs: a position's
+    # 16 heads of 2 rows
+    hr = out[MOE_MESHES[-1]]["hr"]
+    fa, fkw = hr.args["flash_attention_fwd"]
+    ba, bkw = hr.args["flash_attention_bwd"]
+    tp = MOE_MESHES[-1][1]
+    k4 = _time_flash(*fa, heads=cfg.n_heads // tp, causal=fkw["causal"])
+    k5 = _time_flash_bwd(*ba, cfg.n_heads // tp, bkw["causal"])
+    last = out[MOE_MESHES[-1]]["launches"]
+    emit(dict(phase="moe_train_mesh_kernels", checks=kernel_lines,
+              flash_attention_fwd_tp=k4, flash_attention_bwd_tp=k5))
+    del out, hr, fa, ba
+    torch.cuda.empty_cache()
+    return dict(launches=total, k4_tp=k4, k5_tp=k5,
+                k4_tp_err=kernel_lines[-2]["max_abs_err"],
+                k5_tp_err=kernel_lines[-1]["max_abs_err"],
+                k4_tp_launches=last["flash_attention_fwd"],
+                k5_tp_launches=last["flash_attention_bwd"])
+
+
+def _moe_mesh_f32(lm1, host1, g) -> dict:
+    """(d)'s f32 step: the 1-layer phi3.5-moe in f32 on MOE_MESH_F32_BATCH
+    x MOE_F32_SEQ, one unsharded step (its forward's routes recorded), then
+    one on each of MOE_MESHES replaying them (each flip a near-tie), held
+    to it by the f32 rule."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_map
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    lm32 = LM(dataclasses.replace(lm1.cfg, dtype="float32"))
+    L, S = lm32.cfg.n_layers, MOE_F32_SEQ
+    host32 = tree_map(lambda t: t.float(), host1)
+    opt_cfg = AdamWConfig(total_steps=1, warmup_steps=1)
+    toks = torch.randint(0, lm32.cfg.vocab, (MOE_MESH_F32_BATCH, S),
+                         generator=g, device="cuda")
+    batch = {"tokens": toks}
+    plain = _fresh_state(tree_map(lambda t: t.to("cuda"), host32), opt_cfg)
+    with _Routes(seq=S) as rt:
+        plain, loss_p, _dt = _step_synced(make_train_step(lm32, opt_cfg),
+                                          plain, batch)
+    routes = rt.eidx[:L]  # the forward's (remat's recompute routes again)
+    total, lines, kernel_lines = {}, [], []
+    for shape in MOE_MESHES:
+        n_dp = shape[0]
+        rows = MOE_MESH_F32_BATCH // n_dp
+        replay = [e[r * rows:(r + 1) * rows] for r in range(n_dp)
+                  for e in routes]
+        state, mesh = _mesh_state(lm32, host32, opt_cfg, shape)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with _HeadRows() as hr, _Routes(seq=S, replay=replay) as rs:
+            state, loss_s, dt, c = _tp_step_counted(
+                make_train_step(lm32, opt_cfg, mesh=mesh), state, batch)
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        what = f"moe_train_mesh f32 {tuple(shape)}"
+        check(rs.gap <= 1e-4, f"{what}: a replayed route was no near-tie: "
+                              f"its probability {rs.gap} under the "
+                              f"sharded step's own choice")
+        f32 = _f32_pair(what, loss_s, loss_p, state, plain)
+        dry = _mesh_dry(lm32, shape, MOE_MESH_F32_BATCH, S)
+        check(c == dry, f"{what}: collective bytes {c}, the dry run counts "
+                        f"{dry}")
+        kernel_lines += _tp_kernel_checks(hr, what)
+        del state
+        torch.cuda.empty_cache()
+        total = _add_counts(total, launches)
+        lines.append(dict(mesh=list(shape), launches=launches, step_s=dt,
+                          peak_device_bytes=peak, collective_bytes=c,
+                          dryrun_collective_bytes=dry,
+                          replayed_route_flips=rs.flips,
+                          replayed_route_max_gap=rs.gap, **f32))
+    del plain
+    torch.cuda.empty_cache()
+    emit(dict(phase="moe_train_mesh_f32", layers=L,
+              batch=MOE_MESH_F32_BATCH, seq=S, arms=lines,
+              checks=kernel_lines))
+    return dict(launches=total)
 
 
 def _grads(lm, params, tokens, img, force=None) -> tuple:
@@ -5247,6 +5536,7 @@ def main() -> int:
                            examples=examples["launches"][name],
                            train_ssm=train_ssm["launches"][name],
                            moe=moe["launches"][name],
+                           moe_mesh=moe["mesh_launches"][name],
                            vlm=vlm["launches"][name])
                 for name in launches}
     total = {name: sum(v.values()) for name, v in per_path.items()}
@@ -5335,6 +5625,30 @@ def main() -> int:
              bound_ms=moe["k5"]["bound_ms"], bound_by=moe["k5"]["bound_by"],
              library_ms=moe["k5"]["library_ms"], shape=moe["k5"]["shape"],
              note="phi3.5-moe's training layer, causal"),
+        # K4 and K5 on a position's heads of phi3.5-moe's layer on the
+        # (2, 2) mesh: their launches are part of the moe_mesh count
+        dict(name="flash_attention_fwd_moe_tp", route="cuda",
+             source=f"{csrc}/csrc/flash_fwd.cu",
+             replaces="src/repro/kernels/flash.py:75",
+             launches=moe["k4_tp_launches"], max_abs_err=moe["k4_tp_err"],
+             ms=moe["k4_tp"]["kernel_ms"], plain_ms=moe["k4_tp"]["plain_ms"],
+             bound_ms=moe["k4_tp"]["bound_ms"],
+             bound_by=moe["k4_tp"]["bound_by"],
+             library_ms=moe["k4_tp"]["library_ms"],
+             shape=moe["k4_tp"]["shape"],
+             note="phi3.5-moe trained on (2, 2): 16 heads and 4 kv heads a "
+                  "position, causal"),
+        dict(name="flash_attention_bwd_moe_tp", route="cuda",
+             source=f"{csrc}/csrc/flash_bwd.cu",
+             replaces="src/repro/kernels/flash.py:219",
+             launches=moe["k5_tp_launches"], max_abs_err=moe["k5_tp_err"],
+             ms=moe["k5_tp"]["kernel_ms"], plain_ms=moe["k5_tp"]["plain_ms"],
+             bound_ms=moe["k5_tp"]["bound_ms"],
+             bound_by=moe["k5_tp"]["bound_by"],
+             library_ms=moe["k5_tp"]["library_ms"],
+             shape=moe["k5_tp"]["shape"],
+             note="phi3.5-moe trained on (2, 2): a position's heads, "
+                  "causal"),
         dict(name="flash_attention_bwd_cross", route="cuda",
              source=f"{csrc}/csrc/flash_bwd.cu",
              replaces="src/repro/kernels/flash.py:219",

@@ -26,30 +26,34 @@ Per cell:
   cell follows the sharded step's rule, M x n_dp must divide it): train is
   ``make_train_step`` with no mesh (forward, the per-block remat
   recompute, backward and AdamW; an FSDP position gathers whole
-  parameters, so its FLOPs are the unsharded step's on its rows), prefill
+  parameters, so its FLOPs are the unsharded step's on its rows), after
+  a moe model's routing pass (``LM.route`` on each microbatch's rows)
+  where its rows split over n_dp > 1 positions, prefill
   ``lm.prefill``, decode ``lm.decode_step``, all with ``force="ref"``.
   Per-device FLOPs and bytes are the position's divided by the model-axis
   size: an ideal tensor-parallel split (the port's tensor-parallel step,
-  dense and audio only, also repeats the norms and the residual stream on
-  every model position, which this leaves out).
+  dense, audio and moe, also repeats the norms, the residual stream and
+  a moe's routing on every model position, which this leaves out).
 * **Collectives.** The FSDP step's own (``train/train_state.py``): an
   all-gather of every sharded parameter slice once a step
   (``gather_tree``), and per microbatch, where the batch splits over the
   positions, a reduce-scatter of each sharded gradient leaf and an
-  all-reduce of each whole one in ``accum_dtype`` plus the loss; the
+  all-reduce of each whole one in ``accum_dtype`` plus the loss, and a
+  moe model's all-reduce of its MoE layers' expert counts (f32); the
   clip norm's all-reduce once a step. Operand bytes of one position, as
   the mesh's counters count them (``launch.mesh.collective_bytes``).
-  ``tp_collectives`` are the model axis's, for a train cell of the dense
-  and audio families, which the port trains tensor parallel (ROADMAP.md
-  step 13.7): a position's reduce-outs, copy-ins and max a step, worked
-  out from the step's schedule (``tp_collectives``) and added to the
+  ``tp_collectives`` are the model axis's, for a train cell of the dense,
+  audio and moe families, which the port trains tensor parallel
+  (ROADMAP.md steps 13.7 and 13.9): a position's reduce-outs, copy-ins
+  and max a step, worked out from the step's schedule (``tp_collectives``) and added to the
   per-device collective bytes. There the record's data-axis
   ``collectives`` are that step's own, a device's (``fsdp_collectives``
   with ``tp``); in other train cells they are the FSDP specs' over an
   ideal model-axis split. The other families' train cells are
   ``null`` with the step that would train them, as are prefill and decode
   (the port serves unsharded); a cell whose model axis does not divide
-  ``n_kv`` is counted, with the step that would run it as its reason.
+  ``n_kv`` or ``n_experts`` is counted, with the rule or the step that
+  would run it as its reason.
 * **Memory.** ``argument_bytes`` is ``local_bytes`` of the state (or
   parameters and caches) and the batch by the specs. ``temp_bytes`` comes
   from the traced run: the most live storage beyond the arguments and the
@@ -410,8 +414,10 @@ def fsdp_collectives(lm: LM, step_cfg: StepConfig, n: int,
     (``gather_over``, once a step); where the batch splits over the data
     positions (``global_batch % (M n) == 0``), per microbatch a
     reduce-scatter of each data-sharded gradient leaf (a model slice) and
-    an all-reduce of each other one, cast to ``accum_dtype``, and the
-    loss's all-reduce (f32); the clip norm's all-reduce once a step."""
+    an all-reduce of each other one, cast to ``accum_dtype``, the loss's
+    all-reduce (f32) and, with experts, the all-reduce of the (MoE
+    layers, E) first-choice counts (f32) between the routing pass and the
+    gradient pass; the clip norm's all-reduce once a step."""
     if n * tp <= 1:
         return {}
     params = lm.abstract_params()
@@ -433,8 +439,15 @@ def fsdp_collectives(lm: LM, step_cfg: StepConfig, n: int,
         for split, numel, _leaf in leaves:
             out["reduce-scatter" if split else "all-reduce"] += \
                 M * numel * asz
-        out["all-reduce"] += M * 4
+        out["all-reduce"] += M * 4 * (1 + _moe_layers(lm) * lm.cfg.n_experts)
     return out
+
+
+def _moe_layers(lm: LM) -> int:
+    """The MoE sub-layers of a model (one a ``moe`` or ``moe_pair``
+    block)."""
+    return sum(count for kind, count in lm.plan
+               if kind in ("moe", "moe_pair"))
 
 
 def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
@@ -443,12 +456,17 @@ def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
     one tensor-parallel step (``LM.tp_loss`` under the sharded step) over
     ``n_dp`` data and ``tp`` model positions, ``batch`` = (global batch,
     sequence): per microbatch of ``rows`` rows (the batch over M, and over
-    ``n_dp`` where it splits) and per dense block, the attention-out and
-    MLP-out reduce-outs, their copy-ins' backward sums and remat's
+    ``n_dp`` where it splits), per dense sub-layer pair the attention-out
+    and MLP-out reduce-outs, their copy-ins' backward sums and remat's
     recompute of both reduce-outs (their operands f32: ``WideProduct``);
-    the embedding's reduce-out and the head's copy-in (the model's dtype);
-    the loss's gold and sum-of-exp reduce-outs and its max ((rows, S - 1)
-    f32 each)."""
+    per MoE sub-layer the same for its attention, and for its experts the
+    combine's reduce-out (the model's dtype) with remat's recompute, the
+    copy-ins' backward sums of the normed input and of the gates ((rows,
+    S, top_k) f32); the embedding's reduce-out and the head's copy-in (the
+    model's dtype); the loss's gold and sum-of-exp reduce-outs and its
+    max ((rows, S - 1) f32 each); and, where a moe model's rows split
+    over the data axis, the routing pass's reduce-outs (the embedding and
+    the blocks once, no gradient, no head)."""
     if tp <= 1:
         return {}
     cfg = lm.cfg
@@ -459,9 +477,15 @@ def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
     tok = rows * S * cfg.d_model
     act = tok * DTYPES[cfg.dtype].itemsize
     vec = rows * (S - 1) * 4
-    L = sum(count for kind, count in lm.plan if kind == "dense")
-    return {"reduce-out": M * (act + 4 * L * tok * 4 + 2 * vec),
-            "copy-in": M * act * (2 * L + 1), "max": M * vec}
+    L = sum(count for kind, count in lm.plan
+            if kind in ("dense", "moe_pair"))
+    E = _moe_layers(lm)
+    gate = rows * S * cfg.top_k * 4
+    blocks = 2 * L * tok * 4 + E * (tok * 4 + act)  # one pass's reduce-outs
+    routing = act + blocks if E and split else 0
+    return {"reduce-out": M * (act + 2 * blocks + 2 * vec + routing),
+            "copy-in": M * (act * (2 * L + 2 * E + 1) + E * gate),
+            "max": M * vec}
 
 
 # --------------------------------------------------------------------------
@@ -524,6 +548,13 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
             args_tree = (state, batch)
             with oc:
                 watched = oc.watch(args_tree)
+                if cfg.n_experts and n_dp > 1 and shardable:
+                    # the sharded step's routing pass, a microbatch at once
+                    mb = rows // step_cfg.microbatches
+                    for i in range(step_cfg.microbatches):
+                        lm.route(state["params"],
+                                 batch["tokens"][i * mb:(i + 1) * mb],
+                                 force="ref")
                 new_state, metrics = step(state, batch)
             outs = (new_state, metrics)
             sspecs = state_specs(pspecs, opt_cfg)
@@ -605,7 +636,7 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
             tp_reason = None
         except NotImplementedError as e:
             tp_reason = str(e)
-        if cfg.family in ("dense", "audio"):
+        if cfg.family in ("dense", "audio", "moe"):
             tp_colls = tp_collectives(lm, step_cfg, n_dp, tp,
                                       (shape.global_batch, shape.seq_len))
     elif shape.kind == "train":
@@ -682,7 +713,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, overrides: dict,
         per_device_split=(f"a data position's counts over the {tp} "
                           f"positions of the model axis: an ideal "
                           f"tensor-parallel split (the port trains the "
-                          f"dense and audio families so, and serves "
+                          f"dense, audio and moe families so, and serves "
                           f"unsharded), plus the model axis's own "
                           f"collectives where they are counted"),
         per_position=c["per_position"],

@@ -271,8 +271,6 @@ class Mesh:
         axes = self._check_axes(axes)
         if count:
             note_collective("reduce-scatter", parts[0], dtype)
-        if dtype is not None and not self.multi_rank:
-            parts = [p.to(dtype) for p in parts]
         n = self.axis_size(axes)
         size = parts[0].shape[dim]
         if size % n:
@@ -280,7 +278,7 @@ class Mesh:
                              f"not split over {n} shards")
         c = size // n
         if not self.multi_rank:
-            red = _ordered_sum(self._every_shard(parts, axes))
+            red = _ordered_sum(self._every_shard(parts, axes), dtype)
             return [red.narrow(dim, s * c, c).to(dev)
                     for s, dev in self.local_shards(axes)]
         (x,) = parts
@@ -326,8 +324,16 @@ class Mesh:
         return [y]
 
 
-def _ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """parts[0] + parts[1] + ..., added left to right."""
+def _ordered_sum(parts: Sequence[torch.Tensor],
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """parts[0] + parts[1] + ..., added left to right; with ``dtype``, into
+    one accumulator of that dtype, each part widened as it is added (the
+    bits of widening them all first, without their copies)."""
+    if dtype is not None:
+        acc = parts[0].to(dtype, copy=True)
+        for p in parts[1:]:
+            acc.add_(p)
+        return acc
     acc = parts[0]
     for p in parts[1:]:
         acc = acc + p

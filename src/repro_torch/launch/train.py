@@ -40,12 +40,13 @@ cards at once). Asking for more cards than are visible raises; a run
 never falls back to fewer. A resumed run restores onto whatever mesh it
 has (elastic), as checkpoints are stored unsharded.
 
-Every text family trains here (dense, audio, moe, ssm, hybrid); the loss
-adds 0.01 times the MoE load-balancing aux. A moe arch trains on one
-position only (``train_state.make_train_step`` says why). A vlm (``llama-3.2-vision-
-90b``) is refused: the data pipeline makes token batches only, and its
-loss needs image embeddings beside them (``LM.loss(params, tokens, img)``
-and ``make_train_step``'s ``{"tokens", "img"}`` batches train it from
+Every text family trains here (dense, audio, moe, ssm, hybrid), on any
+data axis; the loss adds 0.01 times the MoE load-balancing aux, over the
+whole batch (``train_state.make_train_step`` sums the expert densities
+across the positions). A vlm (``llama-3.2-vision-90b``) is refused: the
+data pipeline makes token batches only, and its loss needs image
+embeddings beside them (``LM.loss(params, tokens, img)`` and
+``make_train_step``'s ``{"tokens", "img"}`` batches train it from
 Python).
 
 ``main(argv)`` returns the losses of the steps it ran, so a caller can

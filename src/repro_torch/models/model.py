@@ -47,7 +47,8 @@ The reference's ``constrain`` calls are left out: the port's
 ``models.sharding.constrain`` is the identity (a position of a data mesh
 computes on its own batch slice already).
 
-Tensor parallel (ROADMAP.md step 13.7; the dense and audio families):
+Tensor parallel (ROADMAP.md steps 13.7 and 13.9; the dense, audio and
+moe families):
 ``LM.tp_loss`` is ``LM.loss`` over the positions of one row of a model
 axis (a ``launch.mesh.ModelGroup``), each with its model slices of the
 parameters, as the reference's ``param_specs(..., tp="model")`` lays them
@@ -67,8 +68,14 @@ loss takes the gold logit as a masked gather and a reduce-out, ``m`` from
 the no-gradient max over the axis (the reference's ``m`` carries a
 gradient that cancels to zero), and ``logz = m + log(reduce-out(sum
 exp(lg - m)))`` in f32: the full (B, S, V) logits are never gathered.
-Replicated work (norms, residual stream, RoPE angles) is done once a row
-with the first position's copy of a replicated leaf.
+Replicated work (norms, residual stream, RoPE angles, a MoE layer's
+route and aux) is done once a row with the first position's copy of a
+replicated leaf. A MoE sub-layer's experts split over the axis: each
+position fills and runs only its own experts' slots (``_tp_moe_sub``).
+``routes`` (``moe.Routes``) records every MoE layer's route in a forward
+without gradients (``route`` / ``tp_route``: the sharded train step's
+routing pass) and replays it in the next, whose aux then takes the
+counts summed over the data positions.
 Under grad mode each block is always checkpointed (remat), with the
 positions' slices as its arguments, and its recompute runs the whole block
 (early stop off), so a step makes the collectives that
@@ -101,7 +108,15 @@ from .common import (
     rope,
 )
 from .mamba import mamba_apply, mamba_decode, mamba_dims, mamba_init
-from .moe import moe_apply, moe_init
+from .moe import (
+    Route,
+    Routes,
+    load_balance_aux,
+    moe_apply,
+    moe_experts,
+    moe_init,
+    route_layer,
+)
 
 Params = Any
 
@@ -294,7 +309,7 @@ def _mlp_sub(p, x, cfg: ArchConfig):
 # ---- tensor parallel over a model axis (see the module) ----
 
 # ROADMAP.md steps of the families that do not train on a model axis yet
-_TP_STEPS = {"ssm": "13.8", "hybrid": "13.8", "moe": "13.9", "vlm": "13.10"}
+_TP_STEPS = {"ssm": "13.8", "hybrid": "13.8", "vlm": "13.10"}
 
 
 def check_tensor_parallel(cfg: ArchConfig, tp: int) -> None:
@@ -312,6 +327,12 @@ def check_tensor_parallel(cfg: ArchConfig, tp: int) -> None:
             f"{cfg.name} on a model axis of {tp}: {tp} does not divide its "
             f"{cfg.n_kv} kv heads, and a position takes whole kv heads "
             f"(heads resharded across the axis are ROADMAP.md step 13.11)")
+    if cfg.n_experts % tp:
+        raise NotImplementedError(
+            f"{cfg.name} on a model axis of {tp}: {tp} does not divide its "
+            f"{cfg.n_experts} experts, and a position takes whole experts "
+            f"(the expert axis splits evenly over the model axis, as "
+            f"param_specs lays it out)")
 
 
 def _vocab_rows(embed, tokens, lo: int):
@@ -354,15 +375,53 @@ def _tp_mlp_sub(ps, x, ctx):
     return x + group.reduce_out(outs).to(x.dtype)
 
 
-def _tp_dense_block(ps, x, ctx):
-    """One dense block over a model axis: the function each checkpoint
-    recomputes."""
-    return _tp_mlp_sub(ps, _tp_self_attn_full(ps, x, ctx), ctx)
+def _tp_moe_sub(ps, x, ctx):
+    """``_moe_sub`` over a model axis, the experts split over it: the route
+    is taken once a row with the first position's router (replicated over
+    the axis), each position runs its own experts' slots and products
+    (``moe_experts``, experts ``[j E/tp, (j+1) E/tp)``), and a reduce-out
+    sums the partial combines, one nonzero term per (token, choice). The
+    gates are copied in, so that their gradient, which each position
+    makes for its own pairs only, is summed; the aux is the row's, taken
+    once."""
+    cfg, group = ctx["cfg"], ctx["group"]
+    h = rms_norm(x, ps[0]["ln2"])
+    r, counts, n_tokens = route_layer(
+        h, ps[0]["moe"]["router"], top_k=cfg.top_k,
+        capacity_factor=cfg.capacity_factor, routes=ctx.get("routes"),
+        key=ctx.get("key"))
+    n = cfg.n_experts // group.size
+    outs = []
+    for p, hj, gj, j in zip(ps, group.copy_in(h), group.copy_in(r.gate),
+                            group.index):
+        dev = hj.device
+        rj = Route(r.probs.detach().to(dev), gj, r.eidx.to(dev),
+                   r.pos.to(dev), r.keep.to(dev), r.cap)
+        outs.append(moe_experts(hj, p["moe"], rj, first=j * n))
+    y = group.reduce_out(outs)
+    return x + y.to(x.dtype), load_balance_aux(r.probs, counts, n_tokens)
 
 
-def _moe_sub(p, x, cfg: ArchConfig):
+def _tp_block(kind, ps, x, ctx):
+    """One block over a model axis, (x, aux or None): the function each
+    checkpoint recomputes."""
+    if kind == "dense":
+        return _tp_mlp_sub(ps, _tp_self_attn_full(ps, x, ctx), ctx), None
+    if kind == "moe":
+        return _tp_moe_sub(ps, _tp_self_attn_full(ps, x, ctx), ctx)
+    if kind == "moe_pair":
+        x, _ = _tp_block("dense", [p["dense"] for p in ps], x, ctx)
+        return _tp_block("moe", [p["moe"] for p in ps], x, ctx)
+    raise ValueError(kind)
+
+
+def _moe_sub(p, x, ctx):
+    """The MoE FFN sub-layer; ``ctx["routes"]`` (if any) records or replays
+    the layer's route under ``ctx["key"]`` (``moe.route_layer``)."""
+    cfg = ctx["cfg"]
     y, aux = moe_apply(rms_norm(x, p["ln2"]), p["moe"], top_k=cfg.top_k,
-                       capacity_factor=cfg.capacity_factor)
+                       capacity_factor=cfg.capacity_factor,
+                       routes=ctx.get("routes"), key=ctx.get("key"))
     return x + y, aux
 
 
@@ -387,7 +446,7 @@ def block_apply_full(kind, p, x, ctx, *, want_cache: bool):
                                    ctx["force"])
         if kind == "dense":
             return _mlp_sub(p, x, cfg), None, cache
-        x, aux = _moe_sub(p, x, cfg)
+        x, aux = _moe_sub(p, x, ctx)
         return x, aux, cache
     if kind == "moe_pair":
         x, aux1, c1 = block_apply_full("dense", p["dense"], x, ctx,
@@ -473,7 +532,7 @@ def block_apply_decode(kind, p, x, cache, ctx):
         return _mlp_sub(p, x, cfg), cache
     if kind == "moe":
         x, cache = _self_attn_decode(p, x, pos, cache, cfg)
-        return _moe_sub(p, x, cfg)[0], cache
+        return _moe_sub(p, x, ctx)[0], cache
     if kind == "moe_pair":
         x, c1 = block_apply_decode("dense", p["dense"], x, cache["dense"],
                                    ctx)
@@ -624,6 +683,7 @@ class LM:
         remat: bool = False,
         skip_masked: bool = False,
         force: Optional[str] = None,
+        routes: Optional[Routes] = None,
     ):
         """Returns (logits (B,S,V), aux scalar, caches list | None); aux is
         the sum of the MoE blocks' load-balancing terms (0 without experts).
@@ -633,7 +693,20 @@ class LM:
         recomputed in the backward). ``skip_masked`` is the reference's
         causal block skipping; it is accepted and changes no value: K4 and
         K5 always skip the tiles the causal mask hides, and the plain
-        versions compute them and mask them out."""
+        versions compute them and mask them out. ``routes``: the MoE
+        layers' routes to record or replay (``route``)."""
+        x, aux_total, caches = self._trunk(
+            params, tokens, img, want_caches=want_caches,
+            cache_len=cache_len, remat=remat, force=force, routes=routes)
+        if want_caches:
+            # prefill only needs next-token logits: never make (B,S,V)
+            x = x[:, -1:]
+        logits = self.head(params, x)
+        return logits, aux_total, caches
+
+    def _trunk(self, params, tokens, img, *, want_caches=False,
+               cache_len=None, remat=False, force=None, routes=None):
+        """The embedding and the blocks: (x, aux, caches)."""
         embed = params["embed"]
         tokens = torch.as_tensor(tokens, device=embed.device).long()
         B, S = tokens.shape
@@ -644,33 +717,45 @@ class LM:
         remat = remat and not want_caches and torch.is_grad_enabled()
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, i, kind, p in self.blocks(params):
+            bctx = ctx if routes is None else dict(ctx, routes=routes,
+                                                   key=(si, i))
             if remat:
-                x, aux = checkpoint(_block_out, kind, p, x, ctx,
+                x, aux = checkpoint(_block_out, kind, p, x, bctx,
                                     use_reentrant=False)
             else:
-                x, aux, cache = block_apply_full(kind, p, x, ctx,
+                x, aux, cache = block_apply_full(kind, p, x, bctx,
                                                  want_cache=want_caches)
                 if want_caches:
                     _write(_index(caches[si], i), cache)
             if aux is not None:
                 aux_total = aux_total + aux
-        if want_caches:
-            # prefill only needs next-token logits: never make (B,S,V)
-            x = x[:, -1:]
-        logits = self.head(params, x)
-        return logits, aux_total, caches
+        return x, aux_total, caches
+
+    def route(self, params: Params, tokens, img=None, *,
+              force: Optional[str] = None) -> Routes:
+        """The routing pass of the sharded train step: a forward without
+        gradients through the blocks (no head) that records every MoE
+        layer's experts and first-choice counts, for ``loss(...,
+        routes=)`` to replay once the counts are summed over the data
+        positions (``Routes.set_total``)."""
+        routes = Routes()
+        with torch.no_grad():
+            self._trunk(params, tokens, img, force=force, routes=routes)
+        return routes
 
     # ---- losses ----
 
     def loss(self, params: Params, tokens, img=None, *, remat: bool = True,
-             skip_masked: bool = False, force: Optional[str] = None):
+             skip_masked: bool = False, force: Optional[str] = None,
+             routes: Optional[Routes] = None):
         """Next-token cross-entropy + 0.01 * aux, as the reference's
         ``LM.loss``: over all ``vocab_padded`` classes, the mean over
         B x (S - 1) positions, logsumexp in f32. Returns (loss, dict(ce,
         aux)), 0-d f32 tensors. ``skip_masked`` changes no value (see
-        ``forward``)."""
+        ``forward``); ``routes``: the MoE routes to replay (``route``)."""
         logits, aux, _ = self.forward(params, tokens, img, remat=remat,
-                                      skip_masked=skip_masked, force=force)
+                                      skip_masked=skip_masked, force=force,
+                                      routes=routes)
         tokens = torch.as_tensor(tokens, device=logits.device).long()
         tgt = tokens[:, 1:]
         lg = logits[:, :-1]
@@ -679,18 +764,13 @@ class LM:
         ce = torch.mean(logz - gold)
         return ce + 0.01 * aux, dict(ce=ce, aux=aux)
 
-    def tp_loss(self, parts: list, tokens, group, *,
-                force: Optional[str] = None):
-        """``loss`` over a model axis (see the module): ``parts[i]`` is the
-        parameter tree of ``group``'s local position i, its model slices
-        whole along the data axes. Returns what ``loss`` returns, the same
-        on every position of the row (on the first local position's
-        device)."""
+    def _tp_trunk(self, parts: list, tokens, group, *, force=None,
+                  routes=None):
+        """``tp_loss``'s embedding and blocks: (x, aux, tokens)."""
         cfg = self.cfg
         tp = group.size
         check_tensor_parallel(cfg, tp)
-        first = parts[0]
-        dev = first["embed"].device
+        dev = parts[0]["embed"].device
         tokens = torch.as_tensor(tokens, device=dev).long()
         B, S = tokens.shape
         vp = cfg.vocab_padded // tp
@@ -701,15 +781,45 @@ class LM:
                    positions=torch.arange(S, dtype=torch.int32,
                                           device=dev).expand(B, S))
         remat = torch.is_grad_enabled()
-        for si, (_kind, count) in enumerate(self.plan):
+        aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+        for si, (kind, count) in enumerate(self.plan):
             for i in range(count):
                 ps = [_index(p[f"seg{si}"], i) for p in parts]
+                bctx = ctx if routes is None else dict(ctx, routes=routes,
+                                                       key=(si, i))
                 if remat:
                     with set_checkpoint_early_stop(False):
-                        x = checkpoint(_tp_dense_block, ps, x, ctx,
-                                       use_reentrant=False)
+                        x, aux = checkpoint(_tp_block, kind, ps, x, bctx,
+                                            use_reentrant=False)
                 else:
-                    x = _tp_dense_block(ps, x, ctx)
+                    x, aux = _tp_block(kind, ps, x, bctx)
+                if aux is not None:
+                    aux_total = aux_total + aux
+        return x, aux_total, tokens
+
+    def tp_route(self, parts: list, tokens, group, *,
+                 force: Optional[str] = None) -> Routes:
+        """``route`` over a model axis: ``tp_loss``'s blocks without
+        gradients, recording the routes (taken once a row)."""
+        routes = Routes()
+        with torch.no_grad():
+            self._tp_trunk(parts, tokens, group, force=force, routes=routes)
+        return routes
+
+    def tp_loss(self, parts: list, tokens, group, *,
+                force: Optional[str] = None,
+                routes: Optional[Routes] = None):
+        """``loss`` over a model axis (see the module): ``parts[i]`` is the
+        parameter tree of ``group``'s local position i, its model slices
+        whole along the data axes. Returns what ``loss`` returns, the same
+        on every position of the row (on the first local position's
+        device); ``routes`` as ``loss``'s."""
+        cfg = self.cfg
+        tp = group.size
+        first = parts[0]
+        vp = cfg.vocab_padded // tp
+        x, aux, tokens = self._tp_trunk(parts, tokens, group, force=force,
+                                        routes=routes)
         h = rms_norm(x, first["final_norm"])
         tgt = tokens[:, 1:]
         golds, lgs = [], []
@@ -731,7 +841,6 @@ class LM:
             for lg in lgs])
         logz = m + torch.log(se)
         ce = torch.mean(logz - gold)
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
         return ce + 0.01 * aux, dict(ce=ce, aux=aux)
 
     # ---- serving ----

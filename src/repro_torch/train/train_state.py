@@ -25,9 +25,24 @@ gradients into the positions' slices in position order (a
 reduce-scatter) divided by the positions, in ``accum_dtype``, take the
 mean of the losses, and run AdamW on the slices. That is the unsharded
 step up to the order of the sums, and on one position the unsharded step
-bit for bit. A MoE model on more than one position is refused: its aux
-needs the expert densities summed across positions mid-forward (ROADMAP.md
-step 13.5).
+bit for bit.
+
+A MoE model over a data axis (ROADMAP.md step 13.5 item 1): the
+reference's aux, ``E * sum(density * p_mean)``, is taken over the whole
+(micro)batch, and the density of layer l needs every position's routes
+at layer l. Only the density crosses positions, and it has no gradient;
+so, with the positions' rows equal, the mean over positions of ``E *
+sum(density_global * p_mean_own)`` is the reference's aux, and the ``/
+n`` reduce gives its gradient. Each microbatch, where its rows split over
+the positions, first runs a routing pass (``LM.route``: the blocks
+without gradients, no head) on every position's rows, recording each MoE
+layer's experts and first-choice counts; sums the counts over the data
+positions in position order (``mesh.psum``, one all-reduce of (MoE
+layers, E) f32 counts, exact in any order); then runs each position's
+gradient pass replaying those routes with the summed density, so that
+the checkpointed blocks' recompute routes as the first pass did. Where
+the batch does not split, each position's counts are already the whole
+batch's and nothing is summed.
 
 Tensor parallel over a ("data", "model") mesh (ROADMAP.md step 13.7; the
 reference's ``grad_specs=param_specs(..., tp="model")``): where the specs
@@ -39,9 +54,12 @@ a rank's own position across ranks). The gradients are reduce-scattered
 over the data axes only, along the dim the data axes split (embed's spec
 is ``(model, data)``); a leaf the model axis does not split (a norm) is
 summed over the data axes only, its copies along the model axis being one
-gradient and not partial sums. The dense and audio families train so;
-the others, and a model axis that does not divide ``n_kv``, raise naming
-their ROADMAP.md step. A model axis of 1 is the FSDP step bit for bit.
+gradient and not partial sums. The dense, audio and moe families train
+so, a moe's experts split over the model axis (ROADMAP.md step 13.9,
+``models.model._tp_moe_sub``) and its routing pass per data row
+(``LM.tp_route``); the others, and a model axis that does not divide
+``n_kv`` or ``n_experts``, raise naming the rule or their ROADMAP.md
+step. A model axis of 1 is the FSDP step bit for bit.
 """
 from __future__ import annotations
 
@@ -158,21 +176,12 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
     if mesh is None and grad_specs is not None:
         raise ValueError("grad_specs shard the gradients over a mesh: pass "
                          "mesh= (and a state placed on it)")
-    if mesh is not None and mesh.size > 1 and lm.cfg.n_experts:
-        if mesh.shape.get(TP, 1) > 1:
-            check_tensor_parallel(lm.cfg, mesh.shape[TP])
-        raise NotImplementedError(
-            f"{lm.cfg.name} on a data axis of {mesh.size}: the MoE aux "
-            f"(E * sum(density * p_mean)) is taken over the whole batch, "
-            f"which needs the expert densities summed across positions in "
-            f"the middle of the forward (ROADMAP.md step 13.5, MoE over a "
-            f"data axis); train it on one position")
 
-    def grad_fn(params, tokens, img):
+    def grad_fn(params, tokens, img, routes=None):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss, metrics = lm.loss(live, tokens, img,
                                 skip_masked=step_cfg.skip_masked,
-                                force=force)
+                                force=force, routes=routes)
         leaves = tree_leaves(live)
         by_id = {id(t): g for t, g in
                  zip(leaves, torch.autograd.grad(loss, leaves))}
@@ -217,7 +226,7 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
 
     positions = mesh.local_positions()
 
-    def tp_grad_fn(trees, dims, tokens, group):
+    def tp_grad_fn(trees, dims, tokens, group, routes):
         """``grad_fn`` over a row of model positions: each position's own
         leaves for the slices the model axis splits, the first position's
         for the rest (its gradient then serves every position)."""
@@ -229,7 +238,7 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
             for t in trees[1:]]
         loss, metrics = lm.tp_loss(
             [_unflatten(t, live) for t, live in zip(trees, lives)], tokens,
-            group, force=force)
+            group, force=force, routes=routes)
         uniq = list({id(t): t for live in lives for t in live}.values())
         by_id = {id(t): g for t, g in
                  zip(uniq, torch.autograd.grad(loss, uniq))}
@@ -264,6 +273,7 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
         split = n_dp > 1 and B % (M * n_dp) == 0
         n = n_dp if split else 1
         rows = B // M // n
+        routed = bool(lm.cfg.n_experts) and n > 1
         # each local model index's slices, whole along the data axes, on
         # every device of a local position that takes it
         slices = gather_over(state["params"], daxes)
@@ -281,23 +291,44 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
         for k, p in enumerate(positions):
             by_row.setdefault(mesh.shard_index(p, daxes), []).append(k)
             by_model.setdefault(model_idx[k], []).append(k)
+        rows_in_order = sorted(by_row.items())
+
+        def row_inputs(i, d, ks):
+            """A data row's trees, tokens and image rows in microbatch i."""
+            r0 = (i * n + (d if split else 0)) * rows
+            sl = slice(r0, r0 + rows)
+            trees = [on_dev[model_idx[k], state.devices[k]] for k in ks]
+            return trees, tokens[sl], None if img is None else img[sl]
+
+        def row_group(r, ks):
+            return ModelGroup(mesh, tp_axis, [positions[k] for k in ks],
+                              count=r == 0)
+
         grads, loss_acc = None, None
         for i in range(M):
             parts = [None] * len(positions)
             losses = []
-            for r, (d, ks) in enumerate(sorted(by_row.items())):
-                r0 = (i * n + (d if split else 0)) * rows
-                sl = slice(r0, r0 + rows)
-                trees = [on_dev[model_idx[k], state.devices[k]] for k in ks]
+            routes = [None] * len(rows_in_order)
+            if routed:
+                # the routing pass, and the densities summed over the rows
+                for r, (d, ks) in enumerate(rows_in_order):
+                    trees, tok, im = row_inputs(i, d, ks)
+                    routes[r] = (lm.route(trees[0], tok, im, force=force)
+                                 if tp == 1 else
+                                 lm.tp_route(trees, tok, row_group(r, ks),
+                                             force=force))
+                total = mesh.psum([rt.stacked_counts() for rt in routes],
+                                  daxes)
+                for rt, t in zip(routes, total):
+                    rt.set_total(t, n * rows * tokens.shape[1])
+            for r, (d, ks) in enumerate(rows_in_order):
+                trees, tok, im = row_inputs(i, d, ks)
                 if tp == 1:
-                    loss, m, g = grad_fn(trees[0], tokens[sl],
-                                         None if img is None else img[sl])
+                    loss, m, g = grad_fn(trees[0], tok, im, routes[r])
                     g = [g]
                 else:
-                    loss, m, g = tp_grad_fn(
-                        trees, dims, tokens[sl],
-                        ModelGroup(mesh, tp_axis, [positions[k] for k in ks],
-                                   count=r == 0))
+                    loss, m, g = tp_grad_fn(trees, dims, tok,
+                                            row_group(r, ks), routes[r])
                 for k, gk in zip(ks, g):
                     parts[k] = gk
                 losses.append(m["ce"] if M == 1 else loss)

@@ -1516,6 +1516,64 @@ def test_tp_step_on_card_positions_equals_unsharded(cuda, dtype):
         assert e <= tols[k], (k, e, tols[k])
 
 
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_mesh_steps_on_card_positions_equal_unsharded(cuda, arch):
+    """The moe family on in-process meshes of card positions, f32, two
+    steps: FSDP on (2,) (a routing pass, the expert counts summed, the
+    gradient passes replaying its routes) and (2, 2) (the experts split
+    over "model"): K4 3 x and K5 once a layer a position a step (the
+    routing pass, the forward and its recompute; the backward); the
+    collective bytes are the dry run's; the unsharded step's losses within
+    1e-6 and every leaf within 1e-4 relative L2, as the FSDP test above
+    (the reduced configs route with margins ~5e-5 on this data, above the
+    f32 sums' differences)."""
+    from repro_torch.launch import dryrun, make_mesh
+    from repro_torch.launch.mesh import (collective_bytes,
+                                         reset_collective_bytes)
+    from repro_torch.models import sharding as sh
+    from repro_torch.train import StepConfig, init_train_state, \
+        make_train_step
+    from repro_torch.train.checkpoint import _paths
+    from repro_torch.train.train_state import state_specs
+
+    lm, c, batch = _sharded_setup(arch, cuda)
+    plain = init_train_state(lm, 0, c, device=cuda)
+    step = make_train_step(lm, c)
+    want = []
+    for _ in range(2):
+        plain, m = step(plain, batch)
+        want.append(float(m["loss"]))
+    attn = sum(n * (2 if kind == "moe_pair" else 1) for kind, n in lm.plan)
+    for shape in ((2,), (2, 2)):
+        tp = shape[1] if len(shape) == 2 else 1
+        mesh = make_mesh(shape, ("data", "model")[:len(shape)],
+                         devices=[cuda] * (2 * tp))
+        specs = state_specs(sh.param_specs(
+            lm.abstract_params(), ("data",),
+            tp="model" if tp > 1 else None), c)
+        state = init_train_state(lm, 0, c, mesh=mesh, specs=specs)
+        step = make_train_step(lm, c, mesh=mesh)
+        ops.reset_launches()
+        got = []
+        for i in range(2):
+            reset_collective_bytes()
+            state, m = step(state, batch)
+            got.append(float(m["loss"]))
+            if i == 0:
+                moved = collective_bytes()
+        n = ops.launch_counts()
+        assert n["flash_attention_fwd"] == 2 * 3 * attn * 2 * tp, n
+        assert n["flash_attention_bwd"] == 2 * attn * 2 * tp, n
+        dry = dict(dryrun.fsdp_collectives(lm, StepConfig(), 2, 8, tp=tp))
+        dry.update(dryrun.tp_collectives(lm, StepConfig(), 2, tp, (8, 32)))
+        assert moved == dry
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+        for (k, a), (_, b) in zip(_paths(sh.gather_tree(state)),
+                                  _paths(plain)):
+            assert _rel(a, b) <= 1e-4, (shape, k, _rel(a, b))
+
+
 # --------------------------------------------------------------------------
 # the dry run (launch/dryrun.py) held to the card
 # --------------------------------------------------------------------------

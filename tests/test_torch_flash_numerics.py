@@ -21,12 +21,19 @@ rounding. Bounds, relative to the largest |o| or |gradient|:
 The forward helper is also held to the JAX model's bf16 attention
 (``repro.models.attention.flash_attention`` with 64-row blocks, which
 rounds P the same way before its P V): it must be at least as close to it
-as the f32-P plain version is.
+as the f32-P plain version is. The backward is held to ``jax.vjp`` of
+that attention: K5's arithmetic (``ref.flash_attention_bwd(...,
+bf16_p=True)``) and the plain f32 backward, both within the card gate
+1e-2 of the largest |gradient| (6.3e-3 and 3.7e-3 measured at the worst
+shape; the JAX gradients are bf16, so each entry carries up to 2^-9 of
+itself in output rounding alone), at eight of the shapes (a JAX compile
+each).
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.models.attention import flash_attention as jax_flash_attention
@@ -48,6 +55,14 @@ SHAPES = [
     (2, 129, 129, 64, True), (2, 255, 129, 40, True),
     (2, 129, 255, 40, False), (1, 1, 9, 8, False), (2, 255, 255, 256, True),
     (2, 256, 256, 64, True),
+]
+
+# the backward against JAX (a compile a shape): every head width of SHAPES
+# from 8 to 256, causal or not, S off the tiles, Sq != Skv both ways, Sq = 1
+BWD_JAX_SHAPES = [
+    (4, 64, 64, 16, True), (2, 48, 80, 32, False), (3, 33, 33, 8, True),
+    (2, 130, 257, 112, False), (2, 70, 70, 128, True), (3, 1, 70, 112, False),
+    (2, 255, 129, 40, True), (2, 255, 255, 256, True),
 ]
 
 
@@ -148,6 +163,28 @@ def test_tc_forward_is_as_close_to_the_jax_bf16_attention(
     err_tc = np.abs(o_tc - want).max()
     err_plain = np.abs(o_plain.numpy() - want).max()
     assert err_tc <= err_plain, (err_tc, err_plain)
+
+
+@pytest.mark.parametrize("bh,sq,skv,hd,causal", BWD_JAX_SHAPES)
+def test_tc_and_plain_backward_are_near_the_jax_bf16_attention_grads(
+        bh, sq, skv, hd, causal):
+    """dq, dk and dv of K5's arithmetic and of the plain f32 backward
+    against ``jax.vjp`` of the JAX model's bf16 attention (64-row blocks)
+    on the same bf16 inputs and cotangent, each within 1e-2 of the JAX
+    gradient's largest entry."""
+    q, k, v, do = _inputs(bh, sq, skv, hd)
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)[
+        :, :, None, :] for t in (q, k, v, do))
+    _out, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(
+        a, b, c, causal=causal, q_block=TILE, kv_block=TILE), jq, jk, jv)
+    want = [torch.tensor(np.asarray(g.astype(jnp.float32))[:, :, 0])
+            for g in vjp(jdo)]
+    o, lse = ref.flash_attention_fwd(q, k, v, causal=causal)
+    args = (q.float(), k.float(), v.float(), o.float(), lse, do.float())
+    for bf16_p in (True, False):
+        got = ref.flash_attention_bwd(*args, causal=causal, bf16_p=bf16_p)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert _rel_err(g, w) <= 1e-2, (name, bf16_p, _rel_err(g, w))
 
 
 @pytest.mark.parametrize("bh,sq,skv,hd,causal", SHAPES)

@@ -27,8 +27,8 @@ Then the twin of tests/test_distributed.py's elastic restore (3 steps on
 master copy), 4 gloo ranks (spawned once, a ``file://`` store) against
 the in-process mesh bit for bit (the steps, a checkpoint written by rank
 0 alone and restored, the CLI), a vlm's image rows split with its
-tokens, a moe arch refused on a data axis of 2, and the CLI on 4
-positions preempted and resumed on 2.
+tokens, and the CLI on 4 positions preempted and resumed on 2. The moe
+family on a data axis is tests/test_torch_train_moe_sharded.py's.
 """
 import dataclasses
 import os
@@ -266,15 +266,6 @@ def test_vlm_images_split_with_the_tokens(monkeypatch):
                                rtol=1e-6)
     for (k, a), (_, b) in zip(_full(state), _paths(plain)):
         assert float((a.double() - b.double()).abs().max()) <= 1e-5, k
-
-
-def test_moe_on_a_data_axis_is_refused():
-    _, cfg = _cfgs("phi3.5-moe-42b-a6.6b")
-    lm = LM(cfg)
-    c = AdamWConfig()
-    with pytest.raises(NotImplementedError, match="13.5"):
-        make_train_step(lm, c, mesh=_mesh(2))
-    make_train_step(lm, c, mesh=_mesh(1))  # one position is the plain step
 
 
 def test_sharding_arguments_are_checked():

@@ -2,11 +2,13 @@
 
 One spawn of 4 gloo ranks (a ``file://`` store) on a (2, 2) ("data",
 "model") mesh, and one more process with the same threads driving the
-in-process mesh: reduced smollm-135m and musicgen-medium in f32, three
-steps at M = 1 and 2 from one initial state. Each rank runs its own
-position's share (the copy-ins' and reduce-outs' sums gathered across
-the model group and added in shard order, the gradients reduce-scattered
-across the data group), so every rank's losses, grad norms, gathered
+in-process mesh: reduced smollm-135m, musicgen-medium and phi3.5-moe in
+f32, three steps at M = 1 and 2 from one initial state. Each rank runs
+its own position's share (the copy-ins' and reduce-outs' sums gathered
+across the model group and added in shard order, the gradients
+reduce-scattered across the data group; phi3.5-moe's experts split over
+the model group, its routing pass's expert counts all-reduced across the
+data group), so every rank's losses, grad norms, gathered
 state and collective bytes must be the in-process run's bit for bit; and
 the checkpoint rank 0 writes alone must be the in-process one's, byte for
 byte.
@@ -21,7 +23,7 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["smollm-135m", "musicgen-medium"]
+ARCHS = ["smollm-135m", "musicgen-medium", "phi3.5-moe-42b-a6.6b"]
 RANKS = 4
 
 RUN = """
