@@ -314,7 +314,38 @@ exits non-zero:
                training), one step at batch 2 x 2,048 through K4, K5, K6
                and K6b in one graph, its launches counted, against the
                plain path under the rules of (b).
-19. ``moe``    the moe family at full width and reduced depth (bf16,
+19. ``train_tp_ssm`` the ssm and hybrid families trained tensor parallel
+               (ROADMAP step 13.8) on in-process ``("data", "model")``
+               meshes of the one card, each position running its own
+               Mamba2 heads (``in_proj`` and the conv gathered whole over
+               the model axis, B and C whole): (a) mamba2-2.7b at full
+               width and 16 of its 64 layers, the ``train_ssm`` batch 8 x
+               2,048 (diverse selection before the counts), bf16, 3 steps
+               each on (1, 2) and (2, 2) (40 of 80 heads a position: K6
+               and K6b on 64 and 32 x 40 cells of (256, 64, 128)) against
+               3 unsharded kernel-path steps from the same parameters
+               under the ``train`` phase's bf16 rule (three nudged
+               unsharded runs), then 2 warm steps of each arm for its step
+               time; launch counts set to 0 before and read after (K6 and
+               K6b once a position as often as unsharded, each call's
+               cells and heads the position's share), each arm's step-0
+               collective bytes equal to the dry run's, its peak, K6 and
+               K6b against their plain versions at each position's
+               first-call inputs of one more step (outside the counts and
+               the peak), K6 and K6b timed at a (1, 2) position's inputs;
+               one f32 step at 2 layers on 1 x 2,048 on (1, 2) against
+               one unsharded (loss within 1e-6 relative; every leaf of
+               the gradient, read as the first moment, and of the second
+               moment within 1e-4 relative L2; the parameters' worst leaf
+               printed beside what an unsharded step on the plain path
+               differs by there);
+               (b) zamba2-7b at full width and one super block on (1, 2)
+               (56 of 112 Mamba heads and 16 of 32 attention heads a
+               position), the ``train_sharded`` batch 2 x 1,024, 3 bf16
+               steps against unsharded by the same rules, K4 and K5 of
+               the shared block held and counted as K6 and K6b are, and
+               its f32 step on 1 x 1,024.
+20. ``moe``    the moe family at full width and reduced depth (bf16,
                random weights): (a) phi3.5-moe-42b-a6.6b at 16 of its 32
                layers (top-2 of 16 experts, capacity 1.25: 160 slots a
                sequence) serving 8 prompts of 1,024 tokens + 16 new, and
@@ -360,7 +391,7 @@ exits non-zero:
                near-tie; loss within 1e-5, every parameter and moment
                leaf within 1e-3 relative L2); K4 and K5 timed at the
                (2, 2) mesh's per-position shape.
-20. ``vlm``    llama-3.2-vision-90b at full width: (a) 2 of its 20 super
+21. ``vlm``    llama-3.2-vision-90b at full width: (a) 2 of its 20 super
                blocks (10 layers) serving 4 prompts of 1,024 tokens + 16
                new over seeded image embeddings (4 x 1,024 x 8,192, 0.1 x
                normal) on both paths as in ``moe`` (K4 10 launches a
@@ -471,6 +502,18 @@ TP_F32_BATCH, TP_F32_SEQ = 4, 1024
 TP_AUDIO_ARCH, TP_AUDIO_LAYERS, TP_AUDIO_MESH = "musicgen-medium", 4, (1, 4)
 TRAIN_SSM_ARCH = "mamba2-2.7b"
 TRAIN_SSM_BATCH, TRAIN_SSM_SEQ, TRAIN_SSM_STEPS = 8, 2048, 3
+# the train_tp_ssm phase: mamba2-2.7b at full width and 16 of its 64
+# layers (the TRAIN_SSM_* batch) on (1, 2) and (2, 2) (40 of 80 heads a
+# position), its f32 check at 2 layers on 1 x 2,048; zamba2-7b at one
+# super block (the SHARD_HYBRID_* batch) on (1, 2) (56 of 112 Mamba heads
+# and 16 of 32 attention heads a position), its f32 check on 1 x 1,024:
+# the loss within 1e-6 relative of the unsharded step's, every gradient
+# and second-moment leaf within 1e-4 relative L2 (the card tests' rule for
+# a mesh step; 3.3e-5 and 5.2e-5 were the most measured on an H100)
+TP_SSM_LAYERS, TP_SSM_MESHES, TP_SSM_TIMED = 16, ((1, 2), (2, 2)), 2
+TP_SSM_F32_LAYERS, TP_SSM_F32_BATCH = 2, 1
+TP_HYBRID_MESH, TP_HYBRID_F32_BATCH = (1, 2), 1
+TP_SSM_F32_LOSS_TOL, TP_SSM_F32_TOL = 1e-6, 1e-4
 TRAIN_SSM_F32_BATCH = 1  # the f32 copy of 2.83 B parameters and its grads
 TRAIN_SSM_NUDGES = 3  # independent nudged embeddings behind the bf16 floor
 # zamba2-7b trained at full width: 12 of its 81 layers (2 super blocks),
@@ -3643,19 +3686,27 @@ def _on_positions(state, specs, n: int):
     return sh.shard_tree(state, specs, mesh, donate=True), mesh
 
 
+def _rel_leaves(a, b) -> dict:
+    """Each leaf's relative L2 difference of two trees of one structure
+    (``a`` gathered where it is sharded), by path; 0-d leaves left out."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.train.checkpoint import _paths
+
+    if isinstance(a, sh.ShardedTree):
+        a = sh.gather_tree(a)
+    return {k: float((x.double() - y.double()).norm()
+                     / (y.double().norm() + 1e-30))
+            for (k, x), (_, y) in zip(_paths(a), _paths(b)) if x.dim()}
+
+
 def _leaves_rel(sharded, plain, part: str) -> tuple[float, str]:
     """The largest relative L2 difference over the leaves of ``part``
     ("params", or "opt" for the moments: after a first step, m is 0.1 x
     the clipped gradient) of a sharded state (gathered) and an unsharded
     one, and that leaf's path."""
-    from repro_torch.models import sharding as sh
-    from repro_torch.train.checkpoint import _paths
-
-    full = sh.gather_tree(sharded[part])
-    return max((float((a.double() - b.double()).norm()
-                      / (b.double().norm() + 1e-30)), key)
-               for (key, a), (_, b) in zip(_paths(full), _paths(plain[part]))
-               if a.dim())
+    rels = _rel_leaves(sharded[part], plain[part])
+    worst = max(rels, key=rels.get)
+    return rels[worst], worst
 
 
 def _step_synced(step, state, batch) -> tuple:
@@ -4709,6 +4760,323 @@ def phase_train_ssm(seed: int) -> dict:
                 k6b_h_launches=launches_h["ssd_intra_chunk_bwd"])
 
 
+class _SsdCells(_OpsWrap):
+    """While entered, the (batch x chunk cells, heads) of every K6 and K6b
+    call, per op, and copies of the inputs of each op's first ``keep``
+    calls (a block runs its model positions in turn, so these are each
+    position's first)."""
+
+    NAMES = ("ssd_intra_chunk", "ssd_intra_chunk_bwd")
+
+    def __init__(self, keep: int = 0):
+        self.keep = keep
+
+    def __enter__(self):
+        self.cells = {name: set() for name in self.NAMES}
+        self.args = {name: [] for name in self.NAMES}
+        return super().__enter__()
+
+    def _wrap(self, name, fn):
+        def call(xbar, *args, **kw):
+            self.cells[name].add(tuple(xbar.shape[:2]))
+            if len(self.args[name]) < self.keep:
+                self.args[name].append([a.clone() for a in (xbar, *args)])
+            return fn(xbar, *args, **kw)
+        return call
+
+
+def _ssm_arm(step, state, batches, keep: int) -> dict:
+    """``batches`` through ``step`` from ``state``, synced: the losses and
+    times, the step-0 collective bytes, the launches, K6/K6b cells and
+    K4/K5 rows of every call, and the peak; then TP_SSM_TIMED warm steps
+    for the step time; then, with ``keep``, one more step keeping each
+    position's first K6, K6b (``_SsdCells``), K4 and K5 (``_HeadRows``)
+    inputs, outside the peak and the counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import collective_bytes, \
+        reset_collective_bytes
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, times, colls = [], [], None
+    with _SsdCells() as sc, _HeadRows() as hr:
+        for i, b in enumerate(batches):
+            reset_collective_bytes()
+            state, loss, dt = _step_synced(step, state, {"tokens": b})
+            if i == 0:
+                colls = collective_bytes()
+            losses.append(loss)
+            times.append(dt)
+    out = dict(losses=losses, step_times_s=times, collective_bytes=colls,
+               launches=ops.launch_counts(),
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               cells={k: sorted(v) for k, v in sc.cells.items()},
+               rows={k: sorted(v) for k, v in hr.rows.items()})
+    warm = []
+    for _ in range(TP_SSM_TIMED):
+        state, _l, dt = _step_synced(step, state, {"tokens": batches[-1]})
+        warm.append(dt)
+    out.update(warm_step_times_s=warm, step_s=statistics.median(warm))
+    if keep:
+        with _SsdCells(keep) as cap, _HeadRows() as hcap:
+            state, _l, _dt = _step_synced(step, state,
+                                          {"tokens": batches[-1]})
+        out["args"], out["flash"] = cap.args, hcap
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_tp_rule(what: str, arm: dict, plain: dict, shape) -> None:
+    """K6 and K6b launch once a position as often as on the unsharded step,
+    each call on a data row's share of its batch x chunk cells and 1/tp
+    of its heads; K4 and K5 likewise (a hybrid's shared block), on 1/n of
+    its B x heads rows."""
+    n_dp, tp = shape
+    for name in ("ssd_intra_chunk", "ssd_intra_chunk_bwd",
+                 "flash_attention_fwd", "flash_attention_bwd"):
+        got, want = arm["launches"][name], plain["launches"][name]
+        check(got == n_dp * tp * want,
+              f"{what}: {name} launched {got} times, expected {n_dp * tp} "
+              f"x the unsharded {want}")
+    for name in ("ssd_intra_chunk", "ssd_intra_chunk_bwd"):
+        ((cells, heads),) = plain["cells"][name]
+        check(plain["launches"][name] > 0
+              and arm["cells"][name] == [(cells // n_dp, heads // tp)],
+              f"{what}: {name} ran on (cells, heads) {arm['cells'][name]}, "
+              f"expected {(cells // n_dp, heads // tp)} (the unsharded "
+              f"{(cells, heads)} over {shape})")
+    for name, rows in plain["rows"].items():
+        want = [r // (n_dp * tp) for r in rows]
+        check(arm["rows"][name] == want,
+              f"{what}: {name} ran on rows {arm['rows'][name]}, expected "
+              f"{want}")
+
+
+def _ssm_tp_checks(arm: dict, what: str) -> list:
+    """K6 and K6b (and K4 and K5 where the arm ran them) against their
+    plain versions at each position's first-call inputs of a warm step
+    (K6: the first layer's forward; K6b: the last layer's backward), at
+    the ``train_ssm`` and ``train`` phases' tolerances. Called after the
+    arm's launches are read, so these launches count on no path."""
+    lines = []
+    for j, a in enumerate(arm["args"]["ssd_intra_chunk"]):
+        lines.append(_check_ssd(*a, f"{what}: position {j}'s heads, the "
+                                    f"first layer's forward", "shared_bc"))
+    for j, a in enumerate(arm["args"]["ssd_intra_chunk_bwd"]):
+        lines.append(_check_ssd_bwd(*a, f"{what}: call {j} of the last "
+                                        f"layer's backward (a position's "
+                                        f"heads)", "shared_bc"))
+    if arm["flash"].args:
+        lines += _tp_kernel_checks(arm["flash"], what)
+    return lines
+
+
+def _tp_f32(lm, params, tokens, opt_cfg, shape, phase: str) -> dict:
+    """One f32 step on ``shape`` against one unsharded, both on the kernel
+    path from ``params`` upcast, emitted as ``phase`` before it is
+    checked: the loss within TP_SSM_F32_LOSS_TOL relative; every leaf of
+    the gradient (read as the first moment, 0.1 x the clipped gradient)
+    and of the second moment within TP_SSM_F32_TOL relative L2 (the split
+    halves the K of the f32 GEMMs and reorders the sums, and the 3xTF32
+    K6 and K6b round anew on other inputs; a per-head vector's gradient,
+    A_log's most, cancels over the tokens); the collective bytes the dry
+    run's. Printed per part, its worst leaf beside what one more
+    unsharded step on the plain path (``force="ref"``) differs by there;
+    the parameters too, not held to a limit: AdamW's first update is g /
+    (|g| + eps) an entry, so a zero-initialised leaf (conv_b) is that
+    alone, and its entries whose gradient cancels to ~eps are decided by
+    the order of the sums (the plain path's step differs there too)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.model import tree_map
+    from repro_torch.train import make_train_step
+
+    lm32 = LM(dataclasses.replace(lm.cfg, dtype="float32"))
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    plain, loss_p, _dt = _step_synced(make_train_step(lm32, opt_cfg),
+                                      _fresh_state(p32, opt_cfg),
+                                      {"tokens": tokens})
+    ref, loss_r, _dt = _step_synced(make_train_step(lm32, opt_cfg,
+                                                    force="ref"),
+                                    _fresh_state(p32, opt_cfg),
+                                    {"tokens": tokens})
+    state, mesh = _tp_place(lm32, p32, opt_cfg, shape)
+    del p32
+    ops.reset_launches()
+    state, loss_s, _dt, colls = _tp_step_counted(
+        make_train_step(lm32, opt_cfg, mesh=mesh), state,
+        {"tokens": tokens})
+    dry = _tp_dry(lm32, shape, *tokens.shape)
+    out = dict(phase=phase, arch=lm.cfg.name, layers=lm.cfg.n_layers,
+               mesh=list(shape), batch=tokens.shape[0], seq=tokens.shape[1],
+               loss=loss_s, loss_unsharded=loss_p, loss_plain_path=loss_r,
+               loss_rel_diff=abs(loss_s - loss_p) / abs(loss_p),
+               launches=ops.launch_counts(), collective_bytes=colls,
+               dryrun_collective_bytes=dry)
+    over = []
+    for name, sub, held in (("grad", lambda t: t["opt"]["m"], True),
+                            ("second_moment", lambda t: t["opt"]["v"], True),
+                            ("params", lambda t: t["params"], False)):
+        got = _rel_leaves(sub(state), sub(plain))
+        floor = _rel_leaves(sub(ref), sub(plain))
+        worst = max(got, key=got.get)
+        out[name] = dict(max_rel_l2_diff=got[worst], worst_leaf=worst,
+                         plain_path_rel_l2_diff_there=floor[worst],
+                         plain_path_max_rel_l2_diff=max(floor.values()))
+        over += [f"{name} {k}: {d}" for k, d in got.items()
+                 if held and d > TP_SSM_F32_TOL]
+    del state, plain, ref
+    torch.cuda.empty_cache()
+    emit(out)
+    check(out["loss_rel_diff"] <= TP_SSM_F32_LOSS_TOL,
+          f"{phase}: f32 losses differ by {out['loss_rel_diff']} relative")
+    check(colls == dry, f"{phase}: f32 collective bytes {colls}, the dry "
+                        f"run counts {dry}")
+    check(not over, f"{phase}: f32 leaves over {TP_SSM_F32_TOL} relative "
+                    f"L2: {over}")
+    return out
+
+
+def phase_train_tp_ssm(seed: int) -> dict:
+    """The ssm and hybrid families trained tensor parallel on in-process
+    ("data", "model") meshes of the one card, against the unsharded step
+    (see the module's list)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.models import LM
+    from repro_torch.models.mamba import mamba_dims
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    cfg = dataclasses.replace(get_config(TRAIN_SSM_ARCH),
+                              n_layers=TP_SSM_LAYERS)
+    lm = LM(cfg)
+    params = lm.init(seed, device="cuda")
+    opt_cfg = AdamWConfig(total_steps=TRAIN_SSM_STEPS,
+                          warmup_steps=min(100, TRAIN_SSM_STEPS // 10 + 1))
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SSM_SEQ,
+                               global_batch=TRAIN_SSM_BATCH, seed=seed))
+    batches = [pipe.batch_at(i)["tokens"] for i in range(TRAIN_SSM_STEPS)]
+    heads = mamba_dims(cfg)[1]
+    # (a) mamba2-2.7b: the unsharded kernel path, then each mesh
+    plain = _ssm_arm(make_train_step(lm, opt_cfg),
+                     _fresh_state(params, opt_cfg), batches, 0)
+    nudged = [_run_steps(lm, _nudged(params, g), batches, opt_cfg)
+              for _ in range(TRAIN_SSM_NUDGES)]
+    arms, kernel_lines, timing = {}, [], {}
+    for shape in TP_SSM_MESHES:
+        what = f"train_tp_ssm mamba2 {shape}"
+        state, mesh = _tp_place(lm, params, opt_cfg, shape)
+        arm = _ssm_arm(make_train_step(lm, opt_cfg, mesh=mesh), state,
+                       batches, shape[1])
+        del state
+        arms[f"mamba2 {shape}"] = arm["launches"]
+        _ssm_tp_rule(what, arm, plain, shape)
+        kernel_lines += _ssm_tp_checks(arm, what)
+        dry = _tp_dry(lm, shape, TRAIN_SSM_BATCH, TRAIN_SSM_SEQ)
+        check(arm["collective_bytes"] == dry,
+              f"{what}: collective bytes {arm['collective_bytes']}, the "
+              f"dry run counts {dry}")
+        check(all(map(math.isfinite, arm["losses"])),
+              f"{what}: non-finite {arm['losses']}")
+        diffs, floors, limits = _loss_rule(arm["losses"], plain["losses"],
+                                           nudged)
+        if shape == TP_SSM_MESHES[0]:
+            # K6 and K6b timed at a position's own cells of a layer
+            timing = dict(k6=_time_ssd(*arm["args"]["ssd_intra_chunk"][0]),
+                          k6b=_time_ssd_bwd(
+                              *arm["args"]["ssd_intra_chunk_bwd"][0]))
+            timing["k6_err"] = kernel_lines[0]["max_abs_err"]
+            timing["k6b_err"] = kernel_lines[shape[1]]["max_abs_err"]
+        arm.pop("args"), arm.pop("flash")
+        emit(dict(phase="train_tp_ssm_steps", arch=TRAIN_SSM_ARCH,
+                  layers=TP_SSM_LAYERS, params=lm.param_count(),
+                  mesh=list(shape), axes=["data", "model"],
+                  heads_per_position=heads // shape[1],
+                  batch=TRAIN_SSM_BATCH, seq=TRAIN_SSM_SEQ, **arm,
+                  unsharded=plain, nudged_unsharded_losses=nudged,
+                  loss_abs_diffs=diffs, nudge_abs_diffs=floors,
+                  loss_abs_diff_limits=limits, dryrun_collective_bytes=dry,
+                  note="every position sits on the one card and they run "
+                       "in turn, so the sums cross no wire; the bytes are "
+                       "what one position would send"))
+    emit(dict(phase="train_tp_ssm_kernel_timing",
+              ssd_intra_chunk=timing["k6"],
+              ssd_intra_chunk_bwd=timing["k6b"]))
+    del params, batches
+    torch.cuda.empty_cache()
+    # the f32 check at 2 layers on 1 x 2,048, on the first mesh
+    cfg32 = dataclasses.replace(cfg, n_layers=TP_SSM_F32_LAYERS)
+    lm32 = LM(cfg32)
+    toks = torch.randint(0, cfg.vocab, (TP_SSM_F32_BATCH, TRAIN_SSM_SEQ),
+                         generator=g, device="cuda")
+    f32 = _tp_f32(lm32, lm32.init(seed, device="cuda"), toks, opt_cfg,
+                  TP_SSM_MESHES[0], "train_tp_ssm_f32")
+    arms["mamba2 f32"] = f32["launches"]
+
+    # (b) zamba2-7b at one super block on (1, 2)
+    cfg_h = dataclasses.replace(get_config(HYBRID_ARCH),
+                                n_layers=SHARD_HYBRID_LAYERS)
+    lm_h = LM(cfg_h)
+    p_h = lm_h.init(seed, device="cuda")
+    tok_h = [torch.randint(0, cfg_h.vocab, (SHARD_HYBRID_BATCH,
+                                            SHARD_HYBRID_SEQ),
+                           generator=g, device="cuda")
+             for _ in range(TRAIN_SSM_STEPS)]
+    plain_h = _ssm_arm(make_train_step(lm_h, opt_cfg),
+                       _fresh_state(p_h, opt_cfg), tok_h, 0)
+    nudged_h = [_run_steps(lm_h, _nudged(p_h, g), tok_h, opt_cfg)
+                for _ in range(TRAIN_SSM_NUDGES)]
+    what = f"train_tp_ssm zamba2 {TP_HYBRID_MESH}"
+    state, mesh = _tp_place(lm_h, p_h, opt_cfg, TP_HYBRID_MESH)
+    arm = _ssm_arm(make_train_step(lm_h, opt_cfg, mesh=mesh), state, tok_h,
+                   TP_HYBRID_MESH[1])
+    del state
+    arms["zamba2"] = arm["launches"]
+    _ssm_tp_rule(what, arm, plain_h, TP_HYBRID_MESH)
+    check(arm["launches"]["flash_attention_bwd"] > 0,
+          f"{what}: the shared block's K5 never ran")
+    kernel_lines += _ssm_tp_checks(arm, what)
+    dry = _tp_dry(lm_h, TP_HYBRID_MESH, SHARD_HYBRID_BATCH, SHARD_HYBRID_SEQ)
+    check(arm["collective_bytes"] == dry,
+          f"{what}: collective bytes {arm['collective_bytes']}, the dry run "
+          f"counts {dry}")
+    check(all(map(math.isfinite, arm["losses"])),
+          f"{what}: non-finite {arm['losses']}")
+    diffs, floors, limits = _loss_rule(arm["losses"], plain_h["losses"],
+                                       nudged_h)
+    arm.pop("args"), arm.pop("flash")
+    emit(dict(phase="train_tp_ssm_hybrid", arch=HYBRID_ARCH,
+              layers=SHARD_HYBRID_LAYERS, params=lm_h.param_count(),
+              mesh=list(TP_HYBRID_MESH), heads_per_position=[
+                  mamba_dims(cfg_h)[1] // TP_HYBRID_MESH[1],
+                  cfg_h.n_heads // TP_HYBRID_MESH[1]],
+              batch=SHARD_HYBRID_BATCH, seq=SHARD_HYBRID_SEQ, **arm,
+              unsharded=plain_h, nudged_unsharded_losses=nudged_h,
+              loss_abs_diffs=diffs, nudge_abs_diffs=floors,
+              loss_abs_diff_limits=limits, dryrun_collective_bytes=dry))
+    f32_h = _tp_f32(lm_h, p_h, tok_h[0][:TP_HYBRID_F32_BATCH], opt_cfg,
+                    TP_HYBRID_MESH, "train_tp_ssm_hybrid_f32")
+    arms["zamba2 f32"] = f32_h["launches"]
+    del p_h
+    torch.cuda.empty_cache()
+    total = {}
+    for counts in arms.values():
+        total = _add_counts(total, counts)
+    emit(dict(phase="train_tp_ssm_kernels", checks=kernel_lines))
+    emit(dict(phase="train_tp_ssm_launches", arms=arms, total=total))
+    return dict(launches=total, **timing)
+
+
 class _Routes:
     """While entered, records the experts (``eidx``) and kept masks of
     every ``moe_route`` call on a sequence of ``seq`` tokens (a prefill's
@@ -5516,6 +5884,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_ssm = phase_train_ssm(args.seed)
     torch.cuda.empty_cache()
+    train_tp_ssm = phase_train_tp_ssm(args.seed)
+    torch.cuda.empty_cache()
     moe = phase_moe(args.seed)
     torch.cuda.empty_cache()
     vlm = phase_vlm(args.seed)
@@ -5535,6 +5905,7 @@ def main() -> int:
                            dryrun=dry["launches"][name],
                            examples=examples["launches"][name],
                            train_ssm=train_ssm["launches"][name],
+                           train_tp_ssm=train_tp_ssm["launches"][name],
                            moe=moe["launches"][name],
                            moe_mesh=moe["mesh_launches"][name],
                            vlm=vlm["launches"][name])
@@ -5691,6 +6062,19 @@ def main() -> int:
              bound_by=train_ssm["k6"]["bound_by"], library_ms=None,
              shape=train_ssm["k6"]["shape"],
              kernel_route=train_ssm["k6"]["route"]),
+        # K6 on a position's 40 of mamba2-2.7b's 80 heads on (1, 2): its
+        # launches are part of the train_tp_ssm count above
+        dict(name="ssd_intra_chunk_tp", route="cuda",
+             source=f"{csrc}/csrc/ssd.cu",
+             replaces="src/repro/kernels/ssd.py:53",
+             launches=train_tp_ssm["launches"]["ssd_intra_chunk"],
+             max_abs_err=train_tp_ssm["k6_err"],
+             ms=train_tp_ssm["k6"]["kernel_ms"],
+             plain_ms=train_tp_ssm["k6"]["plain_ms"],
+             bound_ms=train_tp_ssm["k6"]["bound_ms"],
+             bound_by=train_tp_ssm["k6"]["bound_by"], library_ms=None,
+             shape=train_tp_ssm["k6"]["shape"],
+             kernel_route=train_tp_ssm["k6"]["route"]),
         # K6b replaces no TPU kernel: the JAX package differentiates its
         # jnp chunked SSD with jax.grad
         dict(name="ssd_intra_chunk_bwd", route="cuda",
@@ -5723,6 +6107,19 @@ def main() -> int:
              shape=train_ssm["k6b_h"]["shape"],
              kernel_route=train_ssm["k6b_h"]["route"],
              design=train_ssm["k6b_h"]["design"]),
+        # K6b on a position's heads on (1, 2), as K6 above
+        dict(name="ssd_intra_chunk_bwd_tp", route="cuda",
+             source=f"{csrc}/csrc/ssd_bwd.cu",
+             replaces="src/repro/models/mamba.py:60",
+             launches=train_tp_ssm["launches"]["ssd_intra_chunk_bwd"],
+             max_abs_err=train_tp_ssm["k6b_err"],
+             ms=train_tp_ssm["k6b"]["kernel_ms"],
+             plain_ms=train_tp_ssm["k6b"]["plain_ms"],
+             bound_ms=train_tp_ssm["k6b"]["bound_ms"],
+             bound_by=train_tp_ssm["k6b"]["bound_by"], library_ms=None,
+             shape=train_tp_ssm["k6b"]["shape"],
+             kernel_route=train_tp_ssm["k6b"]["route"],
+             design=train_tp_ssm["k6b"]["design"]),
     ]
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": table})

@@ -31,9 +31,10 @@ Per cell:
   where its rows split over n_dp > 1 positions, prefill
   ``lm.prefill``, decode ``lm.decode_step``, all with ``force="ref"``.
   Per-device FLOPs and bytes are the position's divided by the model-axis
-  size: an ideal tensor-parallel split (the port's tensor-parallel step,
-  dense, audio and moe, also repeats the norms, the residual stream and
-  a moe's routing on every model position, which this leaves out).
+  size: an ideal tensor-parallel split (the port's tensor-parallel step
+  also repeats the norms, the residual stream, a moe's routing and a
+  Mamba2 block's B and C on every model position, which this leaves
+  out).
 * **Collectives.** The FSDP step's own (``train/train_state.py``): an
   all-gather of every sharded parameter slice once a step
   (``gather_tree``), and per microbatch, where the batch splits over the
@@ -42,18 +43,18 @@ Per cell:
   moe model's all-reduce of its MoE layers' expert counts (f32); the
   clip norm's all-reduce once a step. Operand bytes of one position, as
   the mesh's counters count them (``launch.mesh.collective_bytes``).
-  ``tp_collectives`` are the model axis's, for a train cell of the dense,
-  audio and moe families, which the port trains tensor parallel
-  (ROADMAP.md steps 13.7 and 13.9): a position's reduce-outs, copy-ins
-  and max a step, worked out from the step's schedule (``tp_collectives``) and added to the
-  per-device collective bytes. There the record's data-axis
-  ``collectives`` are that step's own, a device's (``fsdp_collectives``
-  with ``tp``); in other train cells they are the FSDP specs' over an
-  ideal model-axis split. The other families' train cells are
-  ``null`` with the step that would train them, as are prefill and decode
-  (the port serves unsharded); a cell whose model axis does not divide
-  ``n_kv`` or ``n_experts`` is counted, with the rule or the step that
-  would run it as its reason.
+  ``tp_collectives`` are the model axis's, for a train cell of every
+  family but the vlm, which the port trains tensor parallel (ROADMAP.md
+  steps 13.7, 13.8 and 13.9): a position's reduce-outs, copy-ins,
+  regroups and max a step, worked out from the step's schedule
+  (``tp_collectives``) and added to the per-device collective bytes.
+  There the record's data-axis ``collectives`` are that step's own, a
+  device's (``fsdp_collectives`` with ``tp``); in other train cells they
+  are the FSDP specs' over an ideal model-axis split. The vlm's train
+  cells are ``null`` with the step that would train them, as are prefill
+  and decode (the port serves unsharded); a cell whose model axis does
+  not divide ``n_kv``, ``n_experts`` or the Mamba heads is counted, with
+  the rule or the step that would run it as its reason.
 * **Memory.** ``argument_bytes`` is ``local_bytes`` of the state (or
   parameters and caches) and the batch by the specs. ``temp_bytes`` comes
   from the traced run: the most live storage beyond the arguments and the
@@ -105,6 +106,7 @@ import torch
 
 from ..configs import ARCH_IDS, SHAPES, get_config, shape_applicable
 from ..kernels import ref as _ref
+from ..models.mamba import mamba_dims
 from ..models.model import DTYPES, LM, check_tensor_parallel, tree_leaves
 from ..models.sharding import (
     cache_specs,
@@ -458,11 +460,18 @@ def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
     sequence): per microbatch of ``rows`` rows (the batch over M, and over
     ``n_dp`` where it splits), per dense sub-layer pair the attention-out
     and MLP-out reduce-outs, their copy-ins' backward sums and remat's
-    recompute of both reduce-outs (their operands f32: ``WideProduct``);
+    recompute of both reduce-outs (their operands f32: ``WideProduct``),
+    a hybrid's shared block counting as one pair each time it runs;
     per MoE sub-layer the same for its attention, and for its experts the
     combine's reduce-out (the model's dtype) with remat's recompute, the
     copy-ins' backward sums of the normed input and of the gates ((rows,
-    S, top_k) f32); the embedding's reduce-out and the head's copy-in (the
+    S, top_k) f32); per Mamba2 block (``mamba.tp_mamba_apply``) the gated
+    norm's sum of squares ((rows, S) f32) and ``out_proj``'s (f32)
+    reduce-outs with remat's recompute, the copy-ins' backward sums of the
+    normed input and of the summed squares, the regroup of its
+    ``in_proj``, ``conv_w`` and ``conv_b`` slices (the model's dtype)
+    with remat's recompute and the regroup's backward sum of those leaves
+    whole (f32); the embedding's reduce-out and the head's copy-in (the
     model's dtype); the loss's gold and sum-of-exp reduce-outs and its
     max ((rows, S - 1) f32 each); and, where a moe model's rows split
     over the data axis, the routing pass's reduce-outs (the embedding and
@@ -477,15 +486,28 @@ def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
     tok = rows * S * cfg.d_model
     act = tok * DTYPES[cfg.dtype].itemsize
     vec = rows * (S - 1) * 4
+    sq = rows * S * 4
     L = sum(count for kind, count in lm.plan
-            if kind in ("dense", "moe_pair"))
+            if kind in ("dense", "moe_pair", "zamba_super"))
     E = _moe_layers(lm)
+    Lm = sum(count * (cfg.shared_attn_every if kind == "zamba_super" else 1)
+             for kind, count in lm.plan if kind in ("mamba", "zamba_super"))
     gate = rows * S * cfg.top_k * 4
-    blocks = 2 * L * tok * 4 + E * (tok * 4 + act)  # one pass's reduce-outs
+    # one pass's reduce-outs
+    blocks = 2 * L * tok * 4 + E * (tok * 4 + act) + Lm * (tok * 4 + sq)
     routing = act + blocks if E and split else 0
-    return {"reduce-out": M * (act + 2 * blocks + 2 * vec + routing),
-            "copy-in": M * (act * (2 * L + 2 * E + 1) + E * gate),
-            "max": M * vec}
+    out = {"reduce-out": M * (act + 2 * blocks + 2 * vec + routing),
+           "copy-in": M * (act * (2 * L + 2 * E + 1) + E * gate
+                           + Lm * (act + sq)),
+           "max": M * vec}
+    if Lm:
+        d_inner, H, N = mamba_dims(cfg)
+        whole = (cfg.d_model * (2 * d_inner + 2 * N + H)
+                 + (cfg.d_conv + 1) * (d_inner + 2 * N))
+        out["regroup"] = M * 2 * Lm * whole // tp * DTYPES[
+            cfg.dtype].itemsize
+        out["regroup-sum"] = M * Lm * whole * 4
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -636,7 +658,7 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
             tp_reason = None
         except NotImplementedError as e:
             tp_reason = str(e)
-        if cfg.family in ("dense", "audio", "moe"):
+        if cfg.family != "vlm":
             tp_colls = tp_collectives(lm, step_cfg, n_dp, tp,
                                       (shape.global_batch, shape.seq_len))
     elif shape.kind == "train":
@@ -712,8 +734,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, overrides: dict,
         per_device=dev,
         per_device_split=(f"a data position's counts over the {tp} "
                           f"positions of the model axis: an ideal "
-                          f"tensor-parallel split (the port trains the "
-                          f"dense, audio and moe families so, and serves "
+                          f"tensor-parallel split (the port trains "
+                          f"every family but the vlm so, and serves "
                           f"unsharded), plus the model axis's own "
                           f"collectives where they are counted"),
         per_position=c["per_position"],

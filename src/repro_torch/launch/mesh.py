@@ -36,19 +36,24 @@ for bit and do not depend on the backend's reduction order.
 
 For tensor-parallel training (ROADMAP.md step 13.7) a ``ModelGroup``
 holds the positions of one row of the model axis that this process
-drives, and three collectives over them that autograd differentiates:
+drives, and the collectives over them that autograd differentiates:
 ``copy_in`` (the identity forward, one view a position; its backward sums
 the positions' gradients), ``reduce_out`` (the sum of the positions'
-parts forward; the identity backward) and ``pmax`` (a max with no
-gradient). Their sums too are added in shard order, a bf16 or f16 part
-widened to f32 and the sum rounded once, so an in-process row (one
-autograd graph over its positions) and the ranks of a multi-rank one
-give the same bits.
+parts forward; the identity backward), ``all_gather`` (a leaf's model
+slices concatenated on every position, for a Mamba2 block whose
+``in_proj`` and conv slices cut across its head groups; the backward sums
+the positions' gradients of the whole leaf and hands each its slice) and
+``pmax`` (a max with no gradient). Their sums too are added in shard
+order, a bf16 or f16 part widened to f32 and the sum rounded once, so an
+in-process row (one autograd graph over its positions) and the ranks of a
+multi-rank one give the same bits.
 
 Each collective adds its operand bytes (one position's tensor, in the
 dtype it is summed in) to a counter by kind ("all-gather",
 "reduce-scatter", "all-reduce" over data axes; "reduce-out", "copy-in",
-"max" over the model axis): ``collective_bytes()`` reads it and
+"regroup" (``ModelGroup.all_gather``: a position's slice), "regroup-sum"
+(its backward: the whole leaf's gradient in f32), "max" over the model
+axis): ``collective_bytes()`` reads it and
 ``reset_collective_bytes()`` clears it, as ``ops.launch_counts`` does for
 the kernels. ``models.sharding.gather_tree`` counts its in-process
 assembly as the all-gather it stands for. An in-process mesh runs each
@@ -387,6 +392,15 @@ class ModelGroup:
         gradient of the sum."""
         return _ReduceOut.apply(self, *parts)
 
+    def all_gather(self, parts: Sequence[torch.Tensor],
+                   dim: int) -> list[torch.Tensor]:
+        """The whole leaf on each local position: the positions' slices
+        ``parts`` (equal shapes) concatenated along ``dim`` in shard
+        order. The backward sums the positions' gradients of the whole
+        leaf in shard order in f32, rounds the sum once to the leaf's
+        dtype and hands each position its slice (a reduce-scatter)."""
+        return list(_AllGather.apply(self, dim, *parts))
+
     def pmax(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The elementwise max over the axis, on the first local
         position's device, with no gradient."""
@@ -418,6 +432,29 @@ class _ReduceOut(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (None, *(g.to(d) for d in ctx.devices))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group: ModelGroup, dim: int, *parts: torch.Tensor):
+        ctx.group, ctx.dim = group, dim
+        ctx.devices = [p.device for p in parts]
+        if group.count:
+            note_collective("regroup", parts[0])
+        whole = group.mesh.all_gather([p.contiguous() for p in parts],
+                                      (group.axis,), dim, count=False)
+        return tuple(whole.view_as(whole) if d == whole.device
+                     else whole.to(d) for d in group.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group = ctx.group
+        if group.count:
+            note_collective("regroup-sum", grads[0], torch.float32)
+        red = group.mesh.psum_scatter(grads, (group.axis,), ctx.dim,
+                                      dtype=torch.float32, count=False)
+        return (None, None, *(r.to(grads[0].dtype).to(d)
+                              for r, d in zip(red, ctx.devices)))
 
 
 def _default_rank_device(rank: int) -> torch.device:

@@ -17,6 +17,25 @@ added in place chunk by chunk inside that loop, so the states entering
 each chunk are never stacked; under autograd the chunks' y_off are
 stacked and added once (an in-place add into a view of the Function's
 output would make autograd copy the whole gradient once a chunk).
+
+Over a model axis (ROADMAP.md step 13.8; the reference's
+``param_specs(..., tp="model")`` with GSPMD placing the work),
+``tp_mamba_apply`` runs one block on each position's H/tp heads. The
+slices of ``A_log``, ``D``, ``dt_bias``, the gated ``norm`` and
+``out_proj``'s rows are exactly position j's head group (heads ``[j H/tp,
+(j+1) H/tp)``, channels ``[j d_inner/tp, ...)``). The slices of
+``in_proj``, ``conv_w`` and ``conv_b`` cut across their z | x | B | C |
+dt groups, and B and C are shared by every head: so these three leaves
+are gathered whole over the axis (``ModelGroup.all_gather``: weights
+cross, not the (B, S, 2 d_inner + 2N + H) activations), and each position
+takes its z, x and dt columns and B and C whole. K6 and K6b run on the
+position's (B * chunks, H/tp) cells as ever; K6b's dB and dC sum over the
+position's own heads only, and the rest of the sum over the axis comes
+from the gather's backward and the normed input's copy-in. The gated
+norm's mean over all of d_inner is each position's f32 sum of squares,
+summed by a reduce-out and copied back in (so its backward is a sum too),
+over d_inner; ``out_proj``'s row slices' products stay in f32
+(``common.WideProduct``) and one reduce-out sums them, rounded once.
 """
 from __future__ import annotations
 
@@ -26,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .common import Init, normal, ones, rms_norm, zeros
+from .common import Init, WideProduct, normal, ones, rms_norm, zeros
 
 
 def mamba_dims(cfg):
@@ -195,6 +214,70 @@ def mamba_apply(
         return out, None
     conv_cache = conv_in[:, S - (cfg.d_conv - 1):, :]
     return out, (s_fin, conv_cache)
+
+
+def _head_cols(w: torch.Tensor, dim: int, parts) -> torch.Tensor:
+    """The (start, length) ranges ``parts`` of ``w`` along ``dim``,
+    concatenated."""
+    return torch.cat([w.narrow(dim, a, n) for a, n in parts], dim)
+
+
+def tp_mamba_apply(
+    h_parts: list,  # each local position's copy of the normed input (B,S,d)
+    ps: list,  # each local position's model slices of the block's leaves
+    cfg,
+    group,  # launch.mesh.ModelGroup
+    *,
+    chunk: int = 256,
+    force: Optional[str] = None,
+) -> torch.Tensor:
+    """``mamba_apply``'s output over a model axis (see the module): the
+    sum over the positions of their heads' ``out_proj`` products, in f32,
+    on the first local position's device."""
+    B, S, _d = h_parts[0].shape
+    d_inner, H, N = mamba_dims(cfg)
+    P = cfg.ssm_head_dim
+    tp = group.size
+    hl, dl = H // tp, d_inner // tp
+    f32 = torch.float32
+    w_in = group.all_gather([p["in_proj"] for p in ps], 1)
+    conv_w = group.all_gather([p["conv_w"] for p in ps], 1)
+    conv_b = group.all_gather([p["conv_b"] for p in ps], 0)
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    ys, sqs = [], []
+    for h, p, w, cw, cb, j in zip(h_parts, ps, w_in, conv_w, conv_b,
+                                  group.index):
+        # z and x of the position's heads, B and C whole, its dt
+        zxbcdt = h @ _head_cols(w, 1, [(j * dl, dl), (d_inner + j * dl, dl),
+                                       (2 * d_inner, 2 * N),
+                                       (2 * d_inner + 2 * N + j * hl, hl)])
+        z = zxbcdt[..., :dl]
+        dt = zxbcdt[..., 2 * dl + 2 * N:]
+        conv_cols = [(j * dl, dl), (d_inner, 2 * N)]
+        conv_out = F.silu(_causal_conv(
+            zxbcdt[..., dl:2 * dl + 2 * N], _head_cols(cw, 1, conv_cols),
+            _head_cols(cb, 0, conv_cols)).to(f32)).to(h.dtype)
+        xc = conv_out[..., :dl]
+        Bc = conv_out[..., dl:dl + N]
+        Cc = conv_out[..., dl + N:]
+        xh = xc.reshape(B, S, hl, P)
+        dtf = F.softplus(dt.to(f32) + p["dt_bias"])
+        loga = -torch.exp(p["A_log"])[None, None] * dtf
+        xbar = xh.to(f32) * dtf[..., None]
+        y, _s = ssd_chunked(xbar, loga, Bc, Cc, c, force=force)
+        y = y + p["D"][None, None, :, None] * xh.to(f32)
+        y = y.reshape(B, S, dl) * F.silu(z.to(f32))
+        yf = y.to(h.dtype).to(f32)  # rms_norm(y.to(x.dtype), norm)
+        ys.append(yf)
+        sqs.append(torch.sum(yf * yf, dim=-1, keepdim=True))
+    var = [t / d_inner for t in group.copy_in(group.reduce_out(sqs))]
+    outs = []
+    for yf, v, p, h in zip(ys, var, ps, h_parts):
+        yn = (yf * torch.rsqrt(v + 1e-6) * p["norm"].to(f32)).to(h.dtype)
+        outs.append(WideProduct.apply(yn, p["out_proj"]))
+    return group.reduce_out(outs)
 
 
 def mamba_decode(

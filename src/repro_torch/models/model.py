@@ -47,8 +47,8 @@ The reference's ``constrain`` calls are left out: the port's
 ``models.sharding.constrain`` is the identity (a position of a data mesh
 computes on its own batch slice already).
 
-Tensor parallel (ROADMAP.md steps 13.7 and 13.9; the dense, audio and
-moe families):
+Tensor parallel (ROADMAP.md steps 13.7, 13.8 and 13.9; every family but
+the vlm):
 ``LM.tp_loss`` is ``LM.loss`` over the positions of one row of a model
 axis (a ``launch.mesh.ModelGroup``), each with its model slices of the
 parameters, as the reference's ``param_specs(..., tp="model")`` lays them
@@ -72,6 +72,13 @@ Replicated work (norms, residual stream, RoPE angles, a MoE layer's
 route and aux) is done once a row with the first position's copy of a
 replicated leaf. A MoE sub-layer's experts split over the axis: each
 position fills and runs only its own experts' slots (``_tp_moe_sub``).
+A Mamba2 block runs on each position's H/tp heads
+(``mamba.tp_mamba_apply``: its ``in_proj`` and conv slices gathered whole
+over the axis, its gated norm's mean over d_inner a reduce-out, its
+``out_proj`` row slices' f32 products summed by a reduce-out); a hybrid's
+super block runs its Mamba2 blocks so, then the shared dense block on each
+position's slices of ``params["shared"]``, whose gradient sums over its
+uses as the unsharded path's does.
 ``routes`` (``moe.Routes``) records every MoE layer's route in a forward
 without gradients (``route`` / ``tp_route``: the sharded train step's
 routing pass) and replays it in the next, whose aux then takes the
@@ -107,7 +114,13 @@ from .common import (
     rms_norm,
     rope,
 )
-from .mamba import mamba_apply, mamba_decode, mamba_dims, mamba_init
+from .mamba import (
+    mamba_apply,
+    mamba_decode,
+    mamba_dims,
+    mamba_init,
+    tp_mamba_apply,
+)
 from .moe import (
     Route,
     Routes,
@@ -309,24 +322,32 @@ def _mlp_sub(p, x, cfg: ArchConfig):
 # ---- tensor parallel over a model axis (see the module) ----
 
 # ROADMAP.md steps of the families that do not train on a model axis yet
-_TP_STEPS = {"ssm": "13.8", "hybrid": "13.8", "vlm": "13.10"}
+_TP_STEPS = {"vlm": "13.10"}
 
 
 def check_tensor_parallel(cfg: ArchConfig, tp: int) -> None:
-    """Raise, naming the ROADMAP.md step, where the port cannot train
-    ``cfg`` over a model axis of ``tp`` positions."""
+    """Raise, naming the ROADMAP.md step or the rule, where the port
+    cannot train ``cfg`` over a model axis of ``tp`` positions."""
     if tp <= 1:
         return
     if cfg.family in _TP_STEPS:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on a model axis of {tp}: tensor "
-            f"parallel training covers the dense and audio families; this "
-            f"one is ROADMAP.md step {_TP_STEPS[cfg.family]}")
+            f"parallel training covers the dense, audio, moe, ssm and "
+            f"hybrid families; this one is ROADMAP.md step "
+            f"{_TP_STEPS[cfg.family]}")
     if cfg.n_kv % tp:
         raise NotImplementedError(
             f"{cfg.name} on a model axis of {tp}: {tp} does not divide its "
             f"{cfg.n_kv} kv heads, and a position takes whole kv heads "
             f"(heads resharded across the axis are ROADMAP.md step 13.11)")
+    n_mamba = mamba_dims(cfg)[1] if cfg.ssm_state else 0
+    if n_mamba % tp:
+        raise NotImplementedError(
+            f"{cfg.name} on a model axis of {tp}: {tp} does not divide its "
+            f"{n_mamba} Mamba heads, and a position takes whole heads (its "
+            f"slices of A_log, D, dt_bias, the gated norm and out_proj are "
+            f"its head group)")
     if cfg.n_experts % tp:
         raise NotImplementedError(
             f"{cfg.name} on a model axis of {tp}: {tp} does not divide its "
@@ -404,7 +425,8 @@ def _tp_moe_sub(ps, x, ctx):
 
 def _tp_block(kind, ps, x, ctx):
     """One block over a model axis, (x, aux or None): the function each
-    checkpoint recomputes."""
+    checkpoint recomputes. A hybrid's shared block is ``ctx["shared"]``,
+    each local position's slices of it."""
     if kind == "dense":
         return _tp_mlp_sub(ps, _tp_self_attn_full(ps, x, ctx), ctx), None
     if kind == "moe":
@@ -412,6 +434,17 @@ def _tp_block(kind, ps, x, ctx):
     if kind == "moe_pair":
         x, _ = _tp_block("dense", [p["dense"] for p in ps], x, ctx)
         return _tp_block("moe", [p["moe"] for p in ps], x, ctx)
+    if kind == "mamba":
+        cfg, group = ctx["cfg"], ctx["group"]
+        h = rms_norm(x, ps[0]["ln"])
+        y = tp_mamba_apply(group.copy_in(h), [p["mamba"] for p in ps], cfg,
+                           group, chunk=cfg.ssd_chunk, force=ctx["force"])
+        return x + y.to(x.dtype), None
+    if kind == "zamba_super":
+        for i in range(ctx["cfg"].shared_attn_every):
+            x, _ = _tp_block("mamba", [_index(p["mamba"], i) for p in ps], x,
+                             ctx)
+        return _tp_block("dense", ctx["shared"], x, ctx)
     raise ValueError(kind)
 
 
@@ -779,7 +812,8 @@ class LM:
             for p, j in zip(parts, group.index)])
         ctx = dict(cfg=cfg, group=group, force=force,
                    positions=torch.arange(S, dtype=torch.int32,
-                                          device=dev).expand(B, S))
+                                          device=dev).expand(B, S),
+                   shared=[p.get("shared") for p in parts])
         remat = torch.is_grad_enabled()
         aux_total = torch.zeros((), dtype=torch.float32, device=dev)
         for si, (kind, count) in enumerate(self.plan):

@@ -52,14 +52,19 @@ row in turn runs one forward and backward over its model positions
 (``LM.tp_loss``: one autograd graph over the row's positions in process,
 a rank's own position across ranks). The gradients are reduce-scattered
 over the data axes only, along the dim the data axes split (embed's spec
-is ``(model, data)``); a leaf the model axis does not split (a norm) is
-summed over the data axes only, its copies along the model axis being one
-gradient and not partial sums. The dense, audio and moe families train
-so, a moe's experts split over the model axis (ROADMAP.md step 13.9,
+is ``(model, data)``); a leaf that the data axes do not split is summed
+over them only: one the model axis does not split either (a norm) is one
+gradient on every model position, not partial sums, and one it splits
+alone (a Mamba2 block's ``conv_w``, ``conv_b``, ``A_log``, ``D``,
+``dt_bias`` and gated ``norm``) stays the position's model slice. The
+dense, audio, moe, ssm and hybrid families train so: a moe's experts
+split over the model axis (ROADMAP.md step 13.9,
 ``models.model._tp_moe_sub``) and its routing pass per data row
-(``LM.tp_route``); the others, and a model axis that does not divide
-``n_kv`` or ``n_experts``, raise naming the rule or their ROADMAP.md
-step. A model axis of 1 is the FSDP step bit for bit.
+(``LM.tp_route``), a Mamba2 block's heads split over it (step 13.8,
+``models.mamba.tp_mamba_apply``). The vlm, and a model axis that does not
+divide ``n_kv``, ``n_experts`` or the Mamba heads, raise naming their
+ROADMAP.md step or the rule. A model axis of 1 is the FSDP step bit for
+bit.
 """
 from __future__ import annotations
 

@@ -1516,6 +1516,60 @@ def test_tp_step_on_card_positions_equals_unsharded(cuda, dtype):
         assert e <= tols[k], (k, e, tols[k])
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_tp_step_ssm_on_card_positions_equals_plain(cuda, arch):
+    """The ssm and hybrid families tensor parallel on an in-process (1, 2)
+    mesh of card positions, one f32 step of the reduced config: K6 twice
+    and K6b once a Mamba2 layer a position, every call on a position's 4
+    of the 8 heads; the same step on the plain versions (``force="ref"``)
+    launches nothing, and the kernel step's loss is within 1e-5 relative
+    and every leaf within 1e-4 relative L2 of it (K6 and K6b multiply in
+    3xTF32), as the FSDP test above."""
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.mamba import mamba_dims
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.checkpoint import _paths
+    from repro_torch.train.train_state import state_specs
+
+    lm, c, batch = _sharded_setup(arch, cuda)
+    cfg = lm.cfg
+    mesh = make_mesh((1, 2), ("data", "model"), devices=[cuda] * 2)
+    specs = state_specs(sh.param_specs(lm.abstract_params(), ("data",),
+                                       tp="model"), c)
+    heads = set()
+    fwd, bwd = ops.ssd_intra_chunk, ops.ssd_intra_chunk_bwd
+
+    def spy(fn):
+        def call(xbar, *a, **kw):
+            heads.add(xbar.shape[1])
+            return fn(xbar, *a, **kw)
+        return call
+
+    res = {}
+    ops.ssd_intra_chunk, ops.ssd_intra_chunk_bwd = spy(fwd), spy(bwd)
+    try:
+        for force in (None, "ref"):
+            state = init_train_state(lm, 0, c, mesh=mesh, specs=specs)
+            ops.reset_launches()
+            state, m = make_train_step(lm, c, mesh=mesh, force=force)(
+                state, batch)
+            res[force] = (float(m["loss"]), ops.launch_counts(),
+                          _paths(sh.gather_tree(state)))
+    finally:
+        ops.ssd_intra_chunk, ops.ssd_intra_chunk_bwd = fwd, bwd
+    layers = sum(n * (cfg.shared_attn_every if kind == "zamba_super" else 1)
+                 for kind, n in lm.plan if kind in ("mamba", "zamba_super"))
+    (loss, n, got), (loss_r, n_r, want) = res[None], res["ref"]
+    assert n["ssd_intra_chunk"] == 2 * layers * 2, n
+    assert n["ssd_intra_chunk_bwd"] == layers * 2, n
+    assert heads == {mamba_dims(cfg)[1] // 2}
+    assert not any(n_r.values()), n_r
+    np.testing.assert_allclose(loss, loss_r, rtol=1e-5)
+    for (k, a), (_, b) in zip(got, want):
+        assert _rel(a, b) <= 1e-4, (k, _rel(a, b))
+
+
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
                                   "llama4-maverick-400b-a17b"])
 def test_moe_mesh_steps_on_card_positions_equal_unsharded(cuda, arch):

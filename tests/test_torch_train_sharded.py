@@ -115,6 +115,18 @@ def _run(step, state, toks, steps=3):
     return dict(losses=losses, norms=norms, m1=m1, final=_full(state))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs: the reduced models'
+    ops are too small to gain from more, and the suite runs several test
+    processes on one host's cores, where more threads a process only
+    contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def runs(request):
     """Per M: the JAX package's three steps, the port's unsharded ones,
@@ -283,16 +295,18 @@ def test_sharding_arguments_are_checked():
     with pytest.raises(ValueError, match="ShardedTree"):
         make_train_step(lm, c, mesh=mesh)(
             init_train_state(lm, 0, c, device="cpu"), batch)
-    # a family that does not train on a model axis yet (dense and audio
-    # do, ROADMAP.md step 13.7) is refused, naming its step
-    _, cfg_h = _cfgs("zamba2-7b")
-    lm_h = LM(cfg_h)
-    tp_specs = state_specs(sh.param_specs(lm_h.abstract_params(), ("data",),
+    # a family that does not train on a model axis yet (the vlm; every
+    # other does, ROADMAP.md steps 13.7-13.9) is refused, naming its step
+    _, cfg_v = _cfgs("llama-3.2-vision-90b")
+    lm_v = LM(cfg_v)
+    tp_specs = state_specs(sh.param_specs(lm_v.abstract_params(), ("data",),
                                           tp="model"), c)
     m2 = make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match=r"13\.8"):
-        make_train_step(lm_h, c, mesh=m2)(
-            init_train_state(lm_h, 0, c, mesh=m2, specs=tp_specs), batch)
+    img = torch.zeros((4, cfg_v.n_img_tokens, cfg_v.d_model))
+    with pytest.raises(NotImplementedError, match=r"13\.10"):
+        make_train_step(lm_v, c, mesh=m2)(
+            init_train_state(lm_v, 0, c, mesh=m2, specs=tp_specs),
+            dict(batch, img=img))
     # a batch of 3 rows does not split over 2 positions: every position
     # takes it whole and keeps its own slices of the whole batch's
     # gradient; only the clip norm is summed over the positions, in

@@ -8,7 +8,9 @@ its own position's share (the copy-ins' and reduce-outs' sums gathered
 across the model group and added in shard order, the gradients
 reduce-scattered across the data group; phi3.5-moe's experts split over
 the model group, its routing pass's expert counts all-reduced across the
-data group), so every rank's losses, grad norms, gathered
+data group; zamba2-7b's Mamba2 heads split over the model group, its
+``in_proj`` and conv slices gathered across it and their gradients
+reduce-scattered back), so every rank's losses, grad norms, gathered
 state and collective bytes must be the in-process run's bit for bit; and
 the checkpoint rank 0 writes alone must be the in-process one's, byte for
 byte.
@@ -23,7 +25,8 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["smollm-135m", "musicgen-medium", "phi3.5-moe-42b-a6.6b"]
+ARCHS = ["smollm-135m", "musicgen-medium", "phi3.5-moe-42b-a6.6b",
+         "zamba2-7b"]
 RANKS = 4
 
 RUN = """
