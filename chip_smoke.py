@@ -319,7 +319,7 @@ exits non-zero:
                meshes of the one card, each position running its own
                Mamba2 heads (``in_proj`` and the conv gathered whole over
                the model axis, B and C whole): (a) mamba2-2.7b at full
-               width and 16 of its 64 layers, the ``train_ssm`` batch 8 x
+               width and 8 of its 64 layers, the ``train_ssm`` batch 8 x
                2,048 (diverse selection before the counts), bf16, 3 steps
                each on (1, 2) and (2, 2) (40 of 80 heads a position: K6
                and K6b on 64 and 32 x 40 cells of (256, 64, 128)) against
@@ -405,6 +405,35 @@ exits non-zero:
                gradients); K5 checked at the cross attention's captured
                backward; K4 and K5 timed at the cross-attention shape
                beside SDPA and their bounds.
+22. ``train_tp_heads`` tensor parallel for the vlm (ROADMAP step 13.10)
+               and with the heads resharded where the model axis does not
+               divide the kv heads (step 13.11), on in-process ``("data",
+               "model")`` meshes of the one card: (a) the ``vlm`` phase's
+               training block (llama-3.2-vision-90b at full width, one
+               super block, 2 x 1,024 with 1,024 image tokens, bf16) on
+               (1, 2) (32 heads and 4 kv heads a position) and (1, 16) (4
+               heads a position, their kv head's ``wk``/``wv`` columns
+               half on each of two positions, regrouped): ``LM.tp_loss``
+               and its gradients, no AdamW (as ``vlm``), with launch
+               counts set to 0 before and read after (K4 and K5 on every
+               position, causal and cross, as often as unsharded, each
+               call on 2 x its heads' rows), the loss and every gradient
+               leaf within twice what nudged embeddings move the plain
+               path's (the ``vlm`` rule), the collective bytes equal to
+               the dry run's, K4 and K5 against their plain versions at
+               each position's captured inputs, causal and cross, a warm
+               forward and backward's time and the peak; (b) smollm-135m
+               at full width on (2, 4) (2, 2, 2 and 3 of its 9 heads a
+               position; ``wq``, ``wk``, ``wv`` and ``wo`` regrouped), 16
+               x 2,048 random tokens, 3 bf16 AdamW steps against 3
+               unsharded ones under the ``train`` phase's nudge rule, 2
+               warm steps of each for the step times, launches, rows and
+               bytes as in (a), K4 and K5 at each position's captured
+               inputs, and one f32 step at 4 x 1,024 against one
+               unsharded (``train_tp``'s f32 rule); K4 and K5 timed at
+               the cross attention's per-position shapes on (1, 2) and
+               (1, 16) and the self-attention's on (1, 16), beside SDPA
+               and their bounds.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the repository beside it, it fails.
@@ -502,7 +531,7 @@ TP_F32_BATCH, TP_F32_SEQ = 4, 1024
 TP_AUDIO_ARCH, TP_AUDIO_LAYERS, TP_AUDIO_MESH = "musicgen-medium", 4, (1, 4)
 TRAIN_SSM_ARCH = "mamba2-2.7b"
 TRAIN_SSM_BATCH, TRAIN_SSM_SEQ, TRAIN_SSM_STEPS = 8, 2048, 3
-# the train_tp_ssm phase: mamba2-2.7b at full width and 16 of its 64
+# the train_tp_ssm phase: mamba2-2.7b at full width and 8 of its 64
 # layers (the TRAIN_SSM_* batch) on (1, 2) and (2, 2) (40 of 80 heads a
 # position), its f32 check at 2 layers on 1 x 2,048; zamba2-7b at one
 # super block (the SHARD_HYBRID_* batch) on (1, 2) (56 of 112 Mamba heads
@@ -510,7 +539,7 @@ TRAIN_SSM_BATCH, TRAIN_SSM_SEQ, TRAIN_SSM_STEPS = 8, 2048, 3
 # the loss within 1e-6 relative of the unsharded step's, every gradient
 # and second-moment leaf within 1e-4 relative L2 (the card tests' rule for
 # a mesh step; 3.3e-5 and 5.2e-5 were the most measured on an H100)
-TP_SSM_LAYERS, TP_SSM_MESHES, TP_SSM_TIMED = 16, ((1, 2), (2, 2)), 2
+TP_SSM_LAYERS, TP_SSM_MESHES, TP_SSM_TIMED = 8, ((1, 2), (2, 2)), 2
 TP_SSM_F32_LAYERS, TP_SSM_F32_BATCH = 2, 1
 TP_HYBRID_MESH, TP_HYBRID_F32_BATCH = (1, 2), 1
 TP_SSM_F32_LOSS_TOL, TP_SSM_F32_TOL = 1e-6, 1e-4
@@ -545,6 +574,12 @@ MOE_MESH_F32_BATCH = 2
 VLM_ARCH, VLM_SUPERS, VLM_BATCH, VLM_PROMPT, VLM_STEPS = (
     "llama-3.2-vision-90b", 2, 4, 1024, 16)
 VLM_TRAIN_SUPERS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 1, 2, 1024
+# the train_tp_heads phase: the vlm phase's training block on (1, 2) and
+# (1, 16) in-process positions of the card, and smollm-135m at full width
+# and depth on (2, 4) (the TRAIN_* batch, random tokens; its f32 step at
+# TP_F32_BATCH x TP_F32_SEQ)
+TP_HEADS_VLM_MESHES = ((1, 2), (1, 16))
+TP_HEADS_MESH, TP_HEADS_LAYERS = (2, 4), 30
 # the dryrun phase: the train phase's own cell counted on meta tensors at
 # one position; the band its predicted peak must keep against the measured
 # peaks (PERF.md section 6, PR 26: stated before the first chip run); the
@@ -5793,7 +5828,7 @@ def phase_vlm(seed: int) -> dict:
                                f"{train_nc}, expected {want_nc}")
     diffs = [float((a.float() - b.float()).norm()) for a, b in zip(g_k, g_r)]
     norms = [float(b.float().norm()) for b in g_r]
-    del g_k, g_r
+    del g_k
     torch.cuda.empty_cache()
     worst = max(range(len(diffs)),
                 key=lambda i: diffs[i] / (2 * floors[i] + 1e-30))
@@ -5819,18 +5854,415 @@ def phase_vlm(seed: int) -> dict:
     k5 = _time_flash_bwd(*ba, cfg.n_heads, False)
     emit(dict(phase="vlm_timing", flash_attention_fwd_cross=k4,
               flash_attention_bwd_cross=k5))
-    del params, ba
+    del ba
     torch.cuda.empty_cache()
     launches = {name: serve_launches[name] + train_launches[name]
                 for name in serve_launches}
+    # the training block, its inputs, the plain path's loss and gradients
+    # and the nudge floors, for the train_tp_heads phase
+    train = dict(lm=lm, params=params, tokens=tokens, img=img, loss=loss_r,
+                 grads=g_r, floors=floors, loss_floor=loss_floor,
+                 fwd_bwd_s=step_s, peak=peak, launches=train_launches,
+                 launches_not_causal=train_nc)
     # K4 and K5 at the cross-attention shape: the not-causal launches
     # counted in the two runs
-    return dict(launches=launches, k4=k4, k5=k5, k4_err=k4_err,
+    return dict(launches=launches, train=train, k4=k4, k5=k5, k4_err=k4_err,
                 k5_err=k5_line["max_abs_err"],
                 k4_launches=(serve_nc["flash_attention_fwd"]
                              + train_nc["flash_attention_fwd"]),
                 k5_launches=(serve_nc["flash_attention_bwd"]
                              + train_nc["flash_attention_bwd"]))
+
+
+class _HeadCalls(_OpsWrap):
+    """While entered, per K4/K5 op and causal flag: how many calls ran on
+    how many rows (B x heads), and copies of the inputs of the first
+    ``keep`` calls. With ``keep`` the positions that hold heads, those are
+    a call a position, in position order: a layer's forward calls them in
+    turn, and the backward reaches every position's call at the last
+    layer of a kind before any other."""
+
+    NAMES = ("flash_attention_fwd", "flash_attention_bwd")
+
+    def __init__(self, keep: int):
+        self.keep = keep
+
+    def __enter__(self):
+        import collections
+
+        self.rows = collections.Counter()
+        self.args = collections.defaultdict(list)
+        return super().__enter__()
+
+    def _wrap(self, name, fn):
+        def call(q, *args, **kw):
+            key = (name, bool(kw.get("causal", True)))
+            self.rows[(*key, int(q.shape[0]))] += 1
+            if len(self.args[key]) < self.keep:
+                self.args[key].append(([a.clone() for a in (q, *args)], kw))
+            return fn(q, *args, **kw)
+        return call
+
+    def table(self) -> list:
+        """[op, causal, rows, calls] of every kind of call, sorted."""
+        return [[*k, n] for k, n in sorted(self.rows.items())]
+
+    def by_op(self) -> dict:
+        """Calls by (op, causal)."""
+        out: dict = {}
+        for (name, causal, _rows), n in self.rows.items():
+            out[name, causal] = out.get((name, causal), 0) + n
+        return out
+
+
+def _heads_launch_rule(what: str, calls: _HeadCalls, plain: dict,
+                       heads: list, rows: int, n_dp: int) -> None:
+    """K4 and K5 launch, for each causal flag, ``n_dp`` x (the positions
+    with heads) times as often as on the unsharded step (``plain``: its
+    calls by (op, causal)), each call on ``rows`` x the position's heads;
+    a position without heads launches nothing."""
+    for (name, causal), n in plain.items():
+        want: dict = {}
+        for h in heads:
+            if h:
+                want[rows * h] = want.get(rows * h, 0) + n_dp * n
+        got = {r: c for (op, cz, r), c in calls.rows.items()
+               if op == name and cz == causal}
+        check(got == want and n > 0,
+              f"{what}: {name} (causal {causal}) ran {got} (rows: calls), "
+              f"expected {want} from {n} unsharded calls and heads {heads} "
+              f"a position")
+
+
+def _heads_kernel_checks(calls: _HeadCalls, what: str) -> list:
+    """K4 and K5 against their plain versions at each position's captured
+    inputs (``_HeadCalls``), causal and not; outside any count."""
+    lines = []
+    for (name, causal), saved in sorted(calls.args.items()):
+        fwd = name == "flash_attention_fwd"
+        for j, (args, _kw) in enumerate(saved):
+            label = (f"{what}: position {j}'s "
+                     f"{'causal' if causal else 'cross'} attention, the "
+                     f"{'first' if fwd else 'last'} layer's "
+                     f"{'forward' if fwd else 'backward'}")
+            line = (_check_flash(*args, causal, label) if fwd else
+                    _check_flash_bwd(*args, causal, label))
+            lines.append({k: line[k] for k in ("kernel", "what", "shape",
+                                               "causal", "max_abs_err",
+                                               "ok")})
+    return lines
+
+
+def _tp_live(lm, params, mesh) -> tuple:
+    """Each position's model slices of ``params`` (copies) as leaves that
+    require grad, a replicated leaf the first position's on every one (as
+    the sharded step's ``tp_grad_fn``): (trees, leaves, each leaf's model
+    dim)."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.train.train_state import _unflatten
+
+    specs = sh.param_specs(lm.abstract_params(), ("data",), tp="model")
+    tree = sh.shard_tree(params, specs, mesh)
+    dims = [sh.split_dims(sp, "model")[1]
+            for sp in sh.spec_leaves(params, specs)]
+    first = [t.requires_grad_(True) for t in tree_leaves(tree.shards[0])]
+    lives = [first] + [
+        [t.requires_grad_(True) if d is not None else f
+         for t, f, d in zip(tree_leaves(shard), first, dims)]
+        for shard in tree.shards[1:]]
+    return ([_unflatten(shard, live)
+             for shard, live in zip(tree.shards, lives)], lives, dims)
+
+
+def _tp_grads(lm, parts, lives, tokens, img, group) -> tuple:
+    """(loss, each leaf's gradients): ``LM.tp_loss`` and its backward over
+    ``group``'s positions; a leaf's are the positions' slices, or the
+    first position's alone for a replicated leaf."""
+    import torch
+
+    loss, _ = lm.tp_loss(parts, tokens, group, img=img)
+    uniq = list({id(t): t for live in lives for t in live}.values())
+    by_id = dict(zip(map(id, uniq), torch.autograd.grad(loss, uniq)))
+    del uniq
+    grads = [[by_id[id(live[i])] for live in lives]
+             for i in range(len(lives[0]))]
+    return float(loss.detach()), grads
+
+
+def _whole_diffs(grads, dims, want) -> list:
+    """Each leaf's ||gradient - want|| (L2, f32), the positions' slices
+    put together along the leaf's model dim one leaf at a time; the
+    slices are dropped as they are read."""
+    import torch
+
+    out = []
+    for i, (d, w) in enumerate(zip(dims, want)):
+        g = grads[i][0] if d is None else torch.cat(grads[i], d)
+        grads[i] = None
+        out.append(float((g.float() - w.float()).norm()))
+        del g
+    return out
+
+
+def _vlm_tp_arm(ref: dict, shape) -> dict:
+    """The ``vlm`` phase's training block on an in-process (1, n) mesh of
+    the card (see the module's ``train_tp_heads`` (a))."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, make_mesh
+    from repro_torch.launch.mesh import (ModelGroup, collective_bytes,
+                                         reset_collective_bytes)
+    from repro_torch.models.model import head_range
+    from repro_torch.train.train_state import StepConfig
+
+    lm = ref["lm"]
+    cfg = lm.cfg
+    n = shape[1]
+    what = f"train_tp_heads vlm {tuple(shape)}"
+    mesh = make_mesh(shape, ("data", "model"), devices=["cuda"] * n)
+    group = ModelGroup(mesh, "model", list(range(n)))
+    heads = [hi - lo for lo, hi in (head_range(cfg.n_heads, n, j)
+                                    for j in range(n))]
+    parts, lives, dims = _tp_live(lm, ref["params"], mesh)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reset_collective_bytes()
+    t0 = time.perf_counter()
+    with _HeadCalls(sum(1 for h in heads if h)) as calls:
+        loss, grads = _tp_grads(lm, parts, lives, ref["tokens"], ref["img"],
+                                group)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    colls = collective_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    # the loss and every gradient leaf against the plain path's
+    diffs = _whole_diffs(grads, dims, ref["grads"])
+    del grads
+    floors = ref["floors"]
+    worst = max(range(len(diffs)),
+                key=lambda i: diffs[i] / (2 * floors[i] + 1e-30))
+    check(abs(loss - ref["loss"]) <= 2 * ref["loss_floor"],
+          f"{what}: the loss differs from the plain path's by "
+          f"{abs(loss - ref['loss'])}, over twice the nudge's "
+          f"{ref['loss_floor']}")
+    check(all(d <= 2 * f for d, f in zip(diffs, floors)),
+          f"{what}: gradient leaf {worst} differs by {diffs[worst]}, over "
+          f"twice the nudge's {floors[worst]}")
+    # every position launches as often as the unsharded step, causal and
+    # cross, on its own heads' rows
+    nc = ref["launches_not_causal"]
+    plain = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        plain[name, False] = nc[name]
+        plain[name, True] = ref["launches"][name] - nc[name]
+    _heads_launch_rule(what, calls, plain, heads, ref["tokens"].shape[0], 1)
+    dry = dryrun.tp_collectives(lm, StepConfig(), 1, n,
+                                tuple(ref["tokens"].shape))
+    check(colls == dry, f"{what}: collective bytes {colls}, the dry run "
+                        f"counts {dry}")
+    # a warm forward and backward
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _l, grads = _tp_grads(lm, parts, lives, ref["tokens"], ref["img"],
+                          group)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del grads, parts, lives
+    torch.cuda.empty_cache()
+    checks = _heads_kernel_checks(calls, what)
+    emit(dict(phase="train_tp_heads_vlm", arch=VLM_ARCH,
+              layers=cfg.n_layers, mesh=list(shape), axes=["data", "model"],
+              heads_per_position=heads, kv_heads=cfg.n_kv,
+              kv_regrouped=bool(cfg.n_kv % n),
+              batch=ref["tokens"].shape[0], seq=ref["tokens"].shape[1],
+              n_img_tokens=cfg.n_img_tokens, launches=launches,
+              k4_k5_calls_by_rows=calls.table(), loss=loss,
+              plain_loss=ref["loss"], loss_nudge_floor=ref["loss_floor"],
+              grad_leaves=len(diffs),
+              grad_diff_over_nudge_max=diffs[worst] / (floors[worst]
+                                                       + 1e-30),
+              worst_grad_leaf=worst, fwd_bwd_s=warm_s,
+              cold_fwd_bwd_s=cold_s,
+              unsharded_fwd_bwd_s=ref["fwd_bwd_s"],
+              peak_device_bytes=peak, held_before_bytes=held,
+              unsharded_peak_device_bytes=ref["peak"],
+              collective_bytes=colls, dryrun_collective_bytes=dry,
+              checks=checks,
+              note="the positions run in turn on the one card, so the sums "
+                   "cross no wire (the bytes are what one position would "
+                   "send); the peak holds the unsharded parameters and the "
+                   "plain path's gradients beside the positions' slices"))
+    return dict(launches=launches, calls=calls)
+
+
+def phase_train_tp_heads(seed: int, vlm_train: dict) -> dict:
+    """Tensor parallel for the vlm and with the heads resharded on
+    in-process ("data", "model") meshes of the one card (see the module's
+    list); ``vlm_train`` is the ``vlm`` phase's training block, its inputs
+    and its plain path's gradients, freed here."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.model import head_range, tree_map
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    arms, timing, errs, at = {}, {}, {}, {}
+    # (a) the vlm's training block on (1, 2) and (1, 16)
+    for shape in TP_HEADS_VLM_MESHES:
+        res = _vlm_tp_arm(vlm_train, shape)
+        n = shape[1]
+        arms[f"vlm_1x{n}"] = res["launches"]
+        heads = vlm_train["lm"].cfg.n_heads // n
+        kinds = [("cross", False)] + ([("self", True)]
+                                      if n == TP_HEADS_VLM_MESHES[-1][1]
+                                      else [])
+        by_op = res["calls"].by_op()
+        for kind, causal in kinds:
+            fa = res["calls"].args["flash_attention_fwd", causal][0][0]
+            ba = res["calls"].args["flash_attention_bwd", causal][0][0]
+            at[f"k4_{kind}_{n}"] = by_op["flash_attention_fwd", causal]
+            at[f"k5_{kind}_{n}"] = by_op["flash_attention_bwd", causal]
+            timing[f"k4_{kind}_{n}"] = _time_flash(*fa[:3], heads=heads,
+                                                   causal=causal)
+            timing[f"k5_{kind}_{n}"] = _time_flash_bwd(*ba, heads=heads,
+                                                       causal=causal)
+            errs[f"k4_{kind}_{n}"] = _check_flash(
+                *fa[:3], causal, f"vlm on (1, {n}): the timed "
+                                 f"{kind}")["max_abs_err"]
+            errs[f"k5_{kind}_{n}"] = _check_flash_bwd(
+                *ba, causal, f"vlm on (1, {n}): the timed "
+                             f"{kind}")["max_abs_err"]
+        del res
+        torch.cuda.empty_cache()
+    vlm_train.clear()
+    torch.cuda.empty_cache()
+
+    # (b) smollm-135m at full width on (2, 4): the axis divides neither its
+    # 9 heads nor its 3 kv heads
+    n_dp, tp = TP_HEADS_MESH
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TP_HEADS_LAYERS)
+    lm = LM(cfg)
+    heads = [hi - lo for lo, hi in (head_range(cfg.n_heads, tp, j)
+                                    for j in range(tp))]
+    params = lm.init(seed, device="cuda")
+    opt_cfg = AdamWConfig(total_steps=TP_STEPS,
+                          warmup_steps=min(100, TP_STEPS // 10 + 1))
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    batches = [torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                             generator=g, device="cuda")
+               for _ in range(TP_STEPS)]
+    what = f"train_tp_heads smollm {TP_HEADS_MESH}"
+    state, mesh = _tp_place(lm, params, opt_cfg, TP_HEADS_MESH)
+    step = make_train_step(lm, opt_cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, times, colls = [], [], None
+    with _HeadCalls(sum(1 for h in heads if h)) as calls:
+        for i, b in enumerate(batches):
+            state, loss, dt, c = _tp_step_counted(step, state, {"tokens": b})
+            if i == 0:
+                colls = c
+            losses.append(loss)
+            times.append(dt)
+    arms["smollm"] = launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plain = _fresh_state(params, opt_cfg)
+    pstep = make_train_step(lm, opt_cfg)
+    plain_losses, plain_times = [], []
+    with _HeadCalls(0) as plain_calls:
+        for b in batches:
+            plain, loss, dt = _step_synced(pstep, plain, {"tokens": b})
+            plain_losses.append(loss)
+            plain_times.append(dt)
+    plain_peak = torch.cuda.max_memory_allocated()
+    warm, plain_warm = [], []
+    for _ in range(TP_TIMED):
+        state, _l, dt = _step_synced(step, state, {"tokens": batches[-1]})
+        warm.append(dt)
+        plain, _l, dt = _step_synced(pstep, plain, {"tokens": batches[-1]})
+        plain_warm.append(dt)
+    del state, plain, step, pstep
+    torch.cuda.empty_cache()
+    _heads_launch_rule(what, calls, plain_calls.by_op(), heads,
+                       TRAIN_BATCH // n_dp, n_dp)
+    kernel_lines = _heads_kernel_checks(calls, f"{what} bf16")
+    table = calls.table()
+    del calls
+    dry = _tp_dry(lm, TP_HEADS_MESH, TRAIN_BATCH, TRAIN_SEQ)
+    check(colls == dry, f"{what}: collective bytes {colls}, the dry run "
+                        f"counts {dry}")
+    check(bool(dry.get("regroup")), f"{what}: no regroup counted")
+    nudged = [_run_steps(lm, _nudged(params, g), batches, opt_cfg)
+              for _ in range(TP_NUDGES)]
+    diffs, floors, limits = _loss_rule(losses, plain_losses, nudged)
+    check(all(map(math.isfinite, losses)), f"non-finite {losses}")
+    emit(dict(phase="train_tp_heads_smollm", arch=TRAIN_ARCH,
+              layers=cfg.n_layers, mesh=list(TP_HEADS_MESH),
+              axes=["data", "model"], heads_per_position=heads,
+              kv_heads=cfg.n_kv, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              steps=TP_STEPS, launches=launches, k4_k5_calls_by_rows=table,
+              losses=losses, unsharded_losses=plain_losses,
+              nudged_unsharded_losses=nudged, loss_abs_diffs=diffs,
+              nudge_abs_diffs=floors, loss_abs_diff_limits=limits,
+              step_s=statistics.median(warm), step_times_s=times,
+              warm_step_times_s=warm,
+              unsharded_step_s=statistics.median(plain_warm),
+              unsharded_step_times_s=plain_times,
+              unsharded_warm_step_times_s=plain_warm,
+              peak_device_bytes=peak, unsharded_peak_device_bytes=plain_peak,
+              collective_bytes=colls, dryrun_collective_bytes=dry,
+              checks=kernel_lines))
+
+    # its f32 step at TP_F32_BATCH x TP_F32_SEQ on (2, 4) against one
+    # unsharded
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32"))
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    del params
+    toks = batches[0][:TP_F32_BATCH, :TP_F32_SEQ].contiguous()
+    plain, loss_p, _dt = _step_synced(make_train_step(lm32, opt_cfg),
+                                      _fresh_state(p32, opt_cfg),
+                                      {"tokens": toks})
+    state, m32 = _tp_place(lm32, p32, opt_cfg, TP_HEADS_MESH)
+    del p32
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with _HeadCalls(sum(1 for h in heads if h)) as calls32:
+        state, loss_s, dt32, c32 = _tp_step_counted(
+            make_train_step(lm32, opt_cfg, mesh=m32), state,
+            {"tokens": toks})
+    arms["smollm_f32"] = ops.launch_counts()
+    peak32 = torch.cuda.max_memory_allocated()
+    f32 = _f32_pair(f"{what} f32 step", loss_s, loss_p, state, plain)
+    del state, plain
+    torch.cuda.empty_cache()
+    dry32 = _tp_dry(lm32, TP_HEADS_MESH, TP_F32_BATCH, TP_F32_SEQ)
+    check(c32 == dry32, f"{what} f32: collective bytes {c32}, the dry run "
+                        f"counts {dry32}")
+    kernel_lines32 = _heads_kernel_checks(calls32, f"{what} f32")
+    del calls32
+    emit(dict(phase="train_tp_heads_smollm_f32", mesh=list(TP_HEADS_MESH),
+              batch=TP_F32_BATCH, seq=TP_F32_SEQ, launches=arms["smollm_f32"],
+              step_s=dt32, peak_device_bytes=peak32, collective_bytes=c32,
+              dryrun_collective_bytes=dry32, checks=kernel_lines32, **f32))
+    total: dict = {}
+    for counts in arms.values():
+        total = _add_counts(total, counts)
+    emit(dict(phase="train_tp_heads_timing", launches_at=at, errors=errs,
+              **timing))
+    emit(dict(phase="train_tp_heads_launches", arms=arms, total=total))
+    # K4 and K5 at the vlm arms' shapes: their launches there (part of the
+    # total), their errors at the timed inputs and their times
+    return dict(launches=total, timing=timing, errs=errs, launches_at=at)
 
 
 def main() -> int:
@@ -5850,45 +6282,74 @@ def main() -> int:
 
     disable_tf32()
     t_start = time.perf_counter()
+    laps: dict = {}
+    mark = [t_start]
+
+    def lap(name: str) -> None:
+        """The seconds since the last lap, as ``name``'s."""
+        now = time.perf_counter()
+        laps[name] = now - mark[0]
+        mark[0] = now
+
     dev = phase_device()
     phase_build()
+    lap("device_build")
     points, x_norm, cats, caps, spec = phase_data(args.seed)
     k2_err = phase_kernels(x_norm, args.k * args.tau, args.seed)
+    lap("data_kernels")
     sol, launches = phase_solve(points, x_norm, cats, caps, spec, args.k,
                                 args.tau)
     stream = phase_stream(points, x_norm, cats, caps, spec, args.k, args.tau)
     times = phase_timing(x_norm, sol, args.k * args.tau, stream["st"])
+    lap("solve_stream_timing")
     # after the stream and the timing, so no state it leaves behind is in
     # their numbers
     engines = phase_engines(points, x_norm, sol, cats, caps, spec, args.k,
                             args.seed)
+    lap("engines")
     serve = phase_serve(points, cats, caps, spec, args.k, args.tau,
                         args.seed, stream["st"], stream["points_per_s"])
+    lap("serve")
     durable = phase_durable(spec, caps, args.k, args.tau, args.seed, serve,
                             stream["points_per_s"])
+    lap("durable")
     mr = phase_mapreduce(points, x_norm, sol, cats, caps, spec, args.k,
                          args.tau, serve)
+    lap("mapreduce")
     del points, x_norm, cats, stream["st"], serve["P"]
     torch.cuda.empty_cache()
     lm = phase_lm(args.seed)
     torch.cuda.empty_cache()  # the zamba2 weights went with phase_lm
+    lap("lm")
     train = phase_train(args.seed)
     torch.cuda.empty_cache()
+    lap("train")
     train_sharded = phase_train_sharded(args.seed)
     torch.cuda.empty_cache()
+    lap("train_sharded")
     train_tp = phase_train_tp(args.seed)
     torch.cuda.empty_cache()
+    lap("train_tp")
     dry = phase_dryrun(args.seed, train)
     torch.cuda.empty_cache()
+    lap("dryrun")
     examples = phase_examples()
     torch.cuda.empty_cache()
+    lap("examples")
     train_ssm = phase_train_ssm(args.seed)
     torch.cuda.empty_cache()
+    lap("train_ssm")
     train_tp_ssm = phase_train_tp_ssm(args.seed)
     torch.cuda.empty_cache()
+    lap("train_tp_ssm")
     moe = phase_moe(args.seed)
     torch.cuda.empty_cache()
+    lap("moe")
     vlm = phase_vlm(args.seed)
+    lap("vlm")
+    train_tp_heads = phase_train_tp_heads(args.seed, vlm.pop("train"))
+    torch.cuda.empty_cache()
+    lap("train_tp_heads")
 
     # launches: the sum over the main paths, each read around its own run
     # (per path beside it)
@@ -5908,7 +6369,8 @@ def main() -> int:
                            train_tp_ssm=train_tp_ssm["launches"][name],
                            moe=moe["launches"][name],
                            moe_mesh=moe["mesh_launches"][name],
-                           vlm=vlm["launches"][name])
+                           vlm=vlm["launches"][name],
+                           train_tp_heads=train_tp_heads["launches"][name])
                 for name in launches}
     total = {name: sum(v.values()) for name, v in per_path.items()}
     for name, n in total.items():
@@ -6029,6 +6491,32 @@ def main() -> int:
              library_ms=vlm["k5"]["library_ms"], shape=vlm["k5"]["shape"],
              note="llama-3.2-vision's cross attention, training, not "
                   "causal"),
+    ]
+    # K4 and K5 on a position's heads of llama-3.2-vision's layers in the
+    # train_tp_heads phase: their launches are part of its count above
+    heads = train_tp_heads
+    for key, note in (("cross_2", "the cross attention on (1, 2): 32 heads "
+                                  "and 4 kv heads a position, not causal"),
+                      ("cross_16", "the cross attention on (1, 16): 4 heads "
+                                   "a position, their kv head regrouped, "
+                                   "not causal"),
+                      ("self_16", "the self-attention on (1, 16): 4 heads a "
+                                  "position, causal")):
+        for k, name, src, rep in (
+                ("k4", "flash_attention_fwd", "flash_fwd.cu",
+                 "src/repro/kernels/flash.py:75"),
+                ("k5", "flash_attention_bwd", "flash_bwd.cu",
+                 "src/repro/kernels/flash.py:219")):
+            t = heads["timing"][f"{k}_{key}"]
+            table.append(dict(
+                name=f"{name}_vlm_tp_{key}", route="cuda",
+                source=f"{csrc}/csrc/{src}", replaces=rep,
+                launches=heads["launches_at"][f"{k}_{key}"],
+                max_abs_err=heads["errs"][f"{k}_{key}"], ms=t["kernel_ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                shape=t["shape"], note=note))
+    table += [
         dict(name="ssd_intra_chunk", route="cuda",
              source=f"{csrc}/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd.py:53",
@@ -6121,7 +6609,8 @@ def main() -> int:
              kernel_route=train_tp_ssm["k6b"]["route"],
              design=train_tp_ssm["k6b"]["design"]),
     ]
-    emit(dict(phase="done", seconds=time.perf_counter() - t_start))
+    emit(dict(phase="done", seconds=time.perf_counter() - t_start,
+              phase_seconds=laps))
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -44,17 +44,15 @@ Per cell:
   clip norm's all-reduce once a step. Operand bytes of one position, as
   the mesh's counters count them (``launch.mesh.collective_bytes``).
   ``tp_collectives`` are the model axis's, for a train cell of every
-  family but the vlm, which the port trains tensor parallel (ROADMAP.md
-  steps 13.7, 13.8 and 13.9): a position's reduce-outs, copy-ins,
-  regroups and max a step, worked out from the step's schedule
-  (``tp_collectives``) and added to the per-device collective bytes.
-  There the record's data-axis ``collectives`` are that step's own, a
-  device's (``fsdp_collectives`` with ``tp``); in other train cells they
-  are the FSDP specs' over an ideal model-axis split. The vlm's train
-  cells are ``null`` with the step that would train them, as are prefill
-  and decode (the port serves unsharded); a cell whose model axis does
-  not divide ``n_kv``, ``n_experts`` or the Mamba heads is counted, with
-  the rule or the step that would run it as its reason.
+  family, which the port trains tensor parallel (ROADMAP.md steps
+  13.7-13.11): a position's reduce-outs, copy-ins, regroups and max a
+  step, worked out from the step's schedule (``tp_collectives``) and
+  added to the per-device collective bytes. There the record's data-axis
+  ``collectives`` are that step's own, a device's (``fsdp_collectives``
+  with ``tp``). Prefill and decode cells are ``null`` with the reason
+  (the port serves unsharded); a train cell whose model axis does not
+  divide ``n_experts`` or the Mamba heads is counted, with the rule as
+  its reason.
 * **Memory.** ``argument_bytes`` is ``local_bytes`` of the state (or
   parameters and caches) and the batch by the specs. ``temp_bytes`` comes
   from the traced run: the most live storage beyond the arguments and the
@@ -461,21 +459,27 @@ def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
     ``n_dp`` where it splits), per dense sub-layer pair the attention-out
     and MLP-out reduce-outs, their copy-ins' backward sums and remat's
     recompute of both reduce-outs (their operands f32: ``WideProduct``),
-    a hybrid's shared block counting as one pair each time it runs;
-    per MoE sub-layer the same for its attention, and for its experts the
-    combine's reduce-out (the model's dtype) with remat's recompute, the
-    copy-ins' backward sums of the normed input and of the gates ((rows,
-    S, top_k) f32); per Mamba2 block (``mamba.tp_mamba_apply``) the gated
-    norm's sum of squares ((rows, S) f32) and ``out_proj``'s (f32)
-    reduce-outs with remat's recompute, the copy-ins' backward sums of the
-    normed input and of the summed squares, the regroup of its
+    a hybrid's shared block counting as one pair each time it runs and a
+    vlm's cross-attention block as one pair (its k and v come from the
+    image rows, which no collective moves); per MoE sub-layer the same
+    for its attention, and for its experts the combine's reduce-out (the
+    model's dtype) with remat's recompute, the copy-ins' backward sums of
+    the normed input and of the gates ((rows, S, top_k) f32); per
+    attention sub-layer where ``tp`` does not divide ``n_kv``, the
+    regroup of its ``wk`` and ``wv`` slices (and of ``wq`` and ``wo``
+    where ``tp`` does not divide ``n_heads`` either; the model's dtype)
+    with remat's recompute, and the regroup's backward sum of those
+    leaves whole (f32); per Mamba2 block (``mamba.tp_mamba_apply``) the
+    gated norm's sum of squares ((rows, S) f32) and ``out_proj``'s (f32)
+    reduce-outs with remat's recompute, the copy-ins' backward sums of
+    the normed input and of the summed squares, the regroup of its
     ``in_proj``, ``conv_w`` and ``conv_b`` slices (the model's dtype)
     with remat's recompute and the regroup's backward sum of those leaves
     whole (f32); the embedding's reduce-out and the head's copy-in (the
-    model's dtype); the loss's gold and sum-of-exp reduce-outs and its
-    max ((rows, S - 1) f32 each); and, where a moe model's rows split
-    over the data axis, the routing pass's reduce-outs (the embedding and
-    the blocks once, no gradient, no head)."""
+    model's dtype); the loss's gold and sum-of-exp reduce-outs and its max
+    ((rows, S - 1) f32 each); and, where a moe model's rows split over the
+    data axis, the routing pass's reduce-outs and regroups (the embedding
+    and the blocks once, no gradient, no head)."""
     if tp <= 1:
         return {}
     cfg = lm.cfg
@@ -484,11 +488,13 @@ def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
     split = n_dp > 1 and B % (M * n_dp) == 0
     rows = B // M // (n_dp if split else 1)
     tok = rows * S * cfg.d_model
-    act = tok * DTYPES[cfg.dtype].itemsize
+    isz = DTYPES[cfg.dtype].itemsize
+    act = tok * isz
     vec = rows * (S - 1) * 4
     sq = rows * S * 4
-    L = sum(count for kind, count in lm.plan
-            if kind in ("dense", "moe_pair", "zamba_super"))
+    L = sum(count * (cfg.cross_attn_every if kind == "vlm_super" else 1)
+            for kind, count in lm.plan
+            if kind in ("dense", "moe_pair", "zamba_super", "vlm_super"))
     E = _moe_layers(lm)
     Lm = sum(count * (cfg.shared_attn_every if kind == "zamba_super" else 1)
              for kind, count in lm.plan if kind in ("mamba", "zamba_super"))
@@ -500,13 +506,22 @@ def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
            "copy-in": M * (act * (2 * L + 2 * E + 1) + E * gate
                            + Lm * (act + sq)),
            "max": M * vec}
+    # the elements of the leaves regrouped whole in one pass: each
+    # attention sub-layer's and each Mamba2 block's
+    whole = 0
+    if cfg.n_kv and cfg.n_kv % tp:
+        per = 2 * cfg.d_model * cfg.n_kv * cfg.hd  # wk, wv
+        if cfg.n_heads % tp:
+            per += 2 * cfg.d_model * cfg.n_heads * cfg.hd  # wq, wo
+        whole += (L + E) * per
     if Lm:
         d_inner, H, N = mamba_dims(cfg)
-        whole = (cfg.d_model * (2 * d_inner + 2 * N + H)
-                 + (cfg.d_conv + 1) * (d_inner + 2 * N))
-        out["regroup"] = M * 2 * Lm * whole // tp * DTYPES[
-            cfg.dtype].itemsize
-        out["regroup-sum"] = M * Lm * whole * 4
+        whole += Lm * (cfg.d_model * (2 * d_inner + 2 * N + H)
+                       + (cfg.d_conv + 1) * (d_inner + 2 * N))
+    if whole:
+        passes = 3 if E and split else 2  # forward, remat (and routing)
+        out["regroup"] = M * passes * whole // tp * isz
+        out["regroup-sum"] = M * whole * 4
     return out
 
 
@@ -658,9 +673,8 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
             tp_reason = None
         except NotImplementedError as e:
             tp_reason = str(e)
-        if cfg.family != "vlm":
-            tp_colls = tp_collectives(lm, step_cfg, n_dp, tp,
-                                      (shape.global_batch, shape.seq_len))
+        tp_colls = tp_collectives(lm, step_cfg, n_dp, tp,
+                                  (shape.global_batch, shape.seq_len))
     elif shape.kind == "train":
         tp_colls, tp_reason = {}, None
     tp_bytes = float(sum((tp_colls or {}).values()))
@@ -735,7 +749,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, overrides: dict,
         per_device_split=(f"a data position's counts over the {tp} "
                           f"positions of the model axis: an ideal "
                           f"tensor-parallel split (the port trains "
-                          f"every family but the vlm so, and serves "
+                          f"every family so, and serves "
                           f"unsharded), plus the model axis's own "
                           f"collectives where they are counted"),
         per_position=c["per_position"],

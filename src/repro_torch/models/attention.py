@@ -14,7 +14,9 @@ written as an expand and a reshape: the backward of ``repeat_interleave``
 is an ``index_add_`` (float atomics on the card, so its sums change from
 run to run), that of an expand a plain reduction, the same every run. The
 reference's block sizes and masked-block skipping are schedule choices
-and change no result; K4 and K5 always skip masked tiles.
+and change no result; K4 and K5 always skip masked tiles. No heads at all
+(a tensor-parallel position that holds none, ``models.model``) launch no
+kernel: o is empty, and so are the gradients.
 """
 from __future__ import annotations
 
@@ -35,15 +37,21 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, force: Optional[str]):
+        ctx.causal, ctx.force = causal, force
+        if q.shape[0] == 0:  # no heads: nothing to launch
+            ctx.save_for_backward(q, k, v)
+            return torch.empty_like(q)
         o, lse = ops.flash_attention_fwd(q, k, v, causal=causal, force=force,
                                          device=q.device)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.force = causal, force
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        saved = ctx.saved_tensors  # once: a checkpoint unpacks them once
+        if len(saved) == 3:
+            return (*(torch.zeros_like(t) for t in saved), None, None)
+        q, k, v, o, lse = saved
         dq, dk, dv = ops.flash_attention_bwd(
             q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
             force=ctx.force, device=q.device)
@@ -75,7 +83,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Returns o (B, Sq, H, hd) in q's dtype; differentiable in q, k, v."""
     B, Sq, H, hd = q.shape
-    rep = H // k.shape[2]
+    rep = H // k.shape[2] if k.shape[2] else 1
     if rep > 1:
         k, v = (_repeat_heads(t, rep) for t in (k, v))
     o = FlashAttention.apply(_heads_first(q), _heads_first(k),

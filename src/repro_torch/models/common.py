@@ -184,8 +184,11 @@ class WideProduct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        x2 = x.reshape(-1, x.shape[-1])
-        if x.dtype == torch.float32:
+        x2 = x.flatten(0, -2)
+        if x.shape[-1] == 0:  # a position with no heads: a zero partial
+            y = torch.zeros((x2.shape[0], w.shape[-1]), dtype=torch.float32,
+                            device=x.device)
+        elif x.dtype == torch.float32:
             y = x2 @ w
         elif x.is_cuda:
             y = torch.mm(x2, w, out_dtype=torch.float32)
@@ -198,7 +201,7 @@ class WideProduct(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dy2 = dy.to(x.dtype).reshape(-1, dy.shape[-1])
         dx = dy2 @ w.t()
-        dw = x.reshape(-1, x.shape[-1]).t() @ dy2
+        dw = x.flatten(0, -2).t() @ dy2
         return dx.reshape(x.shape), dw
 
 

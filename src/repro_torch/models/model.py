@@ -47,22 +47,36 @@ The reference's ``constrain`` calls are left out: the port's
 ``models.sharding.constrain`` is the identity (a position of a data mesh
 computes on its own batch slice already).
 
-Tensor parallel (ROADMAP.md steps 13.7, 13.8 and 13.9; every family but
-the vlm):
+Tensor parallel (ROADMAP.md steps 13.7-13.11; every family):
 ``LM.tp_loss`` is ``LM.loss`` over the positions of one row of a model
 axis (a ``launch.mesh.ModelGroup``), each with its model slices of the
 parameters, as the reference's ``param_specs(..., tp="model")`` lays them
 out and its ``constrain(..., "tp")`` points place the work. The embedding
 is vocab-parallel: each position looks up the tokens of its vocab rows
 and writes zeros elsewhere, then a reduce-out. Each block copies its
-normed input in, runs attention on the position's own heads (its column
-slices of ``wq``/``wk``/``wv``: ``n_heads/tp`` query and ``n_kv/tp`` kv
-heads, through K4 and K5 as ever) and the MLP on its columns of
-``w_in``/``w_gate``, and sums the row slices' products with ``wo`` and
-``w_out`` by a reduce-out, each product kept in f32 and the sum rounded
-once to the model's dtype (``common.WideProduct``): a bf16 sum of bf16
-partial products would round every partial, which the whole product
-does not, so only the order of the f32 sums differs from it. The head
+normed input in, runs attention on the position's own heads and the MLP
+on its columns of ``w_in``/``w_gate``, and sums the row slices' products
+with ``wo`` and ``w_out`` by a reduce-out, each product kept in f32 and
+the sum rounded once to the model's dtype (``common.WideProduct``): a
+bf16 sum of bf16 partial products would round every partial, which the
+whole product does not, so only the order of the f32 sums differs from
+it. The heads (``head_range``): position ``j`` of ``tp`` takes the query
+heads ``[floor(j H / tp), floor((j + 1) H / tp))``, none where ``tp > H``
+leaves it without one (it launches no kernel and its partial is zero).
+Where ``tp`` divides ``n_kv`` those are its column slices of ``wq``, and
+its slices of ``wk``/``wv`` are whole kv heads (``n_kv/tp``), which K4
+and K5 read as GQA. Elsewhere a kv head's columns lie on more than one
+position: ``wk`` and ``wv`` are regrouped whole over the axis (as a
+Mamba2 block's ``in_proj``; ``wq`` and ``wo`` too where ``tp`` does not
+divide ``n_heads``, their even slices cutting through heads), each
+position computes q for its heads and k and v for the kv heads they
+read, and repeats each kv head to one per query head, the reference's
+repeat-then-shard (its ``_self_attn_full``); autograd sums dk and dv over
+the repeats, the regroup's backward the whole leaves' gradients over the
+positions. A vlm's super block runs its self-attention blocks so, then
+the cross attention on each position's heads (q from the normed text, k
+and v from the image embeddings, no RoPE, not causal) and the cross
+block's MLP. The head
 makes each position's vocab columns of the logits, tied or not, and the
 loss takes the gold logit as a masked gather and a reduce-out, ``m`` from
 the no-gradient max over the axis (the reference's ``m`` carries a
@@ -321,26 +335,15 @@ def _mlp_sub(p, x, cfg: ArchConfig):
 
 # ---- tensor parallel over a model axis (see the module) ----
 
-# ROADMAP.md steps of the families that do not train on a model axis yet
-_TP_STEPS = {"vlm": "13.10"}
-
 
 def check_tensor_parallel(cfg: ArchConfig, tp: int) -> None:
-    """Raise, naming the ROADMAP.md step or the rule, where the port
-    cannot train ``cfg`` over a model axis of ``tp`` positions."""
+    """Raise, naming the rule, where the port cannot train ``cfg`` over a
+    model axis of ``tp`` positions: a position takes whole Mamba heads
+    and whole experts. Any number of attention heads splits (see the
+    module); a leaf that ``param_specs`` cannot split evenly is refused
+    where the state is placed (``sharding.shard_tree``)."""
     if tp <= 1:
         return
-    if cfg.family in _TP_STEPS:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a model axis of {tp}: tensor "
-            f"parallel training covers the dense, audio, moe, ssm and "
-            f"hybrid families; this one is ROADMAP.md step "
-            f"{_TP_STEPS[cfg.family]}")
-    if cfg.n_kv % tp:
-        raise NotImplementedError(
-            f"{cfg.name} on a model axis of {tp}: {tp} does not divide its "
-            f"{cfg.n_kv} kv heads, and a position takes whole kv heads "
-            f"(heads resharded across the axis are ROADMAP.md step 13.11)")
     n_mamba = mamba_dims(cfg)[1] if cfg.ssm_state else 0
     if n_mamba % tp:
         raise NotImplementedError(
@@ -356,6 +359,13 @@ def check_tensor_parallel(cfg: ArchConfig, tp: int) -> None:
             f"param_specs lays it out)")
 
 
+def head_range(n_heads: int, tp: int, j: int) -> tuple[int, int]:
+    """The query heads ``[lo, hi)`` of position ``j`` of a model axis of
+    ``tp``: ``lo = floor(j H / tp)``, ``hi = floor((j + 1) H / tp)`` (none
+    where ``tp > H`` leaves a position without one)."""
+    return n_heads * j // tp, n_heads * (j + 1) // tp
+
+
 def _vocab_rows(embed, tokens, lo: int):
     """The embedding rows of the tokens in ``[lo, lo + rows)`` from a
     position's vocab slice ``embed``, zeros for the others."""
@@ -366,23 +376,84 @@ def _vocab_rows(embed, tokens, lo: int):
                                                       device=x.device))
 
 
+def _kv_for_heads(t, rep: int, off: int, n: int):
+    """(B, S, G, hd) kv heads -> (B, S, n, hd): each repeated ``rep`` times
+    (query head h reads kv head h // rep), then the ``n`` heads from
+    ``off`` on, the window of a position's query heads. An expand and a
+    copy, so the backward sums the repeats in a fixed order."""
+    B, S, G, hd = t.shape
+    return t[:, :, :, None].expand(B, S, G, rep, hd).reshape(
+        B, S, G * rep, hd)[:, :, off:off + n]
+
+
+def _tp_attn_sub(ps, x, ctx, img):
+    """An attention sub-layer over a model axis: each local position's
+    query heads (q from its copy of the normed input), k and v from the
+    same copy (self-attention, ``img`` None: RoPE, causal) or from
+    ``img`` (cross attention: no RoPE, no mask), K4 and K5 on its heads,
+    its product with its rows of ``wo`` kept in f32 (``WideProduct``),
+    and a reduce-out of the products. Where the axis divides ``n_kv`` a
+    position's column slices are whole kv heads (GQA as ever); else
+    ``wk`` and ``wv`` (and ``wq`` and ``wo`` where it does not divide
+    ``n_heads`` either) are regrouped whole (``ModelGroup.all_gather``)
+    and each position takes its heads' columns and rows and the kv head
+    of each of its heads."""
+    cfg, group = ctx["cfg"], ctx["group"]
+    tp, H, KV, hd = group.size, cfg.n_heads, cfg.n_kv, cfg.hd
+    h = rms_norm(x, ps[0]["ln1"])
+    att = [p["attn"] for p in ps]
+    regroup = KV % tp != 0
+    if regroup:
+        wk = group.all_gather([a["wk"] for a in att], 1)
+        wv = group.all_gather([a["wv"] for a in att], 1)
+        if H % tp:
+            wq = group.all_gather([a["wq"] for a in att], 1)
+            wo = group.all_gather([a["wo"] for a in att], 0)
+    outs = []
+    for i, (a, hj, j) in enumerate(zip(att, group.copy_in(h), group.index)):
+        B, S = hj.shape[:2]
+        src = hj if img is None else img.to(hj.device)
+        Skv = src.shape[1]
+        if not regroup:
+            q = (hj @ a["wq"]).reshape(B, S, H // tp, hd)
+            k = (src @ a["wk"]).reshape(B, Skv, KV // tp, hd)
+            v = (src @ a["wv"]).reshape(B, Skv, KV // tp, hd)
+            w_o = a["wo"]
+        else:
+            rep = H // KV
+            lo, hi = head_range(H, tp, j)
+            g0 = lo // rep
+            g1 = (hi - 1) // rep + 1 if hi > lo else g0
+            cols = slice(lo * hd, hi * hd)
+            q = (hj @ (a["wq"] if H % tp == 0 else wq[i][:, cols])).reshape(
+                B, S, hi - lo, hd)
+            kv_cols = slice(g0 * hd, g1 * hd)
+            k = (src @ wk[i][:, kv_cols]).reshape(B, Skv, g1 - g0, hd)
+            v = (src @ wv[i][:, kv_cols]).reshape(B, Skv, g1 - g0, hd)
+            w_o = a["wo"] if H % tp == 0 else wo[i][cols]
+        if img is None:
+            pos = ctx["positions"].to(hj.device)
+            q = rope(q, pos, cfg.rope_theta)
+            k = rope(k, pos, cfg.rope_theta)
+        if regroup:
+            off = lo - g0 * rep
+            k, v = (_kv_for_heads(t, rep, off, hi - lo) for t in (k, v))
+        o = blockwise_attention(q, k, v, causal=img is None,
+                                force=ctx["force"])
+        outs.append(WideProduct.apply(o.reshape(B, S, q.shape[2] * hd), w_o))
+    return x + group.reduce_out(outs).to(x.dtype)
+
+
 def _tp_self_attn_full(ps, x, ctx):
     """``_self_attn_full`` over a model axis: ``ps`` are the local
     positions' block slices, ``ctx["group"]`` their ``ModelGroup``."""
-    cfg, group = ctx["cfg"], ctx["group"]
-    tp = group.size
-    h = rms_norm(x, ps[0]["ln1"])
-    B, S = x.shape[:2]
-    outs = []
-    for p, hj in zip(ps, group.copy_in(h)):
-        q, k, v = attn_qkv(hj, p["attn"], cfg.n_heads // tp, cfg.n_kv // tp,
-                           cfg.hd)
-        pos = ctx["positions"].to(hj.device)
-        q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
-        o = blockwise_attention(q, k, v, causal=True, force=ctx["force"])
-        outs.append(WideProduct.apply(o.reshape(B, S, -1), p["attn"]["wo"]))
-    return x + group.reduce_out(outs).to(x.dtype)
+    return _tp_attn_sub(ps, x, ctx, None)
+
+
+def _tp_cross_attn_full(ps, x, ctx):
+    """``_cross_attn_full`` over a model axis: k and v from the image
+    embeddings ``ctx["img"]`` (no gradient), K4 and K5 not causal."""
+    return _tp_attn_sub(ps, x, ctx, ctx["img"])
 
 
 def _tp_mlp_sub(ps, x, ctx):
@@ -445,6 +516,12 @@ def _tp_block(kind, ps, x, ctx):
             x, _ = _tp_block("mamba", [_index(p["mamba"], i) for p in ps], x,
                              ctx)
         return _tp_block("dense", ctx["shared"], x, ctx)
+    if kind == "vlm_super":
+        for i in range(ctx["cfg"].cross_attn_every - 1):
+            x, _ = _tp_block("dense", [_index(p["dense"], i) for p in ps], x,
+                             ctx)
+        cs = [p["cross"] for p in ps]
+        return _tp_mlp_sub(cs, _tp_cross_attn_full(cs, x, ctx), ctx), None
     raise ValueError(kind)
 
 
@@ -797,8 +874,8 @@ class LM:
         ce = torch.mean(logz - gold)
         return ce + 0.01 * aux, dict(ce=ce, aux=aux)
 
-    def _tp_trunk(self, parts: list, tokens, group, *, force=None,
-                  routes=None):
+    def _tp_trunk(self, parts: list, tokens, group, *, img=None,
+                  force=None, routes=None):
         """``tp_loss``'s embedding and blocks: (x, aux, tokens)."""
         cfg = self.cfg
         tp = group.size
@@ -807,10 +884,11 @@ class LM:
         tokens = torch.as_tensor(tokens, device=dev).long()
         B, S = tokens.shape
         vp = cfg.vocab_padded // tp
+        img = self._image(parts[0], img, B)
         x = group.reduce_out([
             _vocab_rows(p["embed"], tokens.to(p["embed"].device), j * vp)
             for p, j in zip(parts, group.index)])
-        ctx = dict(cfg=cfg, group=group, force=force,
+        ctx = dict(cfg=cfg, group=group, force=force, img=img,
                    positions=torch.arange(S, dtype=torch.int32,
                                           device=dev).expand(B, S),
                    shared=[p.get("shared") for p in parts])
@@ -831,29 +909,31 @@ class LM:
                     aux_total = aux_total + aux
         return x, aux_total, tokens
 
-    def tp_route(self, parts: list, tokens, group, *,
+    def tp_route(self, parts: list, tokens, group, *, img=None,
                  force: Optional[str] = None) -> Routes:
         """``route`` over a model axis: ``tp_loss``'s blocks without
         gradients, recording the routes (taken once a row)."""
         routes = Routes()
         with torch.no_grad():
-            self._tp_trunk(parts, tokens, group, force=force, routes=routes)
+            self._tp_trunk(parts, tokens, group, img=img, force=force,
+                           routes=routes)
         return routes
 
-    def tp_loss(self, parts: list, tokens, group, *,
+    def tp_loss(self, parts: list, tokens, group, *, img=None,
                 force: Optional[str] = None,
                 routes: Optional[Routes] = None):
         """``loss`` over a model axis (see the module): ``parts[i]`` is the
         parameter tree of ``group``'s local position i, its model slices
-        whole along the data axes. Returns what ``loss`` returns, the same
-        on every position of the row (on the first local position's
-        device); ``routes`` as ``loss``'s."""
+        whole along the data axes; ``img`` a vlm's image embeddings for
+        the rows of ``tokens`` (as ``loss``'s). Returns what ``loss``
+        returns, the same on every position of the row (on the first local
+        position's device); ``routes`` as ``loss``'s."""
         cfg = self.cfg
         tp = group.size
         first = parts[0]
         vp = cfg.vocab_padded // tp
-        x, aux, tokens = self._tp_trunk(parts, tokens, group, force=force,
-                                        routes=routes)
+        x, aux, tokens = self._tp_trunk(parts, tokens, group, img=img,
+                                        force=force, routes=routes)
         h = rms_norm(x, first["final_norm"])
         tgt = tokens[:, 1:]
         golds, lgs = [], []
@@ -966,5 +1046,5 @@ def tree_map(fn, *trees):
 
 
 __all__ = ["LM", "layer_plan", "block_init", "block_apply_full",
-           "block_apply_decode", "check_tensor_parallel", "tree_leaves",
-           "tree_map"]
+           "block_apply_decode", "check_tensor_parallel", "head_range",
+           "tree_leaves", "tree_map"]

@@ -56,15 +56,18 @@ is ``(model, data)``); a leaf that the data axes do not split is summed
 over them only: one the model axis does not split either (a norm) is one
 gradient on every model position, not partial sums, and one it splits
 alone (a Mamba2 block's ``conv_w``, ``conv_b``, ``A_log``, ``D``,
-``dt_bias`` and gated ``norm``) stays the position's model slice. The
-dense, audio, moe, ssm and hybrid families train so: a moe's experts
-split over the model axis (ROADMAP.md step 13.9,
-``models.model._tp_moe_sub``) and its routing pass per data row
-(``LM.tp_route``), a Mamba2 block's heads split over it (step 13.8,
-``models.mamba.tp_mamba_apply``). The vlm, and a model axis that does not
-divide ``n_kv``, ``n_experts`` or the Mamba heads, raise naming their
-ROADMAP.md step or the rule. A model axis of 1 is the FSDP step bit for
-bit.
+``dt_bias`` and gated ``norm``) stays the position's model slice. Every
+family trains so: a moe's experts split over the model axis (ROADMAP.md
+step 13.9, ``models.model._tp_moe_sub``) and its routing pass per data
+row (``LM.tp_route``), a Mamba2 block's heads split over it (step 13.8,
+``models.mamba.tp_mamba_apply``), a vlm's cross attention on each
+position's heads with the data row's image rows (step 13.10), and the
+attention heads split over any model axis, ``wk`` and ``wv`` regrouped
+where it does not divide ``n_kv`` (step 13.11,
+``models.model.head_range``). A model axis that does not divide
+``n_experts`` or the Mamba heads raises naming the rule, and a leaf the
+specs cannot split evenly is refused where the state is placed. A model
+axis of 1 is the FSDP step bit for bit.
 """
 from __future__ import annotations
 
@@ -231,7 +234,7 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
 
     positions = mesh.local_positions()
 
-    def tp_grad_fn(trees, dims, tokens, group, routes):
+    def tp_grad_fn(trees, dims, tokens, img, group, routes):
         """``grad_fn`` over a row of model positions: each position's own
         leaves for the slices the model axis splits, the first position's
         for the rest (its gradient then serves every position)."""
@@ -243,7 +246,7 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
             for t in trees[1:]]
         loss, metrics = lm.tp_loss(
             [_unflatten(t, live) for t, live in zip(trees, lives)], tokens,
-            group, force=force, routes=routes)
+            group, img=img, force=force, routes=routes)
         uniq = list({id(t): t for live in lives for t in live}.values())
         by_id = {id(t): g for t, g in
                  zip(uniq, torch.autograd.grad(loss, uniq))}
@@ -321,7 +324,7 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
                     routes[r] = (lm.route(trees[0], tok, im, force=force)
                                  if tp == 1 else
                                  lm.tp_route(trees, tok, row_group(r, ks),
-                                             force=force))
+                                             img=im, force=force))
                 total = mesh.psum([rt.stacked_counts() for rt in routes],
                                   daxes)
                 for rt, t in zip(routes, total):
@@ -332,7 +335,7 @@ def make_train_step(lm: LM, opt_cfg: AdamWConfig,
                     loss, m, g = grad_fn(trees[0], tok, im, routes[r])
                     g = [g]
                 else:
-                    loss, m, g = tp_grad_fn(trees, dims, tok,
+                    loss, m, g = tp_grad_fn(trees, dims, tok, im,
                                             row_group(r, ks), routes[r])
                 for k, gk in zip(ks, g):
                     parts[k] = gk

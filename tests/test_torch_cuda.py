@@ -1516,6 +1516,92 @@ def test_tp_step_on_card_positions_equals_unsharded(cuda, dtype):
         assert e <= tols[k], (k, e, tols[k])
 
 
+@pytest.mark.parametrize("arch,shape,over", [
+    ("llama-3.2-vision-90b", (1, 2), {}),  # the vlm, whole kv heads
+    ("llama-3.2-vision-90b", (1, 4), {}),  # a kv head on two positions
+    ("smollm-135m", (1, 4), {"n_heads": 6, "n_kv": 2}),  # divides neither
+    ("smollm-135m", (1, 8), {}),  # four positions hold no head
+])
+def test_tp_step_heads_on_card_positions_equals_unsharded(cuda, arch, shape,
+                                                          over):
+    """Tensor parallel for the vlm and with the heads resharded (ROADMAP.md
+    steps 13.10 and 13.11) on an in-process mesh of card positions, one
+    f32 step of the reduced config: K4 and K5 launch on each position that
+    holds a head, each call on B x its heads' rows (the vlm's cross
+    attention not causal), as often as on the unsharded step per
+    position; the collective bytes are the dry run's; the unsharded step's
+    loss within 1e-6 and every leaf within 1e-4 relative L2, as the FSDP
+    test above."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, make_mesh
+    from repro_torch.launch.mesh import (collective_bytes,
+                                         reset_collective_bytes)
+    from repro_torch.models import LM
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import head_range
+    from repro_torch.train import (AdamWConfig, StepConfig,
+                                   init_train_state, make_train_step)
+    from repro_torch.train.checkpoint import _paths
+    from repro_torch.train.train_state import state_specs
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              **over)
+    lm = LM(cfg)
+    c = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (8, 64)),
+                                       device=cuda)}
+    if cfg.family == "vlm":
+        batch["img"] = torch.as_tensor(
+            rng.standard_normal((8, cfg.n_img_tokens, cfg.d_model)) * 0.1,
+            dtype=torch.float32, device=cuda)
+    ops.reset_launches()
+    plain, pm = make_train_step(lm, c)(init_train_state(lm, 0, c,
+                                                        device=cuda), batch)
+    want = ops.launch_counts()
+    n = math.prod(shape)
+    mesh = make_mesh(shape, ("data", "model"), devices=[cuda] * n)
+    specs = state_specs(sh.param_specs(lm.abstract_params(), ("data",),
+                                       tp="model"), c)
+    state = init_train_state(lm, 0, c, mesh=mesh, specs=specs)
+    rows = {"fwd": set(), "bwd": set()}
+    fwd, bwd = ops.flash_attention_fwd, ops.flash_attention_bwd
+
+    def spy(fn, key):
+        def call(q, *a, **kw):
+            rows[key].add(q.shape[0])
+            return fn(q, *a, **kw)
+        return call
+
+    ops.reset_launches()
+    reset_collective_bytes()
+    ops.flash_attention_fwd = spy(fwd, "fwd")
+    ops.flash_attention_bwd = spy(bwd, "bwd")
+    try:
+        state, m = make_train_step(lm, c, mesh=mesh)(state, batch)
+    finally:
+        ops.flash_attention_fwd, ops.flash_attention_bwd = fwd, bwd
+    got = ops.launch_counts()
+    heads = [hi - lo for lo, hi in (head_range(cfg.n_heads, shape[1], j)
+                                    for j in range(shape[1]))]
+    with_heads = sum(1 for h in heads if h)
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert got[name] == with_heads * want[name] > 0, (name, got, want)
+    assert rows["fwd"] == rows["bwd"] == {8 * h for h in heads if h}
+    dry = dict(dryrun.fsdp_collectives(lm, StepConfig(), shape[0], 8,
+                                       tp=shape[1]))
+    dry.update(dryrun.tp_collectives(lm, StepConfig(), shape[0], shape[1],
+                                     (8, 64)))
+    assert collective_bytes() == dry
+    np.testing.assert_allclose(float(m["loss"]), float(pm["loss"]),
+                               rtol=1e-6)
+    for (k, a), (_, b) in zip(_paths(sh.gather_tree(state)), _paths(plain)):
+        assert _rel(a, b) <= 1e-4, (k, _rel(a, b))
+
+
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
 def test_tp_step_ssm_on_card_positions_equals_plain(cuda, arch):
     """The ssm and hybrid families tensor parallel on an in-process (1, 2)

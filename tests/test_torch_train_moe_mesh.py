@@ -16,8 +16,8 @@ another mesh's bits, checkpoints, refusals and the launcher.
 * a moe checkpoint saved on (2, 2) restored onto (4,) and one position,
   and back;
 * a model axis that does not divide ``n_experts`` refused naming the
-  rule, one that divides neither ``n_kv`` nor ``n_experts`` naming
-  ROADMAP.md step 13.11;
+  rule, also where it does not divide ``n_kv`` either (the kv heads
+  split over any model axis, ROADMAP.md step 13.11);
 * ``launch.train`` on a data axis of 2;
 * the dry run's count of a moe train cell on a meta mesh against what a
   step of that shape moves.
@@ -249,7 +249,8 @@ def test_moe_checkpoint_restores_across_meshes(tmp_path):
 
 @pytest.mark.parametrize("n_kv,n_experts,tp,rule", [
     (2, 3, 2, "experts"),  # 2 divides the kv heads, not 3 experts
-    (2, 6, 4, "13.11"),    # 4 divides neither: the kv heads named first
+    (2, 6, 4, "experts"),  # 4 divides neither: the experts rule (the
+                           # kv heads split over any axis, step 13.11)
 ])
 def test_refused_where_the_model_axis_does_not_divide_the_experts(
         n_kv, n_experts, tp, rule):

@@ -295,18 +295,21 @@ def test_sharding_arguments_are_checked():
     with pytest.raises(ValueError, match="ShardedTree"):
         make_train_step(lm, c, mesh=mesh)(
             init_train_state(lm, 0, c, device="cpu"), batch)
-    # a family that does not train on a model axis yet (the vlm; every
-    # other does, ROADMAP.md steps 13.7-13.9) is refused, naming its step
+    # every family trains on a model axis (ROADMAP.md steps 13.7-13.11):
+    # a vlm's step takes the image rows beside the tokens, and refuses a
+    # batch without them
     _, cfg_v = _cfgs("llama-3.2-vision-90b")
     lm_v = LM(cfg_v)
     tp_specs = state_specs(sh.param_specs(lm_v.abstract_params(), ("data",),
                                           tp="model"), c)
     m2 = make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
     img = torch.zeros((4, cfg_v.n_img_tokens, cfg_v.d_model))
-    with pytest.raises(NotImplementedError, match=r"13\.10"):
-        make_train_step(lm_v, c, mesh=m2)(
-            init_train_state(lm_v, 0, c, mesh=m2, specs=tp_specs),
-            dict(batch, img=img))
+    step_v = make_train_step(lm_v, c, mesh=m2)
+    with pytest.raises(ValueError, match="img"):
+        step_v(init_train_state(lm_v, 0, c, mesh=m2, specs=tp_specs), batch)
+    _s, m_v = step_v(init_train_state(lm_v, 0, c, mesh=m2, specs=tp_specs),
+                     dict(batch, img=img))
+    assert np.isfinite(float(m_v["loss"]))
     # a batch of 3 rows does not split over 2 positions: every position
     # takes it whole and keeps its own slices of the whole batch's
     # gradient; only the clip norm is summed over the positions, in

@@ -25,8 +25,9 @@ Then the sub-layers (attention on each position's heads through the
 plain K4 and K5, the MLP on column slices) and the vocab-parallel loss
 against the JAX package's ``_self_attn_full``, ``_mlp_sub`` and
 ``LM.loss`` within 1e-5, forward and gradients; checkpoints saved on
-(2, 2) restored onto (4,), (1, 2) and one position and back; the
-refusals, each naming its ROADMAP.md step.
+(2, 2) restored onto (4,), (1, 2) and one position and back; the meshes
+refused before ROADMAP.md steps 13.10 and 13.11 training, and the
+refusal of a model axis that the specs cannot split evenly.
 """
 import dataclasses
 import os
@@ -502,20 +503,41 @@ def test_checkpoint_restores_across_meshes(tmp_path):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,shape,step", [
-    ("smollm-135m", (1, 4), "13.11"),  # 4 does not divide 2 kv heads
-    ("llama-3.2-vision-90b", (1, 2), "13.10"),
+@pytest.mark.parametrize("arch,shape", [
+    ("smollm-135m", (1, 4)),  # 4 does not divide its 2 kv heads (13.11)
+    ("llama-3.2-vision-90b", (1, 2)),  # the vlm (13.10)
 ])
-def test_refused_on_a_model_axis(arch, shape, step):
+def test_trains_where_the_model_axis_was_refused(arch, shape):
+    """Meshes refused before ROADMAP.md steps 13.10 and 13.11 were done
+    train now: one step on each gives the unsharded step's loss within
+    1e-6 relative and its parameters within 1e-5 relative L2 a leaf."""
+    _, cfg = _cfgs(arch)
+    lm = LM(cfg)
+    tmodel.check_tensor_parallel(cfg, shape[1])
+    c = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    batch = {"tokens": torch.as_tensor(_tokens(cfg, batch=4, seq=16))}
+    if cfg.family == "vlm":
+        batch["img"] = torch.as_tensor(np.random.default_rng(2).standard_normal(
+            (4, cfg.n_img_tokens, cfg.d_model)).astype(np.float32) * 0.1)
+    mesh = _mesh(shape)
+    state, m = make_train_step(lm, c, mesh=mesh)(
+        init_train_state(lm, 0, c, mesh=mesh, specs=_specs(lm, c)), batch)
+    plain, pm = make_train_step(lm, c)(init_train_state(lm, 0, c,
+                                                        device="cpu"), batch)
+    np.testing.assert_allclose(float(m["loss"]), float(pm["loss"]),
+                               rtol=1e-6)
+    for (k, a), (_, b) in zip(_full(state), _full(plain)):
+        assert _rel(a, b) <= 1e-5, (k, _rel(a, b))
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "llama-3.2-vision-90b"])
+def test_refused_on_a_model_axis(arch):
+    """A model axis that the specs cannot split evenly (3 positions: the
+    vocab rows of 128, the MLP's 128 columns) is refused where the state
+    is placed, naming the leaf."""
     _, cfg = _cfgs(arch)
     lm = LM(cfg)
     c = AdamWConfig()
-    mesh = _mesh(shape)
-    with pytest.raises(NotImplementedError, match=step.replace(".", r"\.")):
-        state = init_train_state(lm, 0, c, mesh=mesh, specs=_specs(lm, c))
-        batch = {"tokens": torch.as_tensor(_tokens(cfg, batch=4, seq=8))}
-        if cfg.family == "vlm":
-            batch["img"] = torch.zeros((4, cfg.n_img_tokens, cfg.d_model))
-        make_train_step(lm, c, mesh=mesh)(state, batch)
-    with pytest.raises(NotImplementedError, match=step.replace(".", r"\.")):
-        tmodel.check_tensor_parallel(cfg, shape[1])
+    tmodel.check_tensor_parallel(cfg, 3)  # the heads split any way
+    with pytest.raises(ValueError, match="does not split evenly"):
+        init_train_state(lm, 0, c, mesh=_mesh((1, 3)), specs=_specs(lm, c))
