@@ -292,8 +292,8 @@ exits non-zero:
                one Mamba2 layer's own inputs, captured from a backward of
                (b), each gradient within 2e-4 of the plain version's
                largest entry and bit-identical on a repeat; (b)
-               mamba2-2.7b at its full width and depth (64 layers, bf16,
-               random weights) trained at batch 8 x 2,048 (q = 256, 8
+               mamba2-2.7b at its full width and 16 of its 64 layers
+               (bf16, random weights) trained at batch 8 x 2,048 (q = 256, 8
                chunks), diverse selection on: 3 steps of
                ``make_train_step`` with launch counts set to 0 before and
                read after (K6 twice a layer a step with remat, K6b once,
@@ -434,6 +434,36 @@ exits non-zero:
                the cross attention's per-position shapes on (1, 2) and
                (1, 16) and the self-attention's on (1, 16), beside SDPA
                and their bounds.
+23. ``serve_tp`` prefill and greedy decode on in-process ``("data",
+               "model")`` meshes of the one card (ROADMAP step 13.12),
+               ``Engine(..., mesh=)`` over ``LM.tp_prefill`` and
+               ``LM.tp_decode_step``, each position holding its slices of
+               the parameters and of the caches: (a) zamba2-7b at full
+               width and depth on (2, 2) (56 of 112 Mamba heads and 16 of
+               32 attention heads a position), the ``lm`` phase's traffic
+               (24 x 1,024 prompts + 16 new tokens, bf16, the same seeded
+               weights and prompts), against the unsharded ``Engine``: the
+               mesh's greedy run with launch counts and collective bytes
+               set to 0 before and read after (K4 once an attention layer
+               and K6 once a Mamba2 layer, per position and data row, each
+               K4 call on a row's rows x the position's heads; the bytes
+               equal to the dry run's ``serve_collectives``, to the byte),
+               the share of greedy tokens equal to the unsharded run's,
+               then a run fed the unsharded run's tokens: the prefill's
+               and every decode step's logits within 2e-2 of the largest
+               logit, or within twice what one bf16 step on 1e-4 of the
+               embedding moves the unsharded run's (the ``lm`` rule);
+               ``prefill_s``, decode ms a token and the peak beside the
+               unsharded run's (the unsharded weights freed before the
+               mesh's run); K4 and K6 against their plain versions at a
+               position's captured inputs and timed there beside their
+               bounds (and SDPA); the same model at 12 layers in f32 on 4
+               x 1,024 prompts + 4 tokens, every step's logits within 1e-4
+               of the largest unsharded logit; (b) smollm-135m at full
+               width and depth on (2, 4) (2, 2, 2 and 3 of its 9 heads a
+               position, its 3 kv heads regrouped: a kv head read by two
+               positions is cached on both), 16 x 1,024 + 16, held the
+               same way.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the repository beside it, it fails.
@@ -531,6 +561,9 @@ TP_F32_BATCH, TP_F32_SEQ = 4, 1024
 TP_AUDIO_ARCH, TP_AUDIO_LAYERS, TP_AUDIO_MESH = "musicgen-medium", 4, (1, 4)
 TRAIN_SSM_ARCH = "mamba2-2.7b"
 TRAIN_SSM_BATCH, TRAIN_SSM_SEQ, TRAIN_SSM_STEPS = 8, 2048, 3
+# the train_ssm phase's mamba2-2.7b at 16 of its 64 layers (cut from 64 to
+# make room for serve_tp within the script's time)
+TRAIN_SSM_LAYERS = 16
 # the train_tp_ssm phase: mamba2-2.7b at full width and 8 of its 64
 # layers (the TRAIN_SSM_* batch) on (1, 2) and (2, 2) (40 of 80 heads a
 # position), its f32 check at 2 layers on 1 x 2,048; zamba2-7b at one
@@ -580,6 +613,15 @@ VLM_TRAIN_SUPERS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 1, 2, 1024
 # TP_F32_BATCH x TP_F32_SEQ)
 TP_HEADS_VLM_MESHES = ((1, 2), (1, 16))
 TP_HEADS_MESH, TP_HEADS_LAYERS = (2, 4), 30
+# the serve_tp phase: zamba2-7b at full width and depth on (2, 2) with the
+# lm phase's traffic (LM_BATCH x LM_PROMPT + LM_STEPS), its f32 check at 12
+# layers (2 super blocks) on 4 prompts and 4 steps within 1e-4 of the
+# largest logit; smollm-135m at full width and depth on (2, 4), 16 x 1,024
+# + 16
+SERVE_TP_MESH = (2, 2)
+SERVE_TP_F32_LAYERS, SERVE_TP_F32_BATCH, SERVE_TP_F32_STEPS = 12, 4, 4
+SERVE_TP_F32_TOL = 1e-4
+SERVE_TP_SMOLLM_MESH, SERVE_TP_SMOLLM_BATCH = (2, 4), 16
 # the dryrun phase: the train phase's own cell counted on meta tensors at
 # one position; the band its predicted peak must keep against the measured
 # peaks (PERF.md section 6, PR 26: stated before the first chip run); the
@@ -4630,10 +4672,12 @@ def phase_train_ssm(seed: int) -> dict:
             randn(bc, 1, q, n), randn(bc, q, heads, p).permute(0, 2, 1, 3),
             randn(bc, heads, n, p), "model layout", "shared_bc"))
 
-    # (b) mamba2-2.7b at full width and depth; K6b and K6 at one layer's
-    # own inputs, captured from a backward of the slice (K6: the first
-    # layer's forward; K6b: the last layer's, the first in the backward)
-    cfg = get_config(TRAIN_SSM_ARCH)
+    # (b) mamba2-2.7b at full width and TRAIN_SSM_LAYERS layers; K6b and K6
+    # at one layer's own inputs, captured from a backward of the slice (K6:
+    # the first layer's forward; K6b: the last layer's, the first in the
+    # backward)
+    cfg = dataclasses.replace(get_config(TRAIN_SSM_ARCH),
+                              n_layers=TRAIN_SSM_LAYERS)
     lm = LM(cfg)
     t0 = time.perf_counter()
     params = lm.init(seed, device="cuda")
@@ -6265,6 +6309,229 @@ def phase_train_tp_heads(seed: int, vlm_train: dict) -> dict:
     return dict(launches=total, timing=timing, errs=errs, launches_at=at)
 
 
+def _nudged_embed(params, g) -> dict:
+    """``params`` with one bf16 step on 1e-4 of the embedding's entries
+    (the ``lm`` phase's noise floor; the other leaves shared)."""
+    import torch
+
+    emb = params["embed"]
+    hit = torch.rand(emb.shape, generator=g, device=emb.device) < 1e-4
+    return dict(params, embed=torch.where(
+        hit, (emb.float() * (1 + 2**-7)).to(emb.dtype), emb))
+
+
+def _serve_dry(lm, shape, batch: int, prompt: int, steps: int) -> dict:
+    """The dry run's count of a position's model-axis bytes by kind in one
+    ``generate``: a prefill and ``steps - 1`` decode steps."""
+    from repro_torch.launch.dryrun import serve_collectives
+
+    n_dp, tp = shape
+    rows = batch // n_dp if batch % n_dp == 0 else batch
+    want = dict(serve_collectives(lm, tp, rows, prompt, "prefill"))
+    for k, v in serve_collectives(lm, tp, rows, prompt, "decode").items():
+        want[k] = want.get(k, 0) + (steps - 1) * v
+    return want
+
+
+def _serve_tp_arm(lm, params: dict, prompts, steps: int, shape, g,
+                  what: str, rule_tol: float = LM_LOGIT_TOL,
+                  nudge: bool = True) -> dict:
+    """One model served unsharded and on an in-process ``shape`` mesh of
+    the card (see the module's ``serve_tp``). Takes ``params`` over: the
+    caller's dict is emptied, so that the mesh's run holds its slices and
+    not the whole tree beside them."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_mesh
+    from repro_torch.launch.mesh import collective_bytes, \
+        reset_collective_bytes
+    from repro_torch.models.model import head_range
+    from repro_torch.serve.engine import Engine
+
+    cfg = lm.cfg
+    n_dp, tp = shape
+    B, P = prompts.shape
+    max_len = P + steps
+    heads = [hi - lo for lo, hi in (head_range(cfg.n_heads, tp, j)
+                                    for j in range(tp))]
+    # (1) unsharded: the greedy run, and (bf16) the noise floor of a
+    # nudged embedding fed the same tokens
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eng0 = Engine(lm, params, max_len)
+    with _HeadCalls(0) as plain_calls:
+        tok0, lg0 = eng0.generate(prompts, steps, return_logits=True)
+    plain_launches = ops.launch_counts()
+    plain_peak = torch.cuda.max_memory_allocated()
+    plain_t = dict(eng0.timings)
+    del eng0
+    lg_n = None
+    if nudge:
+        lg_n = Engine(lm, _nudged_embed(params, g), max_len).generate(
+            prompts, steps, return_logits=True, forced=tok0[:, :-1])[1]
+    # (2) the mesh: placed from the whole tree, which then goes
+    mesh = make_mesh(shape, ("data", "model"),
+                     devices=["cuda"] * (n_dp * tp))
+    eng = Engine(lm, dict(params), max_len, mesh=mesh)
+    params.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reset_collective_bytes()
+    with _Capture() as cap, _HeadCalls(1) as calls:
+        tok1, lg1 = eng.generate(prompts, steps, return_logits=True)
+    launches = ops.launch_counts()
+    colls = collective_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    t = dict(eng.timings)
+    tok2, lg2 = eng.generate(prompts, steps, return_logits=True,
+                             forced=tok0[:, :-1])
+    del eng
+    torch.cuda.empty_cache()
+    # launches: K4 once an attention layer per position with heads and
+    # data row, on its rows x heads; K6 once a Mamba2 layer per position
+    # and data row
+    rows = B // n_dp if B % n_dp == 0 else B
+    _heads_launch_rule(what, calls, plain_calls.by_op(), heads, rows, n_dp)
+    check(launches["flash_attention_fwd"] == n_dp * sum(
+        1 for h in heads if h) * plain_launches["flash_attention_fwd"],
+        f"{what}: K4 launched {launches['flash_attention_fwd']} times")
+    check(launches["ssd_intra_chunk"] == n_dp * tp
+          * plain_launches["ssd_intra_chunk"],
+          f"{what}: K6 launched {launches['ssd_intra_chunk']} times, "
+          f"expected {n_dp} x {tp} x {plain_launches['ssd_intra_chunk']}")
+    others = {k: v for k, v in launches.items()
+              if k not in ("flash_attention_fwd", "ssd_intra_chunk")}
+    check(not any(others.values()), f"{what}: launched {others}")
+    dry = _serve_dry(lm, shape, B, P, steps)
+    check(colls == dry, f"{what}: collective bytes {colls}, the dry run "
+                        f"counts {dry}")
+    # logits: each step's, fed the unsharded run's tokens
+    scale = float(lg0.float().abs().max())
+    d_tp = [float((lg2[:, s].float() - lg0[:, s].float()).abs().max())
+            for s in range(steps)]
+    d_nudge = ([float((lg_n[:, s].float() - lg0[:, s].float()).abs().max())
+                for s in range(steps)] if nudge else [0.0] * steps)
+    limits = [max(rule_tol * scale, 2 * dn) for dn in d_nudge]
+    check(all(d <= lim for d, lim in zip(d_tp, limits)),
+          f"{what}: logits differ by {d_tp} from the unsharded run's, "
+          f"limits {limits} (max |logit| {scale})")
+    check(tok1.shape == tok0.shape and bool(torch.isfinite(lg1).all()),
+          f"{what}: tokens of another shape or non-finite logits")
+    checks = [_check_flash(*calls.args["flash_attention_fwd", True][0][0][:3],
+                           True, f"{what}: position 0's first attention "
+                                 f"layer")] if calls.args else []
+    if "ssd_intra_chunk" in cap.args:
+        checks.append(_check_ssd(*cap.args["ssd_intra_chunk"][0],
+                                 f"{what}: position 0's first Mamba2 layer",
+                                 "shared_bc"))
+    return dict(
+        launches=launches, plain_launches=plain_launches,
+        k4_calls_by_rows=calls.table(), collective_bytes=colls,
+        dryrun_collective_bytes=dry, heads_per_position=heads,
+        prefill_s=t["prefill_s"],
+        decode_ms_per_token=t["decode_s"] / t["decode_steps"] * 1e3,
+        peak_device_bytes=peak, unsharded_prefill_s=plain_t["prefill_s"],
+        unsharded_decode_ms_per_token=(plain_t["decode_s"]
+                                       / plain_t["decode_steps"] * 1e3),
+        unsharded_peak_device_bytes=plain_peak,
+        logit_max_abs=scale, step_logit_abs_diffs=d_tp,
+        nudge_abs_diffs=d_nudge, step_logit_limits=limits,
+        step_logit_max_rel_diff=max(d_tp) / scale,
+        within_rule_tol_alone=max(d_tp) <= rule_tol * scale,
+        greedy_tokens_equal_share=float((tok1 == tok0).float().mean()),
+        forced_picks_equal_share=float((tok2 == tok0).float().mean()),
+        checks=[{k: c[k] for k in ("kernel", "what", "shape", "max_abs_err",
+                                   "ok")} for c in checks],
+        captured=dict(k4=(calls.args["flash_attention_fwd", True][0][0][:3]
+                          if calls.args else None),
+                      k6=cap.args.get("ssd_intra_chunk", (None,))[0]))
+
+
+def phase_serve_tp(seed: int) -> dict:
+    """Serving on in-process ("data", "model") meshes of the one card (see
+    the module's ``serve_tp``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    # (a) zamba2-7b at full width and depth on (2, 2): the lm phase's
+    # weights and prompts
+    cfg = get_config(LM_ARCH)
+    lm = LM(cfg)
+    params = lm.init(seed, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                            device="cuda")
+    what = f"serve_tp zamba2 {SERVE_TP_MESH}"
+    z = _serve_tp_arm(lm, params, prompts, LM_STEPS, SERVE_TP_MESH, g, what)
+    del params
+    cap = z.pop("captured")
+    k4 = _time_flash(*cap["k4"], heads=z["heads_per_position"][0])
+    k6 = _time_ssd(*cap["k6"])
+    del cap
+    torch.cuda.empty_cache()
+    emit(dict(phase="serve_tp_zamba2", arch=LM_ARCH, layers=cfg.n_layers,
+              mesh=list(SERVE_TP_MESH), axes=["data", "model"],
+              batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_STEPS,
+              dtype=cfg.dtype, nvidia_smi=smi, **z))
+    # its f32 check at SERVE_TP_F32_LAYERS layers
+    cfg32 = dataclasses.replace(cfg, n_layers=SERVE_TP_F32_LAYERS,
+                                dtype="float32")
+    lm32 = LM(cfg32)
+    p32 = lm32.init(seed, device="cuda")
+    f32 = _serve_tp_arm(lm32, p32, prompts[:SERVE_TP_F32_BATCH],
+                        SERVE_TP_F32_STEPS, SERVE_TP_MESH, g,
+                        f"{what} f32", rule_tol=SERVE_TP_F32_TOL,
+                        nudge=False)
+    del p32
+    f32.pop("captured")
+    torch.cuda.empty_cache()
+    emit(dict(phase="serve_tp_zamba2_f32", layers=SERVE_TP_F32_LAYERS,
+              mesh=list(SERVE_TP_MESH), batch=SERVE_TP_F32_BATCH,
+              prompt=LM_PROMPT, new_tokens=SERVE_TP_F32_STEPS, **f32))
+    # (b) smollm-135m at full width and depth on (2, 4)
+    cfg_s = get_config(TRAIN_ARCH)
+    lm_s = LM(cfg_s)
+    p_s = lm_s.init(seed, device="cuda")
+    prompts_s = torch.randint(0, cfg_s.vocab,
+                              (SERVE_TP_SMOLLM_BATCH, LM_PROMPT),
+                              generator=g, device="cuda")
+    what_s = f"serve_tp smollm {SERVE_TP_SMOLLM_MESH}"
+    sm = _serve_tp_arm(lm_s, p_s, prompts_s, LM_STEPS, SERVE_TP_SMOLLM_MESH,
+                       g, what_s)
+    del p_s
+    cap_s = sm.pop("captured")
+    k4_s = _time_flash(*cap_s["k4"], heads=sm["heads_per_position"][0])
+    del cap_s
+    torch.cuda.empty_cache()
+    emit(dict(phase="serve_tp_smollm", arch=TRAIN_ARCH,
+              layers=cfg_s.n_layers, mesh=list(SERVE_TP_SMOLLM_MESH),
+              axes=["data", "model"], kv_heads=cfg_s.n_kv,
+              batch=SERVE_TP_SMOLLM_BATCH, prompt=LM_PROMPT,
+              new_tokens=LM_STEPS, dtype=cfg_s.dtype, nvidia_smi=smi, **sm))
+    emit(dict(phase="serve_tp_timing", flash_attention_fwd=k4,
+              ssd_intra_chunk=k6, flash_attention_fwd_smollm=k4_s,
+              nvidia_smi=smi))
+    total = _add_counts(_add_counts(z["launches"], f32["launches"]),
+                        sm["launches"])
+    return dict(launches=total, k4=k4, k6=k6, k4_s=k4_s,
+                k4_launches=z["launches"]["flash_attention_fwd"],
+                k6_launches=z["launches"]["ssd_intra_chunk"],
+                k4_s_launches=sm["launches"]["flash_attention_fwd"],
+                k4_err=z["checks"][0]["max_abs_err"],
+                k6_err=z["checks"][1]["max_abs_err"],
+                k4_s_err=sm["checks"][0]["max_abs_err"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6350,6 +6617,9 @@ def main() -> int:
     train_tp_heads = phase_train_tp_heads(args.seed, vlm.pop("train"))
     torch.cuda.empty_cache()
     lap("train_tp_heads")
+    serve_tp = phase_serve_tp(args.seed)
+    torch.cuda.empty_cache()
+    lap("serve_tp")
 
     # launches: the sum over the main paths, each read around its own run
     # (per path beside it)
@@ -6370,7 +6640,8 @@ def main() -> int:
                            moe=moe["launches"][name],
                            moe_mesh=moe["mesh_launches"][name],
                            vlm=vlm["launches"][name],
-                           train_tp_heads=train_tp_heads["launches"][name])
+                           train_tp_heads=train_tp_heads["launches"][name],
+                           serve_tp=serve_tp["launches"][name])
                 for name in launches}
     total = {name: sum(v.values()) for name, v in per_path.items()}
     for name, n in total.items():
@@ -6516,6 +6787,29 @@ def main() -> int:
                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"], library_ms=t["library_ms"],
                 shape=t["shape"], note=note))
+    # K4 and K6 on a position's heads in the serve_tp phase: their launches
+    # are part of its count above
+    for key, k, name, src, rep, note in (
+            ("k4", "k4", "flash_attention_fwd_serve_tp", "flash_fwd.cu",
+             "src/repro/kernels/flash.py:75",
+             "zamba2-7b served on (2, 2): 16 of 32 heads of a data row's 12 "
+             "prompts a position, causal"),
+            ("k4_s", "k4_s", "flash_attention_fwd_serve_tp_smollm",
+             "flash_fwd.cu", "src/repro/kernels/flash.py:75",
+             "smollm-135m served on (2, 4): 2 of 9 heads of a data row's 8 "
+             "prompts a position (3 on the last), causal"),
+            ("k6", "k6", "ssd_intra_chunk_serve_tp", "ssd.cu",
+             "src/repro/kernels/ssd.py:53",
+             "zamba2-7b served on (2, 2): 56 of 112 Mamba heads of a data "
+             "row's 12 prompts a position")):
+        t = serve_tp[k]
+        table.append(dict(
+            name=name, route="cuda", source=f"{csrc}/csrc/{src}",
+            replaces=rep, launches=serve_tp[f"{key}_launches"],
+            max_abs_err=serve_tp[f"{key}_err"], ms=t["kernel_ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            shape=t["shape"], note=note))
     table += [
         dict(name="ssd_intra_chunk", route="cuda",
              source=f"{csrc}/csrc/ssd.cu",

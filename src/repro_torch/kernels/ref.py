@@ -323,12 +323,16 @@ def ssd_intra_chunk(
     y = (C B^T * L) xbar; state = (B * exp(cum[-1] - cum))^T xbar. The
     leading dims are walked in chunks along the first so that one (q, q)
     block per cell stays near 1 GB in all; B and C may be stride-0 views.
+    C B^T is computed once for the cells that share B and C (a size-1 or
+    stride-0 leading dim, as the heads of one batch x chunk) and broadcast
+    in ``G * L``, as the reference's jnp SSD computes it once per batch x
+    chunk.
     """
     *lead, q, p = xbar.shape
-    n = B.shape[-1]
-    B = B.expand(*lead, q, n)
-    C = C.expand(*lead, q, n)
+    B = _shared(B, xbar.dim())
+    C = _shared(C, xbar.dim())
     f32 = torch.float32
+    n = B.shape[-1]
     y = torch.empty((*lead, q, p), dtype=f32, device=xbar.device)
     st = torch.empty((*lead, n, p), dtype=f32, device=xbar.device)
     if not lead:
@@ -339,9 +343,25 @@ def ssd_intra_chunk(
                                  device=xbar.device))
     for r0 in range(0, lead[0], rows):
         r1 = min(lead[0], r0 + rows)
-        _ssd_cells(xbar[r0:r1], loga[r0:r1], B[r0:r1], C[r0:r1],
-                   y[r0:r1], st[r0:r1], tril)
+        _ssd_cells(xbar[r0:r1], loga[r0:r1], _rows(B, r0, r1),
+                   _rows(C, r0, r1), y[r0:r1], st[r0:r1], tril)
     return y, st
+
+
+def _shared(t: torch.Tensor, nd: int) -> torch.Tensor:
+    """``t`` with leading size-1 dims up to ``nd`` dims, each stride-0
+    (broadcast) leading dim cut to size 1: what the cells share, once."""
+    t = t[(None,) * (nd - t.dim())]
+    for d in range(nd - 2):
+        if t.stride(d) == 0 and t.shape[d] > 1:
+            t = t.narrow(d, 0, 1)
+    return t
+
+
+def _rows(t: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+    """Rows ``[r0, r1)`` of ``t``'s first dim, or ``t`` where that dim
+    broadcasts (size 1)."""
+    return t if t.shape[0] == 1 else t[r0:r1]
 
 
 def _ssd_cells(xbar, loga, B, C, y, st, tril=None):
@@ -356,7 +376,7 @@ def _ssd_cells(xbar, loga, B, C, y, st, tril=None):
     diff = cum[..., :, None] - cum[..., None, :]
     L = torch.where(tril, torch.exp(diff), 0.0)
     del diff
-    G = C.to(f32) @ Bf.transpose(-1, -2)  # (..., q, q)
+    G = C.to(f32) @ Bf.transpose(-1, -2)  # (..., q, q), once a group
     y.copy_((G * L) @ x)
     del G, L
     decay_to_end = torch.exp(cum[..., -1:] - cum)  # (..., q)
@@ -386,14 +406,15 @@ def ssd_intra_chunk_bwd(
     reverse cumsum of dcum. The leading dims are walked in chunks along
     the first, as the forward does, so that one (q, q) block per cell
     stays near 1 GB; dB and dC are reduced to their shapes per chunk.
+    G = C B^T is computed once for the cells that share B and C, as in
+    the forward.
     """
     *lead, q, p = xbar.shape
-    n = B.shape[-1]
     nd = len(lead) + 2
     b_shape = (1,) * (nd - B.dim()) + tuple(B.shape)
     c_shape = (1,) * (nd - C.dim()) + tuple(C.shape)
-    Bx = B.expand(*lead, q, n)
-    Cx = C.expand(*lead, q, n)
+    Bx = _shared(B, nd)
+    Cx = _shared(C, nd)
     f32 = torch.float32
     dev = xbar.device
     dx = torch.empty((*lead, q, p), dtype=f32, device=dev)
@@ -409,8 +430,9 @@ def ssd_intra_chunk_bwd(
     for r0 in range(0, lead[0], rows):
         r1 = min(lead[0], r0 + rows)
         sl = slice(r0, r1)
-        db, dc = _ssd_cells_bwd(xbar[sl], loga[sl], Bx[sl], Cx[sl], dy[sl],
-                                dstate[sl], dx[sl], dl[sl], tril)
+        db, dc = _ssd_cells_bwd(xbar[sl], loga[sl], _rows(Bx, r0, r1),
+                                _rows(Cx, r0, r1), dy[sl], dstate[sl],
+                                dx[sl], dl[sl], tril)
         for full, part, shape in ((dB, db, b_shape), (dC, dc, c_shape)):
             if shape[0] == 1:  # broadcast over the first axis: add
                 full += part.sum_to_size(full.shape)
@@ -435,7 +457,7 @@ def _ssd_cells_bwd(xbar, loga, B, C, dy, dstate, dx, dl, tril=None):
                                      device=x.device))
     L = torch.where(tril, torch.exp(cum[..., :, None] - cum[..., None, :]),
                     0.0)
-    G = Cf @ Bf.transpose(-1, -2)
+    G = Cf @ Bf.transpose(-1, -2)  # once a group
     M = G * L
     dM = g @ x.transpose(-1, -2)  # only s <= t matters: L and M vanish above
     w = torch.exp(cum[..., -1:] - cum)  # (..., q)

@@ -49,12 +49,24 @@ Per cell:
   step, worked out from the step's schedule (``tp_collectives``) and
   added to the per-device collective bytes. There the record's data-axis
   ``collectives`` are that step's own, a device's (``fsdp_collectives``
-  with ``tp``). Prefill and decode cells are ``null`` with the reason
-  (the port serves unsharded); a train cell whose model axis does not
-  divide ``n_experts`` or the Mamba heads is counted, with the rule as
-  its reason.
+  with ``tp``). A train cell whose model axis does not divide
+  ``n_experts`` or the Mamba heads is counted, with the rule as its
+  reason. A prefill or decode cell's ``tp_collectives`` are those of one
+  ``LM.tp_prefill`` or ``LM.tp_decode_step`` (ROADMAP.md step 13.12; the
+  serving engine on a mesh), worked out from its schedule
+  (``serve_collectives``): reduce-outs, regroups and the logits'
+  "gather-out"; its data axes move nothing (the engine gathers its model
+  slices once, when it is built). A model axis that
+  ``check_tensor_parallel`` refuses, or a ``--cache-shard`` of "hd" or
+  "seq" (the reference's layouts, step 13.13), gives ``null`` with the
+  rule as its reason. The record names the port's kv cache layout
+  (``cache_mode``) and, where it differs, the reference's ``auto``
+  choice (``cache_mode_reference``).
 * **Memory.** ``argument_bytes`` is ``local_bytes`` of the state (or
-  parameters and caches) and the batch by the specs. ``temp_bytes`` comes
+  parameters and caches) and the batch by the specs; a decode cell's
+  caches are the largest model position's slices in the port's layout
+  (``sharding.cache_slice``: its kv heads, Mamba heads and conv
+  columns). ``temp_bytes`` comes
   from the traced run: the most live storage beyond the arguments and the
   step's new outputs, which holds the tensors saved for backward (also
   reported alone, ``saved_bytes``, through ``saved_tensors_hooks``) and
@@ -105,11 +117,20 @@ import torch
 from ..configs import ARCH_IDS, SHAPES, get_config, shape_applicable
 from ..kernels import ref as _ref
 from ..models.mamba import mamba_dims
-from ..models.model import DTYPES, LM, check_tensor_parallel, tree_leaves
+from ..models.model import (
+    DTYPES,
+    LM,
+    check_cache_mode,
+    check_tensor_parallel,
+    tree_leaves,
+)
 from ..models.sharding import (
+    cache_mode,
+    cache_slice,
     cache_specs,
     local_bytes,
     param_specs,
+    reference_cache_mode,
     spec_leaves,
     split_dims,
 )
@@ -129,11 +150,6 @@ PEAK_FLOPS_TF32 = 495e12  # TF32 dense, for an f32 config
 HBM_BW = 3.35e12  # B/s
 LINK_BW = 900e9  # B/s, NVLink (H100 SXM data sheet, a GPU's total)
 TILE = 64  # K4/K5/K6/K6b tile rows
-
-TP_SERVE_REASON = (
-    "the port serves unsharded: no tensor-parallel collective runs "
-    "in prefill or decode")
-
 
 # --------------------------------------------------------------------------
 # per-cell configuration policy (the reference's knobs_for)
@@ -264,12 +280,13 @@ def _tiles(sq: int, skv: int, causal: bool) -> int:
 
 def _ssd_shapes(xbar, B):
     """(cells, groups, q, p, n): a group is the cells that share B and C
-    (the heads of one batch x chunk, where B has stride 0 along the
-    cells' last axis), else one cell."""
+    (the heads of one batch x chunk, where B has size 1 or stride 0 along
+    the cells' last axis), else one cell."""
     *lead, q, p = xbar.shape
     n = B.shape[-1]
     cells = math.prod(lead)
-    shared = len(lead) >= 2 and B.dim() == xbar.dim() and B.stride(-3) == 0
+    shared = (len(lead) >= 2 and B.dim() == xbar.dim()
+              and (B.shape[-3] == 1 or B.stride(-3) == 0))
     groups = cells // lead[-1] if shared else cells
     return cells, groups, q, p, n
 
@@ -286,9 +303,10 @@ def kernel_flops(name: str, args: tuple, causal: bool) -> int:
         return 2 * products * bh * tiles * TILE * TILE * hd
     cells, groups, q, p, n = _ssd_shapes(args[0], args[2])
     if q <= 32:  # packed tiles (q <= 32): the twin's products
-        per = 2 * q * q * n + 2 * q * q * p + 2 * q * n * p
-        return cells * (per if name == "ssd_intra_chunk" else 2 * per
-                        + 2 * q * q * n)
+        gram = groups * 2 * q * q * n  # C B^T, once a group
+        per = 2 * q * q * p + 2 * q * n * p
+        return gram + cells * (per if name == "ssd_intra_chunk" else
+                               2 * per + 2 * 2 * q * q * n)
     nt = -(-q // TILE)
     tri = nt * (nt + 1) // 2 * TILE * TILE
     if name == "ssd_intra_chunk":
@@ -379,10 +397,10 @@ def _kernel_records(totals: dict) -> list:
                        "kernels)" if name.endswith("bwd") else
                        "two products a tile"))
         else:
-            note = ("the twin computes C B^T and every (q, q) product in "
-                    "full for each cell; the kernel computes C B^T once "
-                    "per batch x chunk where the heads share B and C, only "
-                    "the causal 64 x 64 tiles of the (q, q) products, and "
+            note = ("the twin computes C B^T once per batch x chunk where "
+                    "the heads share B and C, and every (q, q) product in "
+                    "full for each cell; the kernel computes only the "
+                    "causal 64 x 64 tiles of the (q, q) products, and "
                     "runs each f32 product as three tf32 ones (not "
                     "counted)")
         out.append(dict(
@@ -525,6 +543,72 @@ def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
     return out
 
 
+def serve_collectives(lm: LM, tp: int, rows: int, seq: int,
+                      kind: str) -> dict:
+    """Operand bytes a position puts into the model axis's collectives in
+    one ``LM.tp_prefill`` of ``rows`` x ``seq`` tokens (``kind``
+    "prefill") or one ``LM.tp_decode_step`` of ``rows`` tokens
+    ("decode"), over ``tp`` model positions: the embedding's reduce-out
+    (the model's dtype); per attention sub-layer, self or cross, its
+    ``wo`` products' reduce-out (f32: ``WideProduct``), and where ``tp``
+    does not divide ``n_kv`` the regroup of its ``wk`` and ``wv`` slices
+    (not in a decode step's cross attention, which reads the image's
+    cached keys and values) and, where it does not divide ``n_heads``
+    either, of ``wq`` and ``wo``; per MLP sub-layer its ``w_out``
+    products' reduce-out (f32); per MoE sub-layer its combine's
+    reduce-out (the model's dtype); per Mamba2 block its gated norm's sum
+    of squares ((rows, tokens) f32) and ``out_proj``'s (f32)
+    reduce-outs, and the regroup of its ``in_proj``, ``conv_w`` and
+    ``conv_b`` slices; and the last position's logits, each position's
+    vocab columns gathered whole ("gather-out", the model's dtype). No
+    copy-in, regroup-sum or max: nothing runs backward, and nothing takes
+    a max over the vocab. The data axes move nothing: the engine gathers
+    the parameters' model slices once, when it is built."""
+    if tp <= 1:
+        return {}
+    cfg = lm.cfg
+    S = seq if kind == "prefill" else 1
+    isz = DTYPES[cfg.dtype].itemsize
+    tok = rows * S * cfg.d_model
+    act = tok * isz
+    n_mlp = sum(count * (cfg.cross_attn_every if kind_ == "vlm_super"
+                         else 1)
+                for kind_, count in lm.plan
+                if kind_ in ("dense", "moe_pair", "zamba_super",
+                             "vlm_super"))
+    n_cross = sum(count for kind_, count in lm.plan if kind_ == "vlm_super")
+    E = _moe_layers(lm)
+    Lm = sum(count * (cfg.shared_attn_every if kind_ == "zamba_super"
+                      else 1)
+             for kind_, count in lm.plan if kind_ in ("mamba",
+                                                      "zamba_super"))
+    n_attn = n_mlp + E  # every MLP's block and every MoE block attend
+    out = {"reduce-out": act + n_attn * tok * 4 + n_mlp * tok * 4
+           + E * act + Lm * (tok * 4 + rows * S * 4),
+           "gather-out": rows * cfg.vocab_padded // tp * isz}
+    whole = 0
+    if cfg.n_kv and cfg.n_kv % tp:
+        kv = 2 * cfg.d_model * cfg.n_kv * cfg.hd  # wk, wv
+        qo = (2 * cfg.d_model * cfg.n_heads * cfg.hd  # wq, wo
+              if cfg.n_heads % tp else 0)
+        kv_layers = n_attn - (n_cross if kind == "decode" else 0)
+        whole += kv_layers * kv + n_attn * qo
+    if Lm:
+        d_inner, H, N = mamba_dims(cfg)
+        whole += Lm * (cfg.d_model * (2 * d_inner + 2 * N + H)
+                       + (cfg.d_conv + 1) * (d_inner + 2 * N))
+    if whole:
+        out["regroup"] = whole // tp * isz
+    return out
+
+
+def _cache_bytes(lm: LM, caches, tp: int) -> int:
+    """Bytes of the largest model position's cache slices (the port's
+    layout, ``sharding.cache_slice``)."""
+    return max(_io_bytes(tree_leaves(cache_slice(lm, caches, tp, j)))
+               for j in range(tp))
+
+
 # --------------------------------------------------------------------------
 # counting a cell
 # --------------------------------------------------------------------------
@@ -607,16 +691,19 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
             arg_bytes = (local_bytes(abstract, pspecs, mesh)
                          + _io_bytes((ins["tokens"], ins["img"])))
         elif shape.kind == "decode":
-            cspecs = cache_specs(lm, fsdp, batch_shardable=shardable,
-                                 mode=overrides.get("cache_shard", "auto"),
-                                 tp_size=tp)
             with torch.no_grad(), oc:
                 watched = oc.watch((abstract, ins["token"], ins["caches"]))
                 outs = lm.decode_step(abstract, ins["token"], ins["caches"],
                                       ins["pos"], ins["img"], force="ref")
             args_tree = (abstract, ins)
-            arg_bytes = (local_bytes(abstract, pspecs, mesh)
-                         + local_bytes(ins["caches"], cspecs, mesh)
+            mode = overrides.get("cache_shard", "auto")
+            if mode in ("auto", "heads"):  # the caches the port holds
+                cache_bytes = _cache_bytes(lm, ins["caches"], tp)
+            else:  # the reference's layout (ROADMAP.md step 13.13)
+                cache_bytes = local_bytes(ins["caches"], cache_specs(
+                    lm, fsdp, batch_shardable=shardable, mode=mode,
+                    tp_size=tp), mesh)
+            arg_bytes = (local_bytes(abstract, pspecs, mesh) + cache_bytes
                          + _io_bytes((ins["token"], ins["img"])))
         else:
             raise ValueError(shape.kind)
@@ -666,17 +753,25 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
     bytes_pos = (res["hbm_bytes"] - sum(k["plain_bytes"] for k in kernels)
                  + sum(k["kernel_bytes"] for k in kernels)
                  - opt["bytes"] * opt_share)
-    tp_colls, tp_reason = None, TP_SERVE_REASON
+    tp_colls, tp_reason = {}, None
     if shape.kind == "train" and tp > 1:
         try:
             check_tensor_parallel(cfg, tp)
-            tp_reason = None
         except NotImplementedError as e:
             tp_reason = str(e)
         tp_colls = tp_collectives(lm, step_cfg, n_dp, tp,
                                   (shape.global_batch, shape.seq_len))
-    elif shape.kind == "train":
-        tp_colls, tp_reason = {}, None
+    elif tp > 1:  # prefill and decode
+        try:
+            check_tensor_parallel(cfg, tp)
+            check_cache_mode(overrides.get("cache_shard", "auto"))
+            tp_colls = serve_collectives(lm, tp, rows, shape.seq_len,
+                                         shape.kind)
+        except NotImplementedError as e:
+            tp_colls, tp_reason = None, str(e)
+        extra["cache_mode"] = cache_mode(cfg, tp)
+        if extra["cache_mode"] != reference_cache_mode(cfg, tp):
+            extra["cache_mode_reference"] = reference_cache_mode(cfg, tp)
     tp_bytes = float(sum((tp_colls or {}).values()))
     # the data axes' bytes: a device's in the tensor-parallel step where it
     # is counted, else the FSDP specs' over an ideal model-axis split
@@ -748,10 +843,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, overrides: dict,
         per_device=dev,
         per_device_split=(f"a data position's counts over the {tp} "
                           f"positions of the model axis: an ideal "
-                          f"tensor-parallel split (the port trains "
-                          f"every family so, and serves "
-                          f"unsharded), plus the model axis's own "
-                          f"collectives where they are counted"),
+                          f"tensor-parallel split (the port trains and "
+                          f"serves every family so), plus the model "
+                          f"axis's own collectives where they are "
+                          f"counted"),
         per_position=c["per_position"],
         rows_per_position=c["rows"],
         counted=c["counted"],

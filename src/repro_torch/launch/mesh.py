@@ -43,7 +43,9 @@ parts forward; the identity backward), ``all_gather`` (a leaf's model
 slices concatenated on every position, for a Mamba2 block whose
 ``in_proj`` and conv slices cut across its head groups; the backward sums
 the positions' gradients of the whole leaf and hands each its slice) and
-``pmax`` (a max with no gradient). Their sums too are added in shard
+``pmax`` (a max with no gradient); serving (step 13.12) adds
+``gather_out`` (the positions' parts concatenated on the first, with no
+gradient: the vocab-parallel logits). Their sums too are added in shard
 order, a bf16 or f16 part widened to f32 and the sum rounded once, so an
 in-process row (one autograd graph over its positions) and the ranks of a
 multi-rank one give the same bits.
@@ -52,8 +54,8 @@ Each collective adds its operand bytes (one position's tensor, in the
 dtype it is summed in) to a counter by kind ("all-gather",
 "reduce-scatter", "all-reduce" over data axes; "reduce-out", "copy-in",
 "regroup" (``ModelGroup.all_gather``: a position's slice), "regroup-sum"
-(its backward: the whole leaf's gradient in f32), "max" over the model
-axis): ``collective_bytes()`` reads it and
+(its backward: the whole leaf's gradient in f32), "max", "gather-out"
+over the model axis): ``collective_bytes()`` reads it and
 ``reset_collective_bytes()`` clears it, as ``ops.launch_counts`` does for
 the kernels. ``models.sharding.gather_tree`` counts its in-process
 assembly as the all-gather it stands for. An in-process mesh runs each
@@ -400,6 +402,17 @@ class ModelGroup:
         leaf in shard order in f32, rounds the sum once to the leaf's
         dtype and hands each position its slice (a reduce-scatter)."""
         return list(_AllGather.apply(self, dim, *parts))
+
+    def gather_out(self, parts: Sequence[torch.Tensor],
+                   dim: int) -> torch.Tensor:
+        """The positions' ``parts`` (equal shapes) concatenated along
+        ``dim`` in shard order, on the first local position's device, with
+        no gradient: serving's logits, each position's vocab columns
+        gathered whole."""
+        parts = [p.detach().contiguous() for p in parts]
+        if self.count:
+            note_collective("gather-out", parts[0])
+        return self.mesh.all_gather(parts, (self.axis,), dim, count=False)
 
     def pmax(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The elementwise max over the axis, on the first local

@@ -222,6 +222,41 @@ def _head_cols(w: torch.Tensor, dim: int, parts) -> torch.Tensor:
     return torch.cat([w.narrow(dim, a, n) for a, n in parts], dim)
 
 
+def _tp_leaves(ps: list, group) -> tuple[list, list, list]:
+    """``in_proj``, ``conv_w`` and ``conv_b`` whole on each local position
+    (regrouped over the axis)."""
+    return (group.all_gather([p["in_proj"] for p in ps], 1),
+            group.all_gather([p["conv_w"] for p in ps], 1),
+            group.all_gather([p["conv_b"] for p in ps], 0))
+
+
+def _tp_cols(cfg, tp: int, j: int) -> tuple[list, list]:
+    """Position ``j``'s (start, length) column ranges of ``in_proj`` (z
+    and x of its heads, B and C whole, its dt) and of the conv (x of its
+    heads, B and C whole)."""
+    d_inner, H, N = mamba_dims(cfg)
+    hl, dl = H // tp, d_inner // tp
+    return ([(j * dl, dl), (d_inner + j * dl, dl), (2 * d_inner, 2 * N),
+             (2 * d_inner + 2 * N + j * hl, hl)],
+            [(j * dl, dl), (d_inner, 2 * N)])
+
+
+def _tp_gated_out(ys: list, ps: list, h_parts: list, group, d_inner: int):
+    """The gated norm and ``out_proj`` over a model axis: ``ys`` are the
+    positions' ``y * silu(z)`` of their heads in f32; the mean of squares
+    over all of d_inner is a reduce-out of their f32 sums (copied back
+    in), and the row slices' f32 products are summed by a reduce-out."""
+    f32 = torch.float32
+    yfs = [y.to(h.dtype).to(f32) for y, h in zip(ys, h_parts)]
+    sqs = [torch.sum(yf * yf, dim=-1, keepdim=True) for yf in yfs]
+    var = [t / d_inner for t in group.copy_in(group.reduce_out(sqs))]
+    outs = []
+    for yf, v, p, h in zip(yfs, var, ps, h_parts):
+        yn = (yf * torch.rsqrt(v + 1e-6) * p["norm"].to(f32)).to(h.dtype)
+        outs.append(WideProduct.apply(yn, p["out_proj"]))
+    return group.reduce_out(outs)
+
+
 def tp_mamba_apply(
     h_parts: list,  # each local position's copy of the normed input (B,S,d)
     ps: list,  # each local position's model slices of the block's leaves
@@ -229,35 +264,34 @@ def tp_mamba_apply(
     group,  # launch.mesh.ModelGroup
     *,
     chunk: int = 256,
+    want_cache: bool = False,
     force: Optional[str] = None,
-) -> torch.Tensor:
-    """``mamba_apply``'s output over a model axis (see the module): the
-    sum over the positions of their heads' ``out_proj`` products, in f32,
-    on the first local position's device."""
+):
+    """``mamba_apply`` over a model axis (see the module): (the sum over
+    the positions of their heads' ``out_proj`` products, in f32, on the
+    first local position's device; each local position's cache or None).
+    A position's cache is the final SSD state of its heads (B, H/tp, P,
+    N) f32 and the conv window of its conv columns, its heads' x channels
+    and B and C whole (B, d_conv - 1, d_inner/tp + 2N)."""
     B, S, _d = h_parts[0].shape
     d_inner, H, N = mamba_dims(cfg)
     P = cfg.ssm_head_dim
     tp = group.size
     hl, dl = H // tp, d_inner // tp
     f32 = torch.float32
-    w_in = group.all_gather([p["in_proj"] for p in ps], 1)
-    conv_w = group.all_gather([p["conv_w"] for p in ps], 1)
-    conv_b = group.all_gather([p["conv_b"] for p in ps], 0)
     c = min(chunk, S)
     while S % c:
         c //= 2
-    ys, sqs = [], []
-    for h, p, w, cw, cb, j in zip(h_parts, ps, w_in, conv_w, conv_b,
+    ys, caches = [], []
+    for h, p, w, cw, cb, j in zip(h_parts, ps, *_tp_leaves(ps, group),
                                   group.index):
-        # z and x of the position's heads, B and C whole, its dt
-        zxbcdt = h @ _head_cols(w, 1, [(j * dl, dl), (d_inner + j * dl, dl),
-                                       (2 * d_inner, 2 * N),
-                                       (2 * d_inner + 2 * N + j * hl, hl)])
+        in_cols, conv_cols = _tp_cols(cfg, tp, j)
+        zxbcdt = h @ _head_cols(w, 1, in_cols)
         z = zxbcdt[..., :dl]
         dt = zxbcdt[..., 2 * dl + 2 * N:]
-        conv_cols = [(j * dl, dl), (d_inner, 2 * N)]
+        conv_in = zxbcdt[..., dl:2 * dl + 2 * N]
         conv_out = F.silu(_causal_conv(
-            zxbcdt[..., dl:2 * dl + 2 * N], _head_cols(cw, 1, conv_cols),
+            conv_in, _head_cols(cw, 1, conv_cols),
             _head_cols(cb, 0, conv_cols)).to(f32)).to(h.dtype)
         xc = conv_out[..., :dl]
         Bc = conv_out[..., dl:dl + N]
@@ -266,18 +300,13 @@ def tp_mamba_apply(
         dtf = F.softplus(dt.to(f32) + p["dt_bias"])
         loga = -torch.exp(p["A_log"])[None, None] * dtf
         xbar = xh.to(f32) * dtf[..., None]
-        y, _s = ssd_chunked(xbar, loga, Bc, Cc, c, force=force)
+        y, s_fin = ssd_chunked(xbar, loga, Bc, Cc, c, force=force)
         y = y + p["D"][None, None, :, None] * xh.to(f32)
-        y = y.reshape(B, S, dl) * F.silu(z.to(f32))
-        yf = y.to(h.dtype).to(f32)  # rms_norm(y.to(x.dtype), norm)
-        ys.append(yf)
-        sqs.append(torch.sum(yf * yf, dim=-1, keepdim=True))
-    var = [t / d_inner for t in group.copy_in(group.reduce_out(sqs))]
-    outs = []
-    for yf, v, p, h in zip(ys, var, ps, h_parts):
-        yn = (yf * torch.rsqrt(v + 1e-6) * p["norm"].to(f32)).to(h.dtype)
-        outs.append(WideProduct.apply(yn, p["out_proj"]))
-    return group.reduce_out(outs)
+        ys.append(y.reshape(B, S, dl) * F.silu(z.to(f32)))
+        if want_cache:
+            caches.append((s_fin, conv_in[:, S - (cfg.d_conv - 1):, :]))
+    out = _tp_gated_out(ys, ps, h_parts, group, d_inner)
+    return out, (caches if want_cache else None)
 
 
 def mamba_decode(
@@ -313,3 +342,47 @@ def mamba_decode(
     y = rms_norm(y.to(x.dtype), p["norm"])
     out = (y @ p["out_proj"])[:, None, :]
     return out, (ssm, win[:, 1:])
+
+
+def tp_mamba_decode(
+    h_parts: list,  # each local position's copy of the normed input (B,1,d)
+    ps: list,  # each local position's model slices of the block's leaves
+    cfg,
+    group,  # launch.mesh.ModelGroup
+    caches: list,  # each local position's cache (tp_mamba_apply's)
+):
+    """``mamba_decode`` over a model axis: each position steps its heads'
+    SSD state and its conv columns' window, then the gated norm and
+    ``out_proj`` as in ``tp_mamba_apply``. Returns (the reduce-out of the
+    positions' f32 ``out_proj`` products (B, 1, d), each position's new
+    cache, new tensors)."""
+    B = h_parts[0].shape[0]
+    d_inner, H, N = mamba_dims(cfg)
+    P = cfg.ssm_head_dim
+    tp = group.size
+    hl, dl = H // tp, d_inner // tp
+    f32 = torch.float32
+    ys, new = [], []
+    for h, p, w, cw, cb, j, (ssm, conv_cache) in zip(
+            h_parts, ps, *_tp_leaves(ps, group), group.index, caches):
+        in_cols, conv_cols = _tp_cols(cfg, tp, j)
+        zxbcdt = h[:, 0] @ _head_cols(w, 1, in_cols)
+        z = zxbcdt[..., :dl]
+        dt = zxbcdt[..., 2 * dl + 2 * N:]
+        win = torch.cat([conv_cache, zxbcdt[:, None, dl:2 * dl + 2 * N]],
+                        dim=1)  # (B, K, dl + 2N)
+        conv_out = (torch.einsum("bkc,kc->bc", win,
+                                 _head_cols(cw, 1, conv_cols))
+                    + _head_cols(cb, 0, conv_cols))
+        conv_out = F.silu(conv_out.to(f32)).to(h.dtype)
+        xh = conv_out[..., :dl].reshape(B, hl, P).to(f32)
+        Bc = conv_out[..., dl:dl + N].to(f32)
+        Cc = conv_out[..., dl + N:].to(f32)
+        dtf = F.softplus(dt.to(f32) + p["dt_bias"])  # (B, H/tp)
+        a = torch.exp(-torch.exp(p["A_log"])[None] * dtf)
+        xbar = xh * dtf[..., None]
+        ssm = ssm * a[..., None, None] + xbar[..., None] * Bc[:, None, None, :]
+        y = torch.einsum("bhpn,bn->bhp", ssm, Cc) + p["D"][None, :, None] * xh
+        ys.append((y.reshape(B, dl) * F.silu(z.to(f32)))[:, None])
+        new.append((ssm, win[:, 1:]))
+    return _tp_gated_out(ys, ps, h_parts, group, d_inner), new

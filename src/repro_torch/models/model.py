@@ -101,6 +101,25 @@ Under grad mode each block is always checkpointed (remat), with the
 positions' slices as its arguments, and its recompute runs the whole block
 (early stop off), so a step makes the collectives that
 ``launch.dryrun.tp_collectives`` counts, whatever the last saved tensor.
+
+Serving over a model axis (ROADMAP.md step 13.12): ``LM.tp_prefill`` is
+``tp_loss``'s trunk with caches and no checkpoint, each sub-layer writing
+on each position what that position reads back: the k and v of the kv
+heads its query heads read (``kv_range``: ``n_kv/tp`` whole heads where
+the axis divides ``n_kv``, else the heads its query heads straddle, so a
+kv head two positions read is cached on both; none on a headless
+position), a vlm's image keys and values of the same heads, a Mamba2
+block's final state of its heads and conv window of its conv columns
+(``mamba.tp_mamba_apply``); ``models.sharding.cache_slice`` gives the
+same slices of a whole tree and ``assemble_caches`` the whole tree back.
+The logits are each position's vocab columns, gathered whole
+(``ModelGroup.gather_out``, a collective that training has not).
+``LM.tp_decode_step`` runs ``block_apply_decode``'s sub-layers the same
+way at one token (``_tp_self_attn_decode``, ``_tp_cross_attn_decode``,
+``mamba.tp_mamba_decode``, and ``_tp_mlp_sub`` / ``_tp_moe_sub`` as they
+are), each position against its own caches, in place; no kernel runs in
+it, as in ``decode_step``. ``serve.engine.Engine(..., mesh=)`` drives
+both.
 """
 from __future__ import annotations
 
@@ -134,6 +153,7 @@ from .mamba import (
     mamba_dims,
     mamba_init,
     tp_mamba_apply,
+    tp_mamba_decode,
 )
 from .moe import (
     Route,
@@ -386,74 +406,114 @@ def _kv_for_heads(t, rep: int, off: int, n: int):
         B, S, G * rep, hd)[:, :, off:off + n]
 
 
-def _tp_attn_sub(ps, x, ctx, img):
-    """An attention sub-layer over a model axis: each local position's
-    query heads (q from its copy of the normed input), k and v from the
-    same copy (self-attention, ``img`` None: RoPE, causal) or from
-    ``img`` (cross attention: no RoPE, no mask), K4 and K5 on its heads,
-    its product with its rows of ``wo`` kept in f32 (``WideProduct``),
-    and a reduce-out of the products. Where the axis divides ``n_kv`` a
-    position's column slices are whole kv heads (GQA as ever); else
-    ``wk`` and ``wv`` (and ``wq`` and ``wo`` where it does not divide
+def kv_range(n_heads: int, n_kv: int, tp: int, j: int) -> tuple[int, int]:
+    """The kv heads ``[g0, g1)`` that the query heads of position ``j``
+    (``head_range``) read, query head h reading kv head ``h // (n_heads /
+    n_kv)``: ``n_kv / tp`` whole heads where ``tp`` divides ``n_kv``,
+    else the heads its query heads straddle (a kv head read by two
+    positions is on both), none for a position without a query head."""
+    lo, hi = head_range(n_heads, tp, j)
+    rep = n_heads // n_kv
+    return lo // rep, ((hi - 1) // rep + 1 if hi > lo else lo // rep)
+
+
+def _tp_heads(ps, group, cfg, kv: bool = True) -> list:
+    """Each local position's ``(wq, wk, wv, wo)`` for its query heads and
+    the kv heads they read (``wk`` and ``wv`` None without ``kv``). Where
+    the axis divides ``n_kv`` those are its column slices (GQA as ever);
+    else ``wk`` and ``wv`` (and ``wq`` and ``wo`` where it does not divide
     ``n_heads`` either) are regrouped whole (``ModelGroup.all_gather``)
-    and each position takes its heads' columns and rows and the kv head
-    of each of its heads."""
-    cfg, group = ctx["cfg"], ctx["group"]
+    and each position takes its heads' columns and rows."""
     tp, H, KV, hd = group.size, cfg.n_heads, cfg.n_kv, cfg.hd
-    h = rms_norm(x, ps[0]["ln1"])
     att = [p["attn"] for p in ps]
-    regroup = KV % tp != 0
-    if regroup:
+    if KV % tp == 0:
+        return [(a["wq"], a["wk"] if kv else None, a["wv"] if kv else None,
+                 a["wo"]) for a in att]
+    if kv:
         wk = group.all_gather([a["wk"] for a in att], 1)
         wv = group.all_gather([a["wv"] for a in att], 1)
-        if H % tp:
-            wq = group.all_gather([a["wq"] for a in att], 1)
-            wo = group.all_gather([a["wo"] for a in att], 0)
+    if H % tp:
+        wq = group.all_gather([a["wq"] for a in att], 1)
+        wo = group.all_gather([a["wo"] for a in att], 0)
+    out = []
+    for i, (a, j) in enumerate(zip(att, group.index)):
+        lo, hi = head_range(H, tp, j)
+        g0, g1 = kv_range(H, KV, tp, j)
+        cols, kv_cols = slice(lo * hd, hi * hd), slice(g0 * hd, g1 * hd)
+        out.append((a["wq"] if H % tp == 0 else wq[i][:, cols],
+                    wk[i][:, kv_cols] if kv else None,
+                    wv[i][:, kv_cols] if kv else None,
+                    a["wo"] if H % tp == 0 else wo[i][cols]))
+    return out
+
+
+def _n_heads(cfg, tp: int, j: int) -> tuple[int, int]:
+    """The number of query heads and kv heads of position ``j``."""
+    lo, hi = head_range(cfg.n_heads, tp, j)
+    g0, g1 = kv_range(cfg.n_heads, cfg.n_kv, tp, j)
+    return hi - lo, g1 - g0
+
+
+def _per_head_kv(k, v, cfg, tp: int, j: int):
+    """Position ``j``'s kv heads ``(B, S, g1 - g0, hd)`` as one per query
+    head where the axis does not divide ``n_kv`` (``_kv_for_heads``), as
+    they are (GQA) where it does."""
+    if cfg.n_kv % tp == 0:
+        return k, v
+    lo, hi = head_range(cfg.n_heads, tp, j)
+    rep = cfg.n_heads // cfg.n_kv
+    off = lo - kv_range(cfg.n_heads, cfg.n_kv, tp, j)[0] * rep
+    return tuple(_kv_for_heads(t, rep, off, hi - lo) for t in (k, v))
+
+
+def _tp_attn_sub(ps, x, ctx, img, cs=None):
+    """An attention sub-layer over a model axis: each local position's
+    query heads (q from its copy of the normed input), k and v of the kv
+    heads they read from the same copy (self-attention, ``img`` None:
+    RoPE, causal) or from ``img`` (cross attention: no RoPE, no mask),
+    each kv head repeated to one per query head where the axis does not
+    divide ``n_kv`` (``_tp_heads``), K4 and K5 on its heads, its product
+    with its rows of ``wo`` kept in f32 (``WideProduct``), and a
+    reduce-out of the products. ``cs``: each local position's cache slot
+    ``(k, v)`` of the sub-layer, which takes its kv heads (prefill)."""
+    cfg, group = ctx["cfg"], ctx["group"]
+    tp, hd = group.size, cfg.hd
+    h = rms_norm(x, ps[0]["ln1"])
     outs = []
-    for i, (a, hj, j) in enumerate(zip(att, group.copy_in(h), group.index)):
+    for i, ((wq, wk, wv, wo), hj, j) in enumerate(zip(
+            _tp_heads(ps, group, cfg), group.copy_in(h), group.index)):
         B, S = hj.shape[:2]
         src = hj if img is None else img.to(hj.device)
         Skv = src.shape[1]
-        if not regroup:
-            q = (hj @ a["wq"]).reshape(B, S, H // tp, hd)
-            k = (src @ a["wk"]).reshape(B, Skv, KV // tp, hd)
-            v = (src @ a["wv"]).reshape(B, Skv, KV // tp, hd)
-            w_o = a["wo"]
-        else:
-            rep = H // KV
-            lo, hi = head_range(H, tp, j)
-            g0 = lo // rep
-            g1 = (hi - 1) // rep + 1 if hi > lo else g0
-            cols = slice(lo * hd, hi * hd)
-            q = (hj @ (a["wq"] if H % tp == 0 else wq[i][:, cols])).reshape(
-                B, S, hi - lo, hd)
-            kv_cols = slice(g0 * hd, g1 * hd)
-            k = (src @ wk[i][:, kv_cols]).reshape(B, Skv, g1 - g0, hd)
-            v = (src @ wv[i][:, kv_cols]).reshape(B, Skv, g1 - g0, hd)
-            w_o = a["wo"] if H % tp == 0 else wo[i][cols]
+        nq, nkv = _n_heads(cfg, tp, j)
+        q = (hj @ wq).reshape(B, S, nq, hd)
+        k = (src @ wk).reshape(B, Skv, nkv, hd)
+        v = (src @ wv).reshape(B, Skv, nkv, hd)
         if img is None:
             pos = ctx["positions"].to(hj.device)
             q = rope(q, pos, cfg.rope_theta)
             k = rope(k, pos, cfg.rope_theta)
-        if regroup:
-            off = lo - g0 * rep
-            k, v = (_kv_for_heads(t, rep, off, hi - lo) for t in (k, v))
+        if cs is not None:
+            _write(cs[i], (k, v))
+        k, v = _per_head_kv(k, v, cfg, tp, j)
         o = blockwise_attention(q, k, v, causal=img is None,
                                 force=ctx["force"])
-        outs.append(WideProduct.apply(o.reshape(B, S, q.shape[2] * hd), w_o))
+        outs.append(WideProduct.apply(o.reshape(B, S, q.shape[2] * hd), wo))
     return x + group.reduce_out(outs).to(x.dtype)
 
 
-def _tp_self_attn_full(ps, x, ctx):
+def _tp_self_attn_full(ps, x, ctx, cs=None):
     """``_self_attn_full`` over a model axis: ``ps`` are the local
-    positions' block slices, ``ctx["group"]`` their ``ModelGroup``."""
-    return _tp_attn_sub(ps, x, ctx, None)
+    positions' block slices, ``ctx["group"]`` their ``ModelGroup``,
+    ``cs`` their cache slots (prefill) or None."""
+    return _tp_attn_sub(ps, x, ctx, None, cs)
 
 
-def _tp_cross_attn_full(ps, x, ctx):
+def _tp_cross_attn_full(ps, x, ctx, cs=None):
     """``_cross_attn_full`` over a model axis: k and v from the image
-    embeddings ``ctx["img"]`` (no gradient), K4 and K5 not causal."""
-    return _tp_attn_sub(ps, x, ctx, ctx["img"])
+    embeddings ``ctx["img"]`` (no gradient), K4 and K5 not causal; ``cs``
+    as ``_tp_self_attn_full``'s (the image's kv heads)."""
+    return _tp_attn_sub(ps, x, ctx, ctx["img"], cs)
 
 
 def _tp_mlp_sub(ps, x, ctx):
@@ -494,34 +554,53 @@ def _tp_moe_sub(ps, x, ctx):
     return x + y.to(x.dtype), load_balance_aux(r.probs, counts, n_tokens)
 
 
-def _tp_block(kind, ps, x, ctx):
+def _slots(cs, key):
+    """Each position's cache slot ``key`` (a dict key or a stacked index)
+    of ``cs``, or None where there are no caches."""
+    if cs is None:
+        return None
+    if isinstance(key, str):
+        return [c[key] for c in cs]
+    return [_index(c, key) for c in cs]
+
+
+def _tp_block(kind, ps, x, ctx, cs=None):
     """One block over a model axis, (x, aux or None): the function each
     checkpoint recomputes. A hybrid's shared block is ``ctx["shared"]``,
-    each local position's slices of it."""
+    each local position's slices of it. ``cs``: each local position's
+    cache slot of the block, which the prefill fills (``_tp_trunk``)."""
     if kind == "dense":
-        return _tp_mlp_sub(ps, _tp_self_attn_full(ps, x, ctx), ctx), None
+        x = _tp_self_attn_full(ps, x, ctx, cs)
+        return _tp_mlp_sub(ps, x, ctx), None
     if kind == "moe":
-        return _tp_moe_sub(ps, _tp_self_attn_full(ps, x, ctx), ctx)
+        return _tp_moe_sub(ps, _tp_self_attn_full(ps, x, ctx, cs), ctx)
     if kind == "moe_pair":
-        x, _ = _tp_block("dense", [p["dense"] for p in ps], x, ctx)
-        return _tp_block("moe", [p["moe"] for p in ps], x, ctx)
+        x, _ = _tp_block("dense", [p["dense"] for p in ps], x, ctx,
+                         _slots(cs, "dense"))
+        return _tp_block("moe", [p["moe"] for p in ps], x, ctx,
+                         _slots(cs, "moe"))
     if kind == "mamba":
         cfg, group = ctx["cfg"], ctx["group"]
         h = rms_norm(x, ps[0]["ln"])
-        y = tp_mamba_apply(group.copy_in(h), [p["mamba"] for p in ps], cfg,
-                           group, chunk=cfg.ssd_chunk, force=ctx["force"])
+        y, caches = tp_mamba_apply(
+            group.copy_in(h), [p["mamba"] for p in ps], cfg, group,
+            chunk=cfg.ssd_chunk, want_cache=cs is not None,
+            force=ctx["force"])
+        for c, new in zip(cs or (), caches or ()):
+            _write(c, new)
         return x + y.to(x.dtype), None
     if kind == "zamba_super":
         for i in range(ctx["cfg"].shared_attn_every):
             x, _ = _tp_block("mamba", [_index(p["mamba"], i) for p in ps], x,
-                             ctx)
-        return _tp_block("dense", ctx["shared"], x, ctx)
+                             ctx, _slots(_slots(cs, "mamba"), i))
+        return _tp_block("dense", ctx["shared"], x, ctx, _slots(cs, "attn"))
     if kind == "vlm_super":
         for i in range(ctx["cfg"].cross_attn_every - 1):
             x, _ = _tp_block("dense", [_index(p["dense"], i) for p in ps], x,
-                             ctx)
-        cs = [p["cross"] for p in ps]
-        return _tp_mlp_sub(cs, _tp_cross_attn_full(cs, x, ctx), ctx), None
+                             ctx, _slots(_slots(cs, "dense"), i))
+        cp = [p["cross"] for p in ps]
+        x = _tp_cross_attn_full(cp, x, ctx, _slots(cs, "cross"))
+        return _tp_mlp_sub(cp, x, ctx), None
     raise ValueError(kind)
 
 
@@ -670,6 +749,111 @@ def block_apply_decode(kind, p, x, cache, ctx):
         x, ccache = _cross_attn_decode(p["cross"], x, cache["cross"], cfg)
         x = _mlp_sub(p["cross"], x, cfg)
         return x, {"dense": cache["dense"], "cross": ccache}
+    raise ValueError(kind)
+
+
+# ---- single-token decode over a model axis ----
+
+
+def check_cache_mode(mode: str) -> None:
+    """Raise for a kv cache layout the port does not serve: it caches whole
+    kv heads on each position of a model axis ("heads"; "auto" picks it);
+    the reference's "hd" and "seq" layouts (its ``cache_shard`` override)
+    are ROADMAP.md step 13.13."""
+    if mode not in ("auto", "heads"):
+        raise NotImplementedError(
+            f"cache layout {mode!r}: the port caches whole kv heads on each "
+            f"position of a model axis; the reference's 'hd' and 'seq' "
+            f"layouts are ROADMAP.md step 13.13")
+
+
+def _attend_decode(q, kc, vc, pos: int, cfg, tp: int, j: int):
+    """Position ``j``'s query heads (B, 1, n, hd) against its cached kv
+    heads (``decode_attention``); a position without a head gives its
+    empty q back."""
+    if q.shape[2] == 0:
+        return q
+    kc, vc = _per_head_kv(kc, vc, cfg, tp, j)
+    return decode_attention(q, kc, vc, pos)
+
+
+def _tp_self_attn_decode(ps, x, cs, ctx):
+    """``_self_attn_decode`` over a model axis: each position writes the k
+    and v of its kv heads at ``pos`` into its cache slot ``cs[i]`` and
+    attends its query heads to them; its rows of ``wo`` in f32
+    (``WideProduct``), one reduce-out."""
+    cfg, group, pos = ctx["cfg"], ctx["group"], ctx["pos"]
+    tp, hd = group.size, cfg.hd
+    h = rms_norm(x, ps[0]["ln1"])
+    outs = []
+    for (wq, wk, wv, wo), hj, j, (kc, vc) in zip(
+            _tp_heads(ps, group, cfg), group.copy_in(h), group.index, cs):
+        B = hj.shape[0]
+        nq, nkv = _n_heads(cfg, tp, j)
+        positions = torch.full((B, 1), pos, dtype=torch.int32,
+                               device=hj.device)
+        q = rope((hj @ wq).reshape(B, 1, nq, hd), positions, cfg.rope_theta)
+        k = rope((hj @ wk).reshape(B, 1, nkv, hd), positions, cfg.rope_theta)
+        v = (hj @ wv).reshape(B, 1, nkv, hd)
+        kc[:, pos] = k[:, 0].to(kc.dtype)  # in place
+        vc[:, pos] = v[:, 0].to(vc.dtype)
+        o = _attend_decode(q, kc, vc, pos, cfg, tp, j)
+        outs.append(WideProduct.apply(o.reshape(B, 1, nq * hd), wo))
+    return x + group.reduce_out(outs).to(x.dtype)
+
+
+def _tp_cross_attn_decode(ps, x, cs, ctx):
+    """``_cross_attn_decode`` over a model axis: each position's query
+    heads against the image keys and values of its kv heads, cached by
+    the prefill (``wk`` and ``wv`` are not read, so not regrouped)."""
+    cfg, group = ctx["cfg"], ctx["group"]
+    tp, hd = group.size, cfg.hd
+    h = rms_norm(x, ps[0]["ln1"])
+    outs = []
+    for (wq, _, _, wo), hj, j, (kc, vc) in zip(
+            _tp_heads(ps, group, cfg, kv=False), group.copy_in(h),
+            group.index, cs):
+        B = hj.shape[0]
+        nq, _ = _n_heads(cfg, tp, j)
+        q = (hj @ wq).reshape(B, 1, nq, hd)
+        o = _attend_decode(q, kc, vc, kc.shape[1] - 1, cfg, tp, j)
+        outs.append(WideProduct.apply(o.reshape(B, 1, nq * hd), wo))
+    return x + group.reduce_out(outs).to(x.dtype)
+
+
+def _tp_block_decode(kind, ps, x, cs, ctx):
+    """``block_apply_decode`` over a model axis: ``cs`` are the local
+    positions' cache slots of the block, updated in place; returns x."""
+    if kind == "dense":
+        return _tp_mlp_sub(ps, _tp_self_attn_decode(ps, x, cs, ctx), ctx)
+    if kind == "moe":
+        return _tp_moe_sub(ps, _tp_self_attn_decode(ps, x, cs, ctx), ctx)[0]
+    if kind == "moe_pair":
+        x = _tp_block_decode("dense", [p["dense"] for p in ps], x,
+                             _slots(cs, "dense"), ctx)
+        return _tp_block_decode("moe", [p["moe"] for p in ps], x,
+                                _slots(cs, "moe"), ctx)
+    if kind == "mamba":
+        cfg, group = ctx["cfg"], ctx["group"]
+        h = rms_norm(x, ps[0]["ln"])
+        y, new = tp_mamba_decode(group.copy_in(h), [p["mamba"] for p in ps],
+                                 cfg, group, cs)
+        for c, n in zip(cs, new):
+            _write(c, n)
+        return x + y.to(x.dtype)
+    if kind == "zamba_super":
+        for i in range(ctx["cfg"].shared_attn_every):
+            x = _tp_block_decode("mamba", [_index(p["mamba"], i) for p in ps],
+                                 x, _slots(_slots(cs, "mamba"), i), ctx)
+        return _tp_block_decode("dense", ctx["shared"], x,
+                                _slots(cs, "attn"), ctx)
+    if kind == "vlm_super":
+        for i in range(ctx["cfg"].cross_attn_every - 1):
+            x = _tp_block_decode("dense", [_index(p["dense"], i) for p in ps],
+                                 x, _slots(_slots(cs, "dense"), i), ctx)
+        cp = [p["cross"] for p in ps]
+        x = _tp_cross_attn_decode(cp, x, _slots(cs, "cross"), ctx)
+        return _tp_mlp_sub(cp, x, ctx)
     raise ValueError(kind)
 
 
@@ -874,25 +1058,38 @@ class LM:
         ce = torch.mean(logz - gold)
         return ce + 0.01 * aux, dict(ce=ce, aux=aux)
 
+    def _tp_embed(self, parts: list, tokens, group):
+        """The vocab-parallel embedding: each position's rows of the
+        tokens in its vocab slice, zeros elsewhere, summed by a
+        reduce-out."""
+        vp = self.cfg.vocab_padded // group.size
+        return group.reduce_out([
+            _vocab_rows(p["embed"], tokens.to(p["embed"].device), j * vp)
+            for p, j in zip(parts, group.index)])
+
     def _tp_trunk(self, parts: list, tokens, group, *, img=None,
-                  force=None, routes=None):
-        """``tp_loss``'s embedding and blocks: (x, aux, tokens)."""
+                  force=None, routes=None, want_caches: bool = False,
+                  cache_len: Optional[int] = None):
+        """``tp_loss``'s embedding and blocks: (x, aux, tokens, caches);
+        with ``want_caches`` (the prefill) each local position's cache
+        tree (``init_caches(..., tp=, j=)``) filled block by block, and no
+        block checkpointed."""
         cfg = self.cfg
         tp = group.size
         check_tensor_parallel(cfg, tp)
         dev = parts[0]["embed"].device
         tokens = torch.as_tensor(tokens, device=dev).long()
         B, S = tokens.shape
-        vp = cfg.vocab_padded // tp
         img = self._image(parts[0], img, B)
-        x = group.reduce_out([
-            _vocab_rows(p["embed"], tokens.to(p["embed"].device), j * vp)
-            for p, j in zip(parts, group.index)])
+        x = self._tp_embed(parts, tokens, group)
         ctx = dict(cfg=cfg, group=group, force=force, img=img,
                    positions=torch.arange(S, dtype=torch.int32,
                                           device=dev).expand(B, S),
                    shared=[p.get("shared") for p in parts])
-        remat = torch.is_grad_enabled()
+        caches = ([self.init_caches(B, cache_len or S, device=d, tp=tp, j=j)
+                   for d, j in zip(group.devices, group.index)]
+                  if want_caches else None)
+        remat = torch.is_grad_enabled() and not want_caches
         aux_total = torch.zeros((), dtype=torch.float32, device=dev)
         for si, (kind, count) in enumerate(self.plan):
             for i in range(count):
@@ -904,10 +1101,12 @@ class LM:
                         x, aux = checkpoint(_tp_block, kind, ps, x, bctx,
                                             use_reentrant=False)
                 else:
-                    x, aux = _tp_block(kind, ps, x, bctx)
+                    cs = (None if caches is None else
+                          [_index(c[si], i) for c in caches])
+                    x, aux = _tp_block(kind, ps, x, bctx, cs)
                 if aux is not None:
                     aux_total = aux_total + aux
-        return x, aux_total, tokens
+        return x, aux_total, tokens, caches
 
     def tp_route(self, parts: list, tokens, group, *, img=None,
                  force: Optional[str] = None) -> Routes:
@@ -932,8 +1131,8 @@ class LM:
         tp = group.size
         first = parts[0]
         vp = cfg.vocab_padded // tp
-        x, aux, tokens = self._tp_trunk(parts, tokens, group, img=img,
-                                        force=force, routes=routes)
+        x, aux, tokens, _ = self._tp_trunk(parts, tokens, group, img=img,
+                                           force=force, routes=routes)
         h = rms_norm(x, first["final_norm"])
         tgt = tokens[:, 1:]
         golds, lgs = [], []
@@ -985,14 +1184,81 @@ class LM:
             _write(cl, cl_new)
         return self.head(params, x)[:, 0], caches
 
+    # ---- serving over a model axis ----
+
+    def tp_prefill(self, parts: list, tokens, group, img=None, *,
+                   cache_len: Optional[int] = None,
+                   force: Optional[str] = None, cache_mode: str = "heads"):
+        """``prefill`` over a model axis (ROADMAP.md step 13.12): ``parts``
+        and ``group`` as ``tp_loss``'s. Returns (the last position's logits
+        (B, V), whole, on the first local position's device; each local
+        position's cache tree). A position's caches hold what it reads
+        back in ``tp_decode_step``: the kv heads its query heads read
+        (``kv_range``; a kv head two positions read is cached on both, and
+        a position without a query head caches none), a vlm's image keys
+        and values of the same heads, and a Mamba2 block's state of its
+        heads and conv window of its conv columns
+        (``models.sharding.cache_slice`` gives the same slices of a whole
+        tree). The logits are each position's vocab columns, gathered
+        whole over the axis (``ModelGroup.gather_out``). ``cache_mode``:
+        the port caches whole kv heads ("heads"; "auto" is the same); the
+        reference's "hd" and "seq" layouts are ROADMAP.md step 13.13."""
+        check_cache_mode(cache_mode)
+        x, _aux, _tokens, caches = self._tp_trunk(
+            parts, tokens, group, img=img, force=force, want_caches=True,
+            cache_len=cache_len)
+        return self._tp_logits(parts, x[:, -1:], group)[:, 0], caches
+
+    def tp_decode_step(self, parts: list, token, caches: list, pos: int,
+                       group, *, force: Optional[str] = None):
+        """``decode_step`` over a model axis: ``token`` (B, 1), ``caches``
+        each local position's cache tree (``tp_prefill``'s), updated in
+        place; returns (logits (B, V) whole, on the first local position's
+        device, ``caches``). Each sub-layer runs on a position's own heads,
+        MLP columns, experts or Mamba heads against its own caches, its
+        partial products summed by a reduce-out as in ``tp_loss``; nothing
+        here runs K4 or K6, as in ``decode_step``."""
+        cfg = self.cfg
+        check_tensor_parallel(cfg, group.size)
+        dev = parts[0]["embed"].device
+        token = torch.as_tensor(token, device=dev).long()
+        x = self._tp_embed(parts, token, group)
+        ctx = dict(cfg=cfg, group=group, pos=int(pos), force=force,
+                   shared=[p.get("shared") for p in parts])
+        for si, (kind, count) in enumerate(self.plan):
+            for i in range(count):
+                ps = [_index(p[f"seg{si}"], i) for p in parts]
+                x = _tp_block_decode(kind, ps, x,
+                                     [_index(c[si], i) for c in caches], ctx)
+        return self._tp_logits(parts, x, group)[:, 0], caches
+
+    def _tp_logits(self, parts: list, x, group):
+        """The final norm and each position's vocab columns of the logits
+        of ``x`` (B, 1, d), gathered whole over the axis."""
+        h = rms_norm(x, parts[0]["final_norm"])
+        tie = self.cfg.tie_embeddings
+        return group.gather_out(
+            [hj @ (p["embed"].T if tie else p["lm_head"])
+             for p, hj in zip(parts, group.copy_in(h))], -1)
+
     # ---- cache allocation ----
 
     def init_caches(self, batch: int, seq_len: int, *,
-                    device: DeviceLike = CUDA) -> list:
+                    device: DeviceLike = CUDA, tp: int = 1,
+                    j: int = 0) -> list:
         """Zeroed caches for ``seq_len`` positions, in the reference's
         tree, shapes and dtypes; a vlm's cross-attention cache holds
-        ``n_img_tokens`` positions."""
+        ``n_img_tokens`` positions. With ``tp > 1``: the caches that
+        position ``j`` of a model axis of ``tp`` holds
+        (``models.sharding.cache_slice``'s shapes)."""
         dev = resolve_device(device)
+        if tp > 1:
+            from .sharding import cache_slice
+
+            whole = self.init_caches(batch, seq_len, device="meta")
+            return _map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                              device=dev),
+                        cache_slice(self, whole, tp, j))
         cfg = self.cfg
         d_inner, H, N = mamba_dims(cfg) if cfg.ssm_state else (0, 0, 0)
         P = cfg.ssm_head_dim
@@ -1046,5 +1312,5 @@ def tree_map(fn, *trees):
 
 
 __all__ = ["LM", "layer_plan", "block_init", "block_apply_full",
-           "block_apply_decode", "check_tensor_parallel", "head_range",
-           "tree_leaves", "tree_map"]
+           "block_apply_decode", "check_cache_mode", "check_tensor_parallel",
+           "head_range", "kv_range", "tree_leaves", "tree_map"]

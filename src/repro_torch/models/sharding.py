@@ -23,7 +23,9 @@ Splits must be even: an uneven one raises and names the leaf.
 position of a ("data", "model") mesh needs for tensor-parallel training
 (ROADMAP.md step 13.7) is its model slice of every leaf, whole along the
 data axes. ``split_dims`` names the dim of a spec that the data axes split
-and the one that the model axis splits.
+and the one that the model axis splits. ``cache_slice`` gives the caches
+that a position of a model axis holds when serving (ROADMAP.md step
+13.12), and ``assemble_caches`` the whole tree back from them.
 
 The activation mesh is kept for the reference's API only:
 ``set_activation_mesh(dp, tp)`` records the axes and ``activation_mesh``
@@ -256,6 +258,118 @@ def cache_specs(lm, fsdp: Sequence[str] = FSDP, tp: str = TP,
         else:
             raise ValueError(kind)
     return specs
+
+
+# ---------------------------------------------------------------------------
+# the caches a position of a model axis holds (serving, ROADMAP.md 13.12)
+# ---------------------------------------------------------------------------
+
+
+def _cache_tags(lm) -> list:
+    """``LM.init_caches``' tree with each leaf's kind: "kv" (attention
+    keys or values, (..., B, S, KV, hd), a vlm's image ones included),
+    "ssm" (a Mamba2 state, (..., B, H, P, N)) or "conv" (its conv window,
+    (..., B, d_conv - 1, d_inner + 2N))."""
+    kv, mb = ("kv", "kv"), ("ssm", "conv")
+    out = []
+    for kind, _count in lm.plan:
+        if kind in ("dense", "moe"):
+            out.append(kv)
+        elif kind == "moe_pair":
+            out.append({"dense": kv, "moe": kv})
+        elif kind == "mamba":
+            out.append(mb)
+        elif kind == "zamba_super":
+            out.append({"mamba": mb, "attn": kv})
+        elif kind == "vlm_super":
+            out.append({"dense": kv, "cross": kv})
+        else:
+            raise ValueError(kind)
+    return out
+
+
+def cache_slice(lm, caches: list, tp: int, j: int) -> list:
+    """Model index ``j``'s slice of a whole cache tree (``LM.init_caches``
+    layout, any rows) on a model axis of ``tp``: what ``LM.tp_prefill``
+    writes on that position and ``LM.tp_decode_step`` reads.
+
+    * Attention (and a vlm's image) keys and values: the kv heads
+      ``[g0, g1)`` of ``model.kv_range``. Where ``tp`` divides ``n_kv``
+      that is ``cache_specs(..., mode="heads")``'s model slice, byte for
+      byte. Where it does not, the reference's ``mode="auto"`` picks "hd"
+      or "seq"; the port caches whole kv heads instead (its parameters
+      split by heads, ROADMAP.md step 13.11), so a kv head that two
+      positions' query heads read is cached on both, and a position
+      without a query head caches none. The reference's "hd" and "seq"
+      layouts are step 13.13. The reference keeps the image cache whole
+      on every model position; the port holds its kv heads only.
+    * A Mamba2 state: heads ``[j H/tp, (j+1) H/tp)``, as the reference's.
+    * A Mamba2 conv window: the x channels of those heads and the B and C
+      channels whole (``d_inner/tp + 2N``), the conv columns its heads
+      read; the reference splits the ``d_inner + 2N`` channels evenly.
+
+    The kv and state slices are views; the conv slice is a copy."""
+    from .mamba import mamba_dims
+    from .model import kv_range, tree_map
+
+    cfg = lm.cfg
+
+    def take(tag, t):
+        if tag == "kv":
+            g0, g1 = kv_range(cfg.n_heads, cfg.n_kv, tp, j)
+            return t[..., g0:g1, :]
+        d_inner, H, _N = mamba_dims(cfg)
+        if tag == "ssm":
+            n = H // tp
+            return t[..., j * n:(j + 1) * n, :, :]
+        n = d_inner // tp
+        return torch.cat([t[..., j * n:(j + 1) * n], t[..., d_inner:]], -1)
+
+    return tree_map(take, _cache_tags(lm), caches)
+
+
+def assemble_caches(lm, slices: Sequence[list], tp: int) -> list:
+    """The whole cache tree from every model index's slice (``slices[j]``
+    index j's, ``cache_slice``'s layout): the reverse of ``cache_slice``.
+    A kv head cached on several positions is taken from the first, the B
+    and C conv channels from index 0."""
+    from .mamba import mamba_dims
+    from .model import kv_range, tree_map
+
+    cfg = lm.cfg
+
+    def join(tag, *parts):
+        if tag == "kv":
+            pieces, have = [], 0
+            for j, t in enumerate(parts):
+                g0, g1 = kv_range(cfg.n_heads, cfg.n_kv, tp, j)
+                if g1 > have:
+                    pieces.append(t[..., max(g0, have) - g0:, :])
+                    have = g1
+            return torch.cat(pieces, -2)
+        if tag == "ssm":
+            return torch.cat(parts, -3)
+        n = mamba_dims(cfg)[0] // tp
+        return torch.cat([t[..., :n] for t in parts] + [parts[0][..., n:]],
+                         -1)
+
+    return tree_map(join, _cache_tags(lm), *slices)
+
+
+def cache_mode(cfg, tp: int) -> str:
+    """The port's kv cache layout on a model axis of ``tp``: "heads" where
+    ``tp`` divides ``n_kv`` (the reference's), "kv-heads-regrouped" where
+    it does not (whole kv heads by ``model.kv_range``, see
+    ``cache_slice``)."""
+    return "heads" if not cfg.n_kv or cfg.n_kv % tp == 0 \
+        else "kv-heads-regrouped"
+
+
+def reference_cache_mode(cfg, tp: int) -> str:
+    """The layout the reference's ``cache_specs(mode="auto")`` picks."""
+    if cfg.n_kv and cfg.n_kv % tp == 0:
+        return "heads"
+    return "hd" if cfg.hd % tp == 0 else "seq"
 
 
 # ---------------------------------------------------------------------------
@@ -503,7 +617,9 @@ def local_bytes(tree: Any, specs: Any, mesh) -> int:
 
 
 __all__ = ["FSDP", "P", "ShardedTree", "TP", "activation_mesh",
-           "batch_spec", "cache_specs", "clear_activation_mesh", "constrain",
+           "assemble_caches", "batch_spec", "cache_mode", "cache_slice",
+           "cache_specs", "clear_activation_mesh", "constrain",
            "entry_axes", "gather_over", "gather_tree", "local_bytes",
-           "param_specs", "set_activation_mesh", "shard_shape", "shard_tree",
-           "slices_of", "spec_leaves", "split_dims"]
+           "param_specs", "reference_cache_mode", "set_activation_mesh",
+           "shard_shape", "shard_tree", "slices_of", "spec_leaves",
+           "split_dims"]

@@ -352,13 +352,13 @@ def test_tp_shared_block_gradient_sums_its_uses(monkeypatch):
     uses = []
     block = tmodel._tp_block
 
-    def per_use(kind, ps, x, ctx):
+    def per_use(kind, ps, x, ctx, cs=None):
         if kind == "dense" and ps is ctx["shared"]:
             copy = tmodel.tree_map(lambda t: t.detach().requires_grad_(True),
                                    params["shared"])
             uses.append(copy)
             ps = _model_slices(copy, cfg, 2)
-        return block(kind, ps, x, ctx)
+        return block(kind, ps, x, ctx, cs)
 
     monkeypatch.setattr(tmodel, "_tp_block", per_use)
     monkeypatch.setattr(tmodel, "checkpoint",
