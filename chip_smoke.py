@@ -464,6 +464,25 @@ exits non-zero:
                position, its 3 kv heads regrouped: a kv head read by two
                positions is cached on both), 16 x 1,024 + 16, held the
                same way.
+24. ``serve_tp_layouts`` the reference's "hd" and "seq" kv cache layouts
+               (ROADMAP step 13.13): granite-3-8b at full width and depth
+               (40 layers, 32 heads, 8 kv heads, hd 128; bf16, seeded
+               weights), 4 x 1,024 prompts + 8 greedy tokens into
+               ``Engine(max_len=2056)`` caches, served unsharded once and
+               on (1, 16) under ``cache_mode="auto"`` (the reference's
+               pick, "hd": 2 query heads and 8 of the 128 columns of every
+               kv head a position) and on (1, 4) under "seq" (514 slots a
+               position; the decode's writes cross from position 1 to 2
+               at slot 1,028), each held as ``serve_tp``'s arms are
+               (launches, bytes equal to ``serve_collectives(mode=)``,
+               the logits' nudge rule, tokens free running and fed the
+               unsharded ones, prefill s, decode ms a token and peak
+               beside the unsharded run's, K4 at position 0's captured
+               inputs), with a position's cache bytes beside the "heads"
+               layout's on the same mesh; K4 timed at each arm's
+               per-position shape; the same model at 4 layers in f32 on
+               2 x 256 + 4 in both layouts, logits within 1e-4 of the
+               largest and every token equal.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the repository beside it, it fails.
@@ -617,11 +636,23 @@ TP_HEADS_MESH, TP_HEADS_LAYERS = (2, 4), 30
 # lm phase's traffic (LM_BATCH x LM_PROMPT + LM_STEPS), its f32 check at 12
 # layers (2 super blocks) on 4 prompts and 4 steps within 1e-4 of the
 # largest logit; smollm-135m at full width and depth on (2, 4), 16 x 1,024
-# + 16
+# + 8
 SERVE_TP_MESH = (2, 2)
 SERVE_TP_F32_LAYERS, SERVE_TP_F32_BATCH, SERVE_TP_F32_STEPS = 12, 4, 4
 SERVE_TP_F32_TOL = 1e-4
 SERVE_TP_SMOLLM_MESH, SERVE_TP_SMOLLM_BATCH = (2, 4), 16
+# the serve_tp_layouts phase: granite-3-8b at full width and depth in the
+# reference's kv cache layouts, "auto" (its pick: "hd") on (1, 16) and
+# "seq" on (1, 4), 4 x 1,024 prompts + 8 greedy tokens into caches of
+# 2,056 slots (514 a position under "seq": the decode writes slots 1,024 to
+# 1,030, crossing from position 1 to 2 at 1,028); its f32 check at 4 of 40
+# layers on 2 x 256 + 4 in both layouts
+LAYOUTS_ARCH = "granite-3-8b"
+LAYOUTS_BATCH, LAYOUTS_PROMPT, LAYOUTS_STEPS, LAYOUTS_MAX_LEN = (4, 1024, 8,
+                                                                 2056)
+LAYOUTS_ARMS = (((1, 16), "auto"), ((1, 4), "seq"))
+LAYOUTS_F32_LAYERS, LAYOUTS_F32_BATCH, LAYOUTS_F32_PROMPT = 4, 2, 256
+LAYOUTS_F32_STEPS = 4
 # the dryrun phase: the train phase's own cell counted on meta tensors at
 # one position; the band its predicted peak must keep against the measured
 # peaks (PERF.md section 6, PR 26: stated before the first chip run); the
@@ -6320,60 +6351,88 @@ def _nudged_embed(params, g) -> dict:
         hit, (emb.float() * (1 + 2**-7)).to(emb.dtype), emb))
 
 
-def _serve_dry(lm, shape, batch: int, prompt: int, steps: int) -> dict:
+def _serve_dry(lm, shape, batch: int, prompt: int, steps: int,
+               mode: str = "heads", cache_len=None) -> dict:
     """The dry run's count of a position's model-axis bytes by kind in one
-    ``generate``: a prefill and ``steps - 1`` decode steps."""
+    ``generate``: a prefill and ``steps - 1`` decode steps, in the kv
+    cache layout ``mode`` with caches of ``cache_len`` slots."""
     from repro_torch.launch.dryrun import serve_collectives
 
     n_dp, tp = shape
     rows = batch // n_dp if batch % n_dp == 0 else batch
-    want = dict(serve_collectives(lm, tp, rows, prompt, "prefill"))
-    for k, v in serve_collectives(lm, tp, rows, prompt, "decode").items():
+    want = dict(serve_collectives(lm, tp, rows, prompt, "prefill", mode,
+                                  cache_len))
+    for k, v in serve_collectives(lm, tp, rows, prompt, "decode", mode,
+                                  cache_len).items():
         want[k] = want.get(k, 0) + (steps - 1) * v
     return want
 
 
-def _serve_tp_arm(lm, params: dict, prompts, steps: int, shape, g,
-                  what: str, rule_tol: float = LM_LOGIT_TOL,
-                  nudge: bool = True) -> dict:
-    """One model served unsharded and on an in-process ``shape`` mesh of
-    the card (see the module's ``serve_tp``). Takes ``params`` over: the
-    caller's dict is emptied, so that the mesh's run holds its slices and
-    not the whole tree beside them."""
+def _serve_plain(lm, params: dict, prompts, steps: int, g, max_len: int,
+                 nudge: bool = True) -> dict:
+    """The unsharded engine's greedy run (tokens, logits, launches, K4
+    calls, peak, timings) and, in bf16, the noise floor of a nudged
+    embedding fed the same tokens."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.launch import make_mesh
-    from repro_torch.launch.mesh import collective_bytes, \
-        reset_collective_bytes
-    from repro_torch.models.model import head_range
     from repro_torch.serve.engine import Engine
 
-    cfg = lm.cfg
-    n_dp, tp = shape
-    B, P = prompts.shape
-    max_len = P + steps
-    heads = [hi - lo for lo, hi in (head_range(cfg.n_heads, tp, j)
-                                    for j in range(tp))]
-    # (1) unsharded: the greedy run, and (bf16) the noise floor of a
-    # nudged embedding fed the same tokens
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     eng0 = Engine(lm, params, max_len)
     with _HeadCalls(0) as plain_calls:
         tok0, lg0 = eng0.generate(prompts, steps, return_logits=True)
-    plain_launches = ops.launch_counts()
-    plain_peak = torch.cuda.max_memory_allocated()
-    plain_t = dict(eng0.timings)
+    out = dict(tok=tok0, logits=lg0, launches=ops.launch_counts(),
+               calls=plain_calls.by_op(),
+               peak=torch.cuda.max_memory_allocated(),
+               timings=dict(eng0.timings), nudged=None)
     del eng0
-    lg_n = None
     if nudge:
-        lg_n = Engine(lm, _nudged_embed(params, g), max_len).generate(
+        out["nudged"] = Engine(lm, _nudged_embed(params, g),
+                               max_len).generate(
             prompts, steps, return_logits=True, forced=tok0[:, :-1])[1]
+    return out
+
+
+def _serve_tp_arm(lm, params: dict, prompts, steps: int, shape, g,
+                  what: str, rule_tol: float = LM_LOGIT_TOL,
+                  nudge: bool = True, cache_mode: str = "heads",
+                  max_len=None, plain=None) -> dict:
+    """One model served unsharded and on an in-process ``shape`` mesh of
+    the card (see the module's ``serve_tp``), its kv caches in the layout
+    ``cache_mode``, ``max_len`` slots (default prompt + steps). Takes
+    ``params`` over: the caller's dict is emptied, so that the mesh's run
+    holds its slices and not the whole tree beside them. ``plain``: the
+    unsharded run (``_serve_plain``) of the same weights and prompts, made
+    here where None."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_mesh
+    from repro_torch.launch.mesh import collective_bytes, \
+        reset_collective_bytes
+    from repro_torch.models.model import head_range, tree_leaves
+    from repro_torch.models.sharding import resolve_cache_mode
+    from repro_torch.serve.engine import Engine
+
+    cfg = lm.cfg
+    n_dp, tp = shape
+    B, P = prompts.shape
+    max_len = max_len or P + steps
+    heads = [hi - lo for lo, hi in (head_range(cfg.n_heads, tp, j)
+                                    for j in range(tp))]
+    # (1) unsharded: the greedy run, and (bf16) the noise floor of a
+    # nudged embedding fed the same tokens
+    if plain is None:
+        plain = _serve_plain(lm, params, prompts, steps, g, max_len, nudge)
+    tok0, lg0, lg_n = plain["tok"], plain["logits"], plain["nudged"]
+    plain_launches, plain_peak = plain["launches"], plain["peak"]
+    plain_t = plain["timings"]
     # (2) the mesh: placed from the whole tree, which then goes
     mesh = make_mesh(shape, ("data", "model"),
                      devices=["cuda"] * (n_dp * tp))
-    eng = Engine(lm, dict(params), max_len, mesh=mesh)
+    eng = Engine(lm, dict(params), max_len, mesh=mesh,
+                 cache_mode=cache_mode)
     params.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6394,7 +6453,7 @@ def _serve_tp_arm(lm, params: dict, prompts, steps: int, shape, g,
     # data row, on its rows x heads; K6 once a Mamba2 layer per position
     # and data row
     rows = B // n_dp if B % n_dp == 0 else B
-    _heads_launch_rule(what, calls, plain_calls.by_op(), heads, rows, n_dp)
+    _heads_launch_rule(what, calls, plain["calls"], heads, rows, n_dp)
     check(launches["flash_attention_fwd"] == n_dp * sum(
         1 for h in heads if h) * plain_launches["flash_attention_fwd"],
         f"{what}: K4 launched {launches['flash_attention_fwd']} times")
@@ -6405,7 +6464,7 @@ def _serve_tp_arm(lm, params: dict, prompts, steps: int, shape, g,
     others = {k: v for k, v in launches.items()
               if k not in ("flash_attention_fwd", "ssd_intra_chunk")}
     check(not any(others.values()), f"{what}: launched {others}")
-    dry = _serve_dry(lm, shape, B, P, steps)
+    dry = _serve_dry(lm, shape, B, P, steps, cache_mode, max_len)
     check(colls == dry, f"{what}: collective bytes {colls}, the dry run "
                         f"counts {dry}")
     # logits: each step's, fed the unsharded run's tokens
@@ -6413,7 +6472,7 @@ def _serve_tp_arm(lm, params: dict, prompts, steps: int, shape, g,
     d_tp = [float((lg2[:, s].float() - lg0[:, s].float()).abs().max())
             for s in range(steps)]
     d_nudge = ([float((lg_n[:, s].float() - lg0[:, s].float()).abs().max())
-                for s in range(steps)] if nudge else [0.0] * steps)
+                for s in range(steps)] if lg_n is not None else [0.0] * steps)
     limits = [max(rule_tol * scale, 2 * dn) for dn in d_nudge]
     check(all(d <= lim for d, lim in zip(d_tp, limits)),
           f"{what}: logits differ by {d_tp} from the unsharded run's, "
@@ -6427,7 +6486,15 @@ def _serve_tp_arm(lm, params: dict, prompts, steps: int, shape, g,
         checks.append(_check_ssd(*cap.args["ssd_intra_chunk"][0],
                                  f"{what}: position 0's first Mamba2 layer",
                                  "shared_bc"))
+    def cache_bytes(mode):  # the largest position's, in ``mode``
+        return max(sum(t.numel() * t.element_size() for t in tree_leaves(
+            lm.init_caches(rows, max_len, device="meta", tp=tp, j=j,
+                           mode=mode))) for j in range(tp))
+
     return dict(
+        cache_mode=resolve_cache_mode(cfg, tp, cache_mode), max_len=max_len,
+        cache_bytes_per_position=cache_bytes(cache_mode),
+        heads_cache_bytes_per_position=cache_bytes("heads"),
         launches=launches, plain_launches=plain_launches,
         k4_calls_by_rows=calls.table(), collective_bytes=colls,
         dryrun_collective_bytes=dry, heads_per_position=heads,
@@ -6532,6 +6599,96 @@ def phase_serve_tp(seed: int) -> dict:
                 k4_s_err=sm["checks"][0]["max_abs_err"])
 
 
+def phase_serve_tp_layouts(seed: int) -> dict:
+    """granite-3-8b served on in-process ("data", "model") meshes of the
+    one card in the reference's "hd" and "seq" kv cache layouts (see the
+    module's ``serve_tp_layouts``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    cfg = get_config(LAYOUTS_ARCH)
+    lm = LM(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    prompts = torch.randint(0, cfg.vocab, (LAYOUTS_BATCH, LAYOUTS_PROMPT),
+                            generator=g, device="cuda")
+    params = lm.init(seed, device="cuda")
+    plain = _serve_plain(lm, params, prompts, LAYOUTS_STEPS, g,
+                         LAYOUTS_MAX_LEN)
+    arms, timing = {}, {}
+    for shape, mode in LAYOUTS_ARMS:
+        if not params:  # the last arm took them over: the same draws
+            params = lm.init(seed, device="cuda")
+        what = f"serve_tp_layouts granite {shape} {mode}"
+        a = _serve_tp_arm(lm, params, prompts, LAYOUTS_STEPS, shape, g, what,
+                          cache_mode=mode, max_len=LAYOUTS_MAX_LEN,
+                          plain=plain)
+        layout = a["cache_mode"]
+        check(layout == ("hd" if mode == "auto" else mode),
+              f"{what}: the layout is {layout}")
+        if layout == "seq":  # the decode's writes cross a slot boundary
+            per = LAYOUTS_MAX_LEN // shape[1]
+            first, last = LAYOUTS_PROMPT, LAYOUTS_PROMPT + LAYOUTS_STEPS - 2
+            check(first // per != last // per,
+                  f"{what}: slots {first}-{last} lie on one position")
+        cap = a.pop("captured")
+        timing[layout] = _time_flash(*cap["k4"],
+                                     heads=a["heads_per_position"][0])
+        del cap
+        torch.cuda.empty_cache()
+        emit(dict(phase=f"serve_tp_layouts_{layout}", arch=LAYOUTS_ARCH,
+                  layers=cfg.n_layers, mesh=list(shape),
+                  axes=["data", "model"], cache_mode_arg=mode,
+                  batch=LAYOUTS_BATCH, prompt=LAYOUTS_PROMPT,
+                  new_tokens=LAYOUTS_STEPS, dtype=cfg.dtype,
+                  nvidia_smi=smi, **a))
+        arms[layout] = a
+    del params, plain
+    torch.cuda.empty_cache()
+    # the f32 check at LAYOUTS_F32_LAYERS layers, both layouts
+    lm32 = LM(dataclasses.replace(cfg, n_layers=LAYOUTS_F32_LAYERS,
+                                  dtype="float32"))
+    p32 = lm32.init(seed, device="cuda")
+    pr32 = prompts[:LAYOUTS_F32_BATCH, :LAYOUTS_F32_PROMPT]
+    plain32 = _serve_plain(lm32, p32, pr32, LAYOUTS_F32_STEPS, g,
+                           LAYOUTS_F32_PROMPT + LAYOUTS_F32_STEPS,
+                           nudge=False)
+    total: dict = {}
+    for shape, mode in LAYOUTS_ARMS:
+        if not p32:
+            p32 = lm32.init(seed, device="cuda")
+        what = f"serve_tp_layouts granite {shape} {mode} f32"
+        a = _serve_tp_arm(lm32, p32, pr32, LAYOUTS_F32_STEPS, shape, g, what,
+                          rule_tol=SERVE_TP_F32_TOL, nudge=False,
+                          cache_mode=mode, plain=plain32)
+        a.pop("captured")
+        check(a["greedy_tokens_equal_share"] == 1.0
+              and a["forced_picks_equal_share"] == 1.0,
+              f"{what}: tokens differ from the unsharded run's")
+        emit(dict(phase=f"serve_tp_layouts_{a['cache_mode']}_f32",
+                  layers=LAYOUTS_F32_LAYERS, mesh=list(shape),
+                  batch=LAYOUTS_F32_BATCH, prompt=LAYOUTS_F32_PROMPT,
+                  new_tokens=LAYOUTS_F32_STEPS, **a))
+        total = _add_counts(total, a["launches"])
+    del p32, plain32
+    torch.cuda.empty_cache()
+    for a in arms.values():
+        total = _add_counts(total, a["launches"])
+    emit(dict(phase="serve_tp_layouts_timing", nvidia_smi=smi,
+              **{f"flash_attention_fwd_{k}": t for k, t in timing.items()}))
+    return dict(launches=total, k4=timing,
+                k4_launches={k: a["launches"]["flash_attention_fwd"]
+                             for k, a in arms.items()},
+                k4_err={k: a["checks"][0]["max_abs_err"]
+                        for k, a in arms.items()})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6620,6 +6777,9 @@ def main() -> int:
     serve_tp = phase_serve_tp(args.seed)
     torch.cuda.empty_cache()
     lap("serve_tp")
+    layouts = phase_serve_tp_layouts(args.seed)
+    torch.cuda.empty_cache()
+    lap("serve_tp_layouts")
 
     # launches: the sum over the main paths, each read around its own run
     # (per path beside it)
@@ -6641,7 +6801,8 @@ def main() -> int:
                            moe_mesh=moe["mesh_launches"][name],
                            vlm=vlm["launches"][name],
                            train_tp_heads=train_tp_heads["launches"][name],
-                           serve_tp=serve_tp["launches"][name])
+                           serve_tp=serve_tp["launches"][name],
+                           serve_tp_layouts=layouts["launches"][name])
                 for name in launches}
     total = {name: sum(v.values()) for name, v in per_path.items()}
     for name, n in total.items():
@@ -6807,6 +6968,23 @@ def main() -> int:
             name=name, route="cuda", source=f"{csrc}/csrc/{src}",
             replaces=rep, launches=serve_tp[f"{key}_launches"],
             max_abs_err=serve_tp[f"{key}_err"], ms=t["kernel_ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            shape=t["shape"], note=note))
+    # K4 on a position's heads in the serve_tp_layouts phase: its launches
+    # are part of its count above
+    for key, note in (
+            ("hd", "granite-3-8b served on (1, 16) under 'auto' ('hd'): 2 "
+                   "of 32 heads of 4 prompts a position, causal"),
+            ("seq", "granite-3-8b served on (1, 4) under 'seq': 8 of 32 "
+                    "heads of 4 prompts a position, causal")):
+        t = layouts["k4"][key]
+        table.append(dict(
+            name=f"flash_attention_fwd_serve_tp_{key}", route="cuda",
+            source=f"{csrc}/csrc/flash_fwd.cu",
+            replaces="src/repro/kernels/flash.py:75",
+            launches=layouts["k4_launches"][key],
+            max_abs_err=layouts["k4_err"][key], ms=t["kernel_ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             shape=t["shape"], note=note))

@@ -56,17 +56,23 @@ Per cell:
   serving engine on a mesh), worked out from its schedule
   (``serve_collectives``): reduce-outs, regroups and the logits'
   "gather-out"; its data axes move nothing (the engine gathers its model
-  slices once, when it is built). A model axis that
-  ``check_tensor_parallel`` refuses, or a ``--cache-shard`` of "hd" or
-  "seq" (the reference's layouts, step 13.13), gives ``null`` with the
-  rule as its reason. The record names the port's kv cache layout
+  slices once, when it is built). ``--cache-shard`` picks the kv cache
+  layout counted (ROADMAP.md step 13.13): the port's "heads" without it,
+  the reference's "hd" or "seq" (their all-to-alls, all-reduces and
+  max), or "auto", the reference's pick. A model axis that
+  ``check_tensor_parallel`` refuses, or an "hd" or "seq" split that does
+  not divide the head dim or the cache length, gives ``null`` with the
+  rule as its reason. The record names the layout counted
   (``cache_mode``) and, where it differs, the reference's ``auto``
   choice (``cache_mode_reference``).
 * **Memory.** ``argument_bytes`` is ``local_bytes`` of the state (or
   parameters and caches) and the batch by the specs; a decode cell's
-  caches are the largest model position's slices in the port's layout
-  (``sharding.cache_slice``: its kv heads, Mamba heads and conv
-  columns). ``temp_bytes`` comes
+  caches are the largest model position's slices in the layout counted
+  (``sharding.cache_slice``: its kv heads, or head-dim columns or
+  sequence slots, Mamba heads and conv columns), what
+  ``LM.init_caches(tp=, j=, mode=)`` allocates; in a layout the axis
+  cannot split, the argument, output, alias and peak figures are
+  ``null`` with the rule as ``reason``. ``temp_bytes`` comes
   from the traced run: the most live storage beyond the arguments and the
   step's new outputs, which holds the tensors saved for backward (also
   reported alone, ``saved_bytes``, through ``saved_tensors_hooks``) and
@@ -120,17 +126,19 @@ from ..models.mamba import mamba_dims
 from ..models.model import (
     DTYPES,
     LM,
-    check_cache_mode,
     check_tensor_parallel,
+    head_range,
     tree_leaves,
 )
 from ..models.sharding import (
     cache_mode,
     cache_slice,
-    cache_specs,
+    check_cache_layout,
+    kv_cache_slice,
     local_bytes,
     param_specs,
     reference_cache_mode,
+    resolve_cache_mode,
     spec_leaves,
     split_dims,
 )
@@ -544,11 +552,14 @@ def tp_collectives(lm: LM, step_cfg: StepConfig, n_dp: int, tp: int,
 
 
 def serve_collectives(lm: LM, tp: int, rows: int, seq: int,
-                      kind: str) -> dict:
+                      kind: str, mode: str = "heads",
+                      cache_len: Optional[int] = None) -> dict:
     """Operand bytes a position puts into the model axis's collectives in
     one ``LM.tp_prefill`` of ``rows`` x ``seq`` tokens (``kind``
     "prefill") or one ``LM.tp_decode_step`` of ``rows`` tokens
-    ("decode"), over ``tp`` model positions: the embedding's reduce-out
+    ("decode"), over ``tp`` model positions, with caches of ``cache_len``
+    slots (default ``seq``) in the kv cache layout ``mode``
+    (``sharding.CACHE_MODES``): the embedding's reduce-out
     (the model's dtype); per attention sub-layer, self or cross, its
     ``wo`` products' reduce-out (f32: ``WideProduct``), and where ``tp``
     does not divide ``n_kv`` the regroup of its ``wk`` and ``wv`` slices
@@ -560,13 +571,24 @@ def serve_collectives(lm: LM, tp: int, rows: int, seq: int,
     of squares ((rows, tokens) f32) and ``out_proj``'s (f32)
     reduce-outs, and the regroup of its ``in_proj``, ``conv_w`` and
     ``conv_b`` slices; and the last position's logits, each position's
-    vocab columns gathered whole ("gather-out", the model's dtype). No
-    copy-in, regroup-sum or max: nothing runs backward, and nothing takes
+    vocab columns gathered whole ("gather-out", the model's dtype). In
+    the "hd" and "seq" layouts, per self-attention sub-layer what the
+    first position receives by all-to-all (the model's dtype) and puts
+    into the all-reduces and max (f32; ``model._relay_kv``,
+    ``model._tp_split_attn_decode``): a prefill's k and v, its columns
+    of every kv head ("hd") or its slots of every kv head up to ``seq``
+    ("seq"); a decode step's q, k and v of the token, its columns of
+    every head and its query heads' outputs whole, and the scores
+    (rows, heads, cache_len) ("hd"), or q, k and v whole, the max (rows,
+    heads) and the sums of exps and P V (rows, heads, hd + 1) ("seq").
+    No copy-in or regroup-sum: nothing runs backward, and nothing takes
     a max over the vocab. The data axes move nothing: the engine gathers
     the parameters' model slices once, when it is built."""
     if tp <= 1:
         return {}
     cfg = lm.cfg
+    mode = resolve_cache_mode(cfg, tp, mode)
+    L = cache_len or seq
     S = seq if kind == "prefill" else 1
     isz = DTYPES[cfg.dtype].itemsize
     tok = rows * S * cfg.d_model
@@ -599,13 +621,31 @@ def serve_collectives(lm: LM, tp: int, rows: int, seq: int,
                        + (cfg.d_conv + 1) * (d_inner + 2 * N))
     if whole:
         out["regroup"] = whole // tp * isz
+    n_self = n_attn - n_cross
+    if cfg.n_kv and mode != "heads":
+        check_cache_layout(cfg, tp, mode, L)
+        H, G, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+        slots, c = kv_cache_slice(mode, tp, 0, hd, L)
+        cols = c.stop - c.start
+        if kind == "prefill":
+            toks = min(S, slots.stop) - slots.start
+            out["all-to-all"] = n_self * 2 * rows * toks * G * cols * isz
+        else:
+            lo, hi = head_range(H, tp, 0)
+            back = rows * (hi - lo) * hd if mode == "hd" else 0
+            out["all-to-all"] = n_self * (rows * (H + 2 * G) * cols
+                                          + back) * isz
+            out["all-reduce"] = n_self * rows * H * (
+                L if mode == "hd" else hd + 1) * 4
+            if mode == "seq":
+                out["max"] = n_self * rows * H * 4
     return out
 
 
-def _cache_bytes(lm: LM, caches, tp: int) -> int:
-    """Bytes of the largest model position's cache slices (the port's
-    layout, ``sharding.cache_slice``)."""
-    return max(_io_bytes(tree_leaves(cache_slice(lm, caches, tp, j)))
+def _cache_bytes(lm: LM, caches, tp: int, mode: str = "heads") -> int:
+    """Bytes of the largest model position's cache slices in the kv cache
+    layout ``mode`` (``sharding.cache_slice``)."""
+    return max(_io_bytes(tree_leaves(cache_slice(lm, caches, tp, j, mode)))
                for j in range(tp))
 
 
@@ -652,6 +692,7 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
         # positions, else every position takes it whole
         shardable = shape.global_batch % (step_cfg.microbatches * n_dp) == 0
     rows = shape.global_batch // n_dp if shardable else shape.global_batch
+    mode = overrides.get("cache_shard", "heads")
     tp_axis = "model" if "model" in mesh.shape else None
     abstract = lm.abstract_params()
     pspecs = param_specs(abstract, fsdp, tp=tp_axis)
@@ -696,15 +737,12 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
                 outs = lm.decode_step(abstract, ins["token"], ins["caches"],
                                       ins["pos"], ins["img"], force="ref")
             args_tree = (abstract, ins)
-            mode = overrides.get("cache_shard", "auto")
-            if mode in ("auto", "heads"):  # the caches the port holds
-                cache_bytes = _cache_bytes(lm, ins["caches"], tp)
-            else:  # the reference's layout (ROADMAP.md step 13.13)
-                cache_bytes = local_bytes(ins["caches"], cache_specs(
-                    lm, fsdp, batch_shardable=shardable, mode=mode,
-                    tp_size=tp), mesh)
-            arg_bytes = (local_bytes(abstract, pspecs, mesh) + cache_bytes
-                         + _io_bytes((ins["token"], ins["img"])))
+            try:  # a position's caches in the layout counted
+                arg_bytes = (local_bytes(abstract, pspecs, mesh)
+                             + _cache_bytes(lm, ins["caches"], tp, mode)
+                             + _io_bytes((ins["token"], ins["img"])))
+            except ValueError as e:  # a layout the axis cannot split
+                arg_bytes, mem_reason = None, str(e)
         else:
             raise ValueError(shape.kind)
     trace_s = time.perf_counter() - t0
@@ -730,18 +768,22 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
                         * (1 - 1 / n_dp))
     temp //= tp
     fresh //= tp
-    # the aliased outputs are arguments: on a device, scaled as they are
-    alias_dev = alias * arg_bytes // max(watched, 1)
     mem = dict(
-        argument_bytes=int(arg_bytes),
-        output_bytes=int(alias_dev + fresh),
         temp_bytes=int(temp),
-        alias_bytes=int(alias_dev),
-        peak_estimate_gib=round((arg_bytes + fresh + temp) / 2**30, 3),
         saved_bytes=int(res["saved_bytes"] // tp),
         largest_op_bytes=int(res["largest_op_bytes"] // tp),
         traced_peak_bytes=int(res["peak_live_bytes"]),
     )
+    if arg_bytes is None:  # no caches in a refused layout: no figures
+        mem.update(argument_bytes=None, output_bytes=None, alias_bytes=None,
+                   peak_estimate_gib=None, reason=mem_reason)
+    else:  # the aliased outputs are arguments: on a device, scaled so
+        alias_dev = alias * arg_bytes // max(watched, 1)
+        mem.update(argument_bytes=int(arg_bytes),
+                   output_bytes=int(alias_dev + fresh),
+                   alias_bytes=int(alias_dev),
+                   peak_estimate_gib=round((arg_bytes + fresh + temp)
+                                           / 2**30, 3))
 
     # the kernel path's counts: the twins' replaced by the kernels', and
     # AdamW on a position's slices (1/n_dp of the traced whole-tree update)
@@ -764,12 +806,11 @@ def count_cell(cfg, shape, mesh: Mesh, overrides: Optional[dict] = None, *,
     elif tp > 1:  # prefill and decode
         try:
             check_tensor_parallel(cfg, tp)
-            check_cache_mode(overrides.get("cache_shard", "auto"))
             tp_colls = serve_collectives(lm, tp, rows, shape.seq_len,
-                                         shape.kind)
-        except NotImplementedError as e:
+                                         shape.kind, mode)
+        except (NotImplementedError, ValueError) as e:
             tp_colls, tp_reason = None, str(e)
-        extra["cache_mode"] = cache_mode(cfg, tp)
+        extra["cache_mode"] = cache_mode(cfg, tp, mode)
         if extra["cache_mode"] != reference_cache_mode(cfg, tp):
             extra["cache_mode_reference"] = reference_cache_mode(cfg, tp)
     tp_bytes = float(sum((tp_colls or {}).values()))

@@ -45,7 +45,11 @@ slices concatenated on every position, for a Mamba2 block whose
 the positions' gradients of the whole leaf and hands each its slice) and
 ``pmax`` (a max with no gradient); serving (step 13.12) adds
 ``gather_out`` (the positions' parts concatenated on the first, with no
-gradient: the vocab-parallel logits). Their sums too are added in shard
+gradient: the vocab-parallel logits), and the reference's "hd" and "seq"
+kv cache layouts (step 13.13) ``all_reduce`` (a sum on every position,
+no gradient: partial attention scores) and ``all_to_all`` (uneven pieces
+from every position to every position: kv heads re-laid as head-dim
+columns or sequence slots). Their sums too are added in shard
 order, a bf16 or f16 part widened to f32 and the sum rounded once, so an
 in-process row (one autograd graph over its positions) and the ranks of a
 multi-rank one give the same bits.
@@ -54,7 +58,8 @@ Each collective adds its operand bytes (one position's tensor, in the
 dtype it is summed in) to a counter by kind ("all-gather",
 "reduce-scatter", "all-reduce" over data axes; "reduce-out", "copy-in",
 "regroup" (``ModelGroup.all_gather``: a position's slice), "regroup-sum"
-(its backward: the whole leaf's gradient in f32), "max", "gather-out"
+(its backward: the whole leaf's gradient in f32), "max", "gather-out",
+and serving's "all-reduce" and "all-to-all" (what a position receives)
 over the model axis): ``collective_bytes()`` reads it and
 ``reset_collective_bytes()`` clears it, as ``ops.launch_counts`` does for
 the kernels. ``models.sharding.gather_tree`` counts its in-process
@@ -422,6 +427,64 @@ class ModelGroup:
             note_collective("max", parts[0])
         every = self.mesh._every_shard(parts, (self.axis,))
         return torch.amax(torch.stack(every), dim=0)
+
+    def all_reduce(self, parts: Sequence[torch.Tensor]) -> list:
+        """The sum over the axis of the positions' ``parts`` (equal
+        shapes), in shard order and in f32 where they are narrower
+        (``_wide_sum``), on every local position's device, with no
+        gradient: serving's partial attention scores and partial softmax
+        terms."""
+        parts = [p.detach().contiguous() for p in parts]
+        if self.count:
+            note_collective("all-reduce", parts[0])
+        total = _wide_sum(self.mesh._every_shard(parts, (self.axis,)))
+        return [total.to(d) for d in self.devices]
+
+    def all_to_all(self, sends: Sequence[Sequence[torch.Tensor]],
+                   dim: int) -> list:
+        """Each local position's pieces for every position of the axis
+        (``sends[i][d]``: what local position i sends to shard index d;
+        shapes may differ, empty ones included), delivered: for each local
+        position, what every position sent it, concatenated along ``dim``
+        in shard order, on its device, with no gradient. Serving re-lays
+        kv heads as head-dim columns or sequence slots with it. Counts
+        what the first local position receives, its own piece included
+        (the pieces are uneven where the axis does not divide the heads).
+        Across ranks the pieces' shapes go first, then the pieces."""
+        if self.mesh.multi_rank:
+            out = [self._all_to_all_ranks(sends[0], dim)]
+        else:
+            at = {j: i for i, j in enumerate(self.index)}
+            out = [torch.cat([sends[at[s]][j].detach().to(dev)
+                              for s in range(self.size)], dim)
+                   for j, dev in zip(self.index, self.devices)]
+        if self.count:
+            note_collective("all-to-all", out[0])
+        return out
+
+    def _all_to_all_ranks(self, mine: Sequence[torch.Tensor],
+                          dim: int) -> torch.Tensor:
+        """This rank's ``all_to_all``: ``mine[d]`` goes to shard index d;
+        the pieces travel flat, in the group's rank order
+        (``dist.all_to_all_single`` with split sizes)."""
+        group = self.mesh.group((self.axis,))
+        ranks = self.mesh._shard_ranks((self.axis,))  # in shard order
+        order = [ranks.index(r) for r in sorted(ranks)]  # group rank -> shard
+        dev, nd = self.devices[0], mine[0].dim()
+        shapes = torch.empty(len(order) * nd, dtype=torch.int64, device=dev)
+        dist.all_to_all_single(shapes, torch.tensor(
+            [n for d in order for n in mine[d].shape], device=dev),
+            group=group)
+        shapes = shapes.view(len(order), nd).tolist()
+        sizes = [math.prod(sh) for sh in shapes]
+        flat = torch.empty(sum(sizes), dtype=mine[0].dtype, device=dev)
+        dist.all_to_all_single(
+            flat, torch.cat([mine[d].detach().reshape(-1) for d in order]),
+            output_split_sizes=sizes,
+            input_split_sizes=[mine[d].numel() for d in order], group=group)
+        by_shard = {s: t.view(sh) for s, t, sh in
+                    zip(order, flat.split(sizes), shapes)}
+        return torch.cat([by_shard[s] for s in range(self.size)], dim)
 
 
 class _CopyIn(torch.autograd.Function):

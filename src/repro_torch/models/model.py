@@ -119,7 +119,17 @@ way at one token (``_tp_self_attn_decode``, ``_tp_cross_attn_decode``,
 ``mamba.tp_mamba_decode``, and ``_tp_mlp_sub`` / ``_tp_moe_sub`` as they
 are), each position against its own caches, in place; no kernel runs in
 it, as in ``decode_step``. ``serve.engine.Engine(..., mesh=)`` drives
-both.
+both. The reference's other kv cache layouts (ROADMAP.md step 13.13;
+``cache_mode``, default "heads"): under "hd" a position caches its
+columns of every kv head, under "seq" its slots of every kv head. The
+prefill still computes k and v on the positions' own heads (rotated
+whole, since RoPE pairs column i with i + hd/2) and re-lays each kv
+head's owner's copy by an all-to-all (``_relay_kv``); decode re-lays the
+token's q, k and v the same way and attends across the axis
+(``_tp_split_attn_decode``: partial scores summed by an all-reduce under
+"hd", local softmax terms combined with the axis's max under "seq"). A
+vlm's image cache and the Mamba2 caches are laid out as under "heads" in
+every layout, as the reference's ``cache_specs`` does.
 """
 from __future__ import annotations
 
@@ -133,6 +143,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from ..configs.base import ArchConfig
 from ..device import CUDA, DeviceLike, resolve_device
 from .common import (
+    NEG_INF,
     Init,
     WideProduct,
     attn_init,
@@ -164,6 +175,7 @@ from .moe import (
     moe_init,
     route_layer,
 )
+from .sharding import cache_slice, kv_cache_slice, resolve_cache_mode
 
 Params = Any
 
@@ -417,6 +429,19 @@ def kv_range(n_heads: int, n_kv: int, tp: int, j: int) -> tuple[int, int]:
     return lo // rep, ((hi - 1) // rep + 1 if hi > lo else lo // rep)
 
 
+def kv_owned(n_heads: int, n_kv: int, tp: int, j: int) -> tuple[int, int]:
+    """The kv heads ``[a, b)`` of ``kv_range`` for which position ``j`` is
+    the first position that computes them: the heads it sends when the
+    kv caches are re-laid as columns or slots (every kv head has one
+    owner; a position without a query head owns none)."""
+    have = 0
+    for i in range(j):
+        have = max(have, kv_range(n_heads, n_kv, tp, i)[1])
+    g0, g1 = kv_range(n_heads, n_kv, tp, j)
+    a = max(g0, have)
+    return a, max(a, g1)
+
+
 def _tp_heads(ps, group, cfg, kv: bool = True) -> list:
     """Each local position's ``(wq, wk, wv, wo)`` for its query heads and
     the kv heads they read (``wk`` and ``wv`` None without ``kv``). Where
@@ -475,11 +500,15 @@ def _tp_attn_sub(ps, x, ctx, img, cs=None):
     divide ``n_kv`` (``_tp_heads``), K4 and K5 on its heads, its product
     with its rows of ``wo`` kept in f32 (``WideProduct``), and a
     reduce-out of the products. ``cs``: each local position's cache slot
-    ``(k, v)`` of the sub-layer, which takes its kv heads (prefill)."""
+    ``(k, v)`` of the sub-layer, which takes its kv heads (prefill), or
+    in the "hd" and "seq" layouts (``ctx["cache_mode"]``) a self-attention's
+    k and v re-laid as columns or slots (``_relay_kv``)."""
     cfg, group = ctx["cfg"], ctx["group"]
     tp, hd = group.size, cfg.hd
+    split = (cs is not None and img is None
+             and ctx.get("cache_mode", "heads") != "heads")
     h = rms_norm(x, ps[0]["ln1"])
-    outs = []
+    outs, owned = [], []
     for i, ((wq, wk, wv, wo), hj, j) in enumerate(zip(
             _tp_heads(ps, group, cfg), group.copy_in(h), group.index)):
         B, S = hj.shape[:2]
@@ -493,13 +522,40 @@ def _tp_attn_sub(ps, x, ctx, img, cs=None):
             pos = ctx["positions"].to(hj.device)
             q = rope(q, pos, cfg.rope_theta)
             k = rope(k, pos, cfg.rope_theta)
-        if cs is not None:
+        if split:
+            owned.append(_owned(k, v, cfg, tp, j))
+        elif cs is not None:
             _write(cs[i], (k, v))
         k, v = _per_head_kv(k, v, cfg, tp, j)
         o = blockwise_attention(q, k, v, causal=img is None,
                                 force=ctx["force"])
         outs.append(WideProduct.apply(o.reshape(B, S, q.shape[2] * hd), wo))
+    if split:
+        for c, new in zip(cs, _relay_kv(owned, group, cfg, ctx["cache_mode"],
+                                        ctx["cache_len"])):
+            _write(c, new)
     return x + group.reduce_out(outs).to(x.dtype)
+
+
+def _owned(k, v, cfg, tp: int, j: int) -> tuple:
+    """Position ``j``'s k and v (B, S, g1 - g0, hd) narrowed to the kv
+    heads it owns (``kv_owned``)."""
+    g0 = kv_range(cfg.n_heads, cfg.n_kv, tp, j)[0]
+    a, b = kv_owned(cfg.n_heads, cfg.n_kv, tp, j)
+    return k[:, :, a - g0:b - g0], v[:, :, a - g0:b - g0]
+
+
+def _relay_kv(owned, group, cfg, mode: str, length: int) -> list:
+    """Each local position's prefill ``(k, v)`` of the kv heads it owns
+    (B, S, n, hd) re-laid to the "hd" or "seq" layout of caches of
+    ``length`` slots by an all-to-all: each position's ``(k, v)`` of every
+    kv head, its part of the S tokens by ``sharding.kv_cache_slice`` (none
+    where the prompt ends before its slots)."""
+    tp = group.size
+    lay = [kv_cache_slice(mode, tp, d, cfg.hd, length) for d in range(tp)]
+    k, v = (group.all_to_all([[t[:, sl, :, cl] for sl, cl in lay]
+                              for t in ts], 2) for ts in zip(*owned))
+    return list(zip(k, v))
 
 
 def _tp_self_attn_full(ps, x, ctx, cs=None):
@@ -755,16 +811,15 @@ def block_apply_decode(kind, p, x, cache, ctx):
 # ---- single-token decode over a model axis ----
 
 
-def check_cache_mode(mode: str) -> None:
-    """Raise for a kv cache layout the port does not serve: it caches whole
-    kv heads on each position of a model axis ("heads"; "auto" picks it);
-    the reference's "hd" and "seq" layouts (its ``cache_shard`` override)
-    are ROADMAP.md step 13.13."""
-    if mode not in ("auto", "heads"):
-        raise NotImplementedError(
-            f"cache layout {mode!r}: the port caches whole kv heads on each "
-            f"position of a model axis; the reference's 'hd' and 'seq' "
-            f"layouts are ROADMAP.md step 13.13")
+class CacheSlices(list):
+    """Each local position's cache tree on a model axis (``LM.tp_prefill``
+    returns one), with the kv cache layout it holds, ``mode`` "heads",
+    "hd" or "seq" (``models.sharding.cache_slice``), and its self-attention
+    caches' ``length`` in slots."""
+
+    def __init__(self, trees, mode: str, length: int):
+        super().__init__(trees)
+        self.mode, self.length = mode, length
 
 
 def _attend_decode(q, kc, vc, pos: int, cfg, tp: int, j: int):
@@ -777,29 +832,121 @@ def _attend_decode(q, kc, vc, pos: int, cfg, tp: int, j: int):
     return decode_attention(q, kc, vc, pos)
 
 
-def _tp_self_attn_decode(ps, x, cs, ctx):
-    """``_self_attn_decode`` over a model axis: each position writes the k
-    and v of its kv heads at ``pos`` into its cache slot ``cs[i]`` and
-    attends its query heads to them; its rows of ``wo`` in f32
-    (``WideProduct``), one reduce-out."""
+def _decode_qkv(ps, x, ctx) -> list:
+    """Each local position's q (B, 1, nq, hd) of its query heads, k and v
+    (B, 1, nkv, hd) of the kv heads they read, of the token at
+    ``ctx["pos"]`` (q and k rotated on whole heads), and its rows of
+    ``wo``."""
     cfg, group, pos = ctx["cfg"], ctx["group"], ctx["pos"]
     tp, hd = group.size, cfg.hd
     h = rms_norm(x, ps[0]["ln1"])
-    outs = []
-    for (wq, wk, wv, wo), hj, j, (kc, vc) in zip(
-            _tp_heads(ps, group, cfg), group.copy_in(h), group.index, cs):
+    out = []
+    for (wq, wk, wv, wo), hj, j in zip(_tp_heads(ps, group, cfg),
+                                       group.copy_in(h), group.index):
         B = hj.shape[0]
         nq, nkv = _n_heads(cfg, tp, j)
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=hj.device)
         q = rope((hj @ wq).reshape(B, 1, nq, hd), positions, cfg.rope_theta)
         k = rope((hj @ wk).reshape(B, 1, nkv, hd), positions, cfg.rope_theta)
-        v = (hj @ wv).reshape(B, 1, nkv, hd)
+        out.append((q, k, (hj @ wv).reshape(B, 1, nkv, hd), wo))
+    return out
+
+
+def _decode_out(x, attn: list, wos: list, group):
+    """Each local position's attention output (B, 1, nq, hd) times its
+    rows of ``wo`` in f32 (``WideProduct``), one reduce-out, the
+    residual."""
+    outs = [WideProduct.apply(o.flatten(2), wo) for o, wo in zip(attn, wos)]
+    return x + group.reduce_out(outs).to(x.dtype)
+
+
+def _tp_self_attn_decode(ps, x, cs, ctx):
+    """``_self_attn_decode`` over a model axis: each position writes the k
+    and v of its kv heads at ``pos`` into its cache slot ``cs[i]`` and
+    attends its query heads to them; its rows of ``wo`` in f32
+    (``WideProduct``), one reduce-out. The "hd" and "seq" layouts
+    (``ctx["cache_mode"]``) are ``_tp_split_attn_decode``."""
+    if ctx["cache_mode"] != "heads":
+        return _tp_split_attn_decode(ps, x, cs, ctx)
+    cfg, group, pos = ctx["cfg"], ctx["group"], ctx["pos"]
+    heads = _decode_qkv(ps, x, ctx)
+    attn = []
+    for (q, k, v, _wo), j, (kc, vc) in zip(heads, group.index, cs):
         kc[:, pos] = k[:, 0].to(kc.dtype)  # in place
         vc[:, pos] = v[:, 0].to(vc.dtype)
-        o = _attend_decode(q, kc, vc, pos, cfg, tp, j)
-        outs.append(WideProduct.apply(o.reshape(B, 1, nq * hd), wo))
-    return x + group.reduce_out(outs).to(x.dtype)
+        attn.append(_attend_decode(q, kc, vc, pos, cfg, group.size, j))
+    return _decode_out(x, attn, [t[3] for t in heads], group)
+
+
+def _tp_split_attn_decode(ps, x, cs, ctx):
+    """``_self_attn_decode`` over a model axis whose kv caches are split
+    by head-dim columns ("hd") or sequence slots ("seq"), the reference's
+    ``cache_specs(mode=)`` layouts. Each position computes q of its query
+    heads and k and v of its kv heads (``_decode_qkv``); an all-to-all
+    hands each position its columns of every head ("hd") or every head
+    whole ("seq") (``sharding.kv_cache_slice``). The owner of slot
+    ``pos`` writes k and v there, and each position makes its scores of
+    every query head over its part of the caches in f32. "hd": an
+    all-reduce sums them in position order, every position applies the
+    same mask and softmax and takes P times its v columns, and a second
+    all-to-all hands each position its query heads' outputs, all columns.
+    "seq": each position masks its slots past ``pos`` and takes their max;
+    with the max over the axis (``ModelGroup.pmax``) each makes its sum of
+    exps and unnormalised P V, an all-reduce sums them in position order,
+    and each position divides and keeps its query heads. A position whose
+    slots all lie past ``pos`` has the max ``NEG_INF``, so its exps
+    against the axis's max are 0. Then ``_decode_out``, as in the "heads"
+    layout."""
+    cfg, group, pos, mode = (ctx["cfg"], ctx["group"], ctx["pos"],
+                             ctx["cache_mode"])
+    tp, hd, H, KV = group.size, cfg.hd, cfg.n_heads, cfg.n_kv
+    rep = H // KV
+    B = x.shape[0]
+    qkv = _decode_qkv(ps, x, ctx)
+    owned = [_owned(k, v, cfg, tp, j)
+             for (_q, k, v, _wo), j in zip(qkv, group.index)]
+    lay = [kv_cache_slice(mode, tp, d, hd, ctx["cache_len"])
+           for d in range(tp)]
+    q, k, v = (group.all_to_all([[t[..., cl] for _sl, cl in lay]
+                                 for t in ts], 2)
+               for ts in ([t[0] for t in qkv], *zip(*owned)))
+    scores, valid = [], []
+    for j, qj, kj, vj, (kc, vc) in zip(group.index, q, k, v, cs):
+        sl = lay[j][0]
+        if sl.start <= pos < sl.stop:  # the owner of slot pos
+            kc[:, pos - sl.start] = kj[:, 0].to(kc.dtype)  # in place
+            vc[:, pos - sl.start] = vj[:, 0].to(vc.dtype)
+        scores.append(torch.einsum("bgrh,bsgh->bgrs",
+                                   qj.reshape(B, KV, rep, -1).float(),
+                                   kc.float()))
+        valid.append(torch.arange(sl.start, sl.stop, device=kc.device) <= pos)
+    heads = [head_range(H, tp, d) for d in range(tp)]
+    scale = 1.0 / (hd ** 0.5)
+    if mode == "hd":
+        sends = []
+        for s, ok, (kc, vc) in zip(group.all_reduce(scores), valid, cs):
+            p = torch.softmax(torch.where(ok, s * scale, NEG_INF), -1)
+            o = torch.einsum("bgrs,bsgh->bgrh", p, vc.float()).reshape(
+                B, 1, H, -1).to(x.dtype)
+            sends.append([o[:, :, lo:hi] for lo, hi in heads])
+        attn = group.all_to_all(sends, 3)
+    else:
+        scores = [torch.where(ok, s * scale, NEG_INF)
+                  for s, ok in zip(scores, valid)]
+        m = group.pmax([s.amax(-1) for s in scores])
+        parts = []
+        for s, (kc, vc) in zip(scores, cs):
+            e = torch.exp(s - m.to(s.device)[..., None])
+            parts.append(torch.cat([
+                torch.einsum("bgrs,bsgh->bgrh", e, vc.float()),
+                e.sum(-1, keepdim=True)], -1))
+        attn = []
+        for t, j in zip(group.all_reduce(parts), group.index):
+            lo, hi = heads[j]
+            t = (t[..., :hd] / t[..., hd:]).reshape(B, 1, H, hd)
+            attn.append(t[:, :, lo:hi].to(x.dtype))
+    return _decode_out(x, attn, [t[3] for t in qkv], group)
 
 
 def _tp_cross_attn_decode(ps, x, cs, ctx):
@@ -1069,11 +1216,12 @@ class LM:
 
     def _tp_trunk(self, parts: list, tokens, group, *, img=None,
                   force=None, routes=None, want_caches: bool = False,
-                  cache_len: Optional[int] = None):
+                  cache_len: Optional[int] = None,
+                  cache_mode: str = "heads"):
         """``tp_loss``'s embedding and blocks: (x, aux, tokens, caches);
         with ``want_caches`` (the prefill) each local position's cache
-        tree (``init_caches(..., tp=, j=)``) filled block by block, and no
-        block checkpointed."""
+        tree (``init_caches(..., tp=, j=, mode=cache_mode)``, the mode
+        resolved) filled block by block, and no block checkpointed."""
         cfg = self.cfg
         tp = group.size
         check_tensor_parallel(cfg, tp)
@@ -1082,13 +1230,16 @@ class LM:
         B, S = tokens.shape
         img = self._image(parts[0], img, B)
         x = self._tp_embed(parts, tokens, group)
+        mode, L = resolve_cache_mode(cfg, tp, cache_mode), cache_len or S
         ctx = dict(cfg=cfg, group=group, force=force, img=img,
                    positions=torch.arange(S, dtype=torch.int32,
                                           device=dev).expand(B, S),
-                   shared=[p.get("shared") for p in parts])
-        caches = ([self.init_caches(B, cache_len or S, device=d, tp=tp, j=j)
-                   for d, j in zip(group.devices, group.index)]
-                  if want_caches else None)
+                   shared=[p.get("shared") for p in parts], cache_mode=mode,
+                   cache_len=L)
+        caches = (CacheSlices([
+            self.init_caches(B, L, device=d, tp=tp, j=j, mode=mode)
+            for d, j in zip(group.devices, group.index)], mode, L)
+            if want_caches else None)
         remat = torch.is_grad_enabled() and not want_caches
         aux_total = torch.zeros((), dtype=torch.float32, device=dev)
         for si, (kind, count) in enumerate(self.plan):
@@ -1189,42 +1340,53 @@ class LM:
     def tp_prefill(self, parts: list, tokens, group, img=None, *,
                    cache_len: Optional[int] = None,
                    force: Optional[str] = None, cache_mode: str = "heads"):
-        """``prefill`` over a model axis (ROADMAP.md step 13.12): ``parts``
-        and ``group`` as ``tp_loss``'s. Returns (the last position's logits
-        (B, V), whole, on the first local position's device; each local
-        position's cache tree). A position's caches hold what it reads
-        back in ``tp_decode_step``: the kv heads its query heads read
-        (``kv_range``; a kv head two positions read is cached on both, and
-        a position without a query head caches none), a vlm's image keys
-        and values of the same heads, and a Mamba2 block's state of its
-        heads and conv window of its conv columns
-        (``models.sharding.cache_slice`` gives the same slices of a whole
-        tree). The logits are each position's vocab columns, gathered
-        whole over the axis (``ModelGroup.gather_out``). ``cache_mode``:
-        the port caches whole kv heads ("heads"; "auto" is the same); the
-        reference's "hd" and "seq" layouts are ROADMAP.md step 13.13."""
-        check_cache_mode(cache_mode)
+        """``prefill`` over a model axis (ROADMAP.md steps 13.12-13.13):
+        ``parts`` and ``group`` as ``tp_loss``'s. Returns (the last
+        position's logits (B, V), whole, on the first local position's
+        device; each local position's cache tree, a ``CacheSlices`` that
+        names its layout). ``cache_mode`` lays out the self-attention kv
+        caches (``models.sharding.cache_slice``): "heads" (the default),
+        the kv heads its query heads read (``kv_range``; a kv head two
+        positions read is cached on both, and a position without a query
+        head caches none); the reference's "hd", its columns of every kv
+        head, or "seq", its slots of every kv head, each re-laid from the
+        heads it computed by an all-to-all (``_relay_kv``); "auto" picks
+        as the reference's ``cache_specs(mode="auto")`` does. An axis that
+        does not divide the head dim ("hd") or ``cache_len`` ("seq")
+        raises ``ValueError``. In every layout a vlm's image keys and
+        values are cached by the kv heads of its query heads, and a Mamba2
+        block's state of its heads and its conv window of its conv
+        columns. The logits are each position's vocab columns, gathered
+        whole over the axis (``ModelGroup.gather_out``)."""
         x, _aux, _tokens, caches = self._tp_trunk(
             parts, tokens, group, img=img, force=force, want_caches=True,
-            cache_len=cache_len)
+            cache_len=cache_len, cache_mode=cache_mode)
         return self._tp_logits(parts, x[:, -1:], group)[:, 0], caches
 
-    def tp_decode_step(self, parts: list, token, caches: list, pos: int,
-                       group, *, force: Optional[str] = None):
+    def tp_decode_step(self, parts: list, token, caches: "CacheSlices",
+                       pos: int, group, *, force: Optional[str] = None):
         """``decode_step`` over a model axis: ``token`` (B, 1), ``caches``
-        each local position's cache tree (``tp_prefill``'s), updated in
-        place; returns (logits (B, V) whole, on the first local position's
-        device, ``caches``). Each sub-layer runs on a position's own heads,
-        MLP columns, experts or Mamba heads against its own caches, its
-        partial products summed by a reduce-out as in ``tp_loss``; nothing
+        each local position's cache tree, the ``CacheSlices`` that
+        ``tp_prefill`` returned, whose layout it reads (a ``ValueError``
+        for caches that name none); updated in place. Returns (logits
+        (B, V) whole, on the first local position's device, ``caches``).
+        Each sub-layer runs on a position's own heads, MLP columns,
+        experts or Mamba heads against its own caches, its partial
+        products summed by a reduce-out as in ``tp_loss`` (attention in
+        the "hd" and "seq" layouts: ``_tp_split_attn_decode``); nothing
         here runs K4 or K6, as in ``decode_step``."""
         cfg = self.cfg
         check_tensor_parallel(cfg, group.size)
+        if not isinstance(caches, CacheSlices):
+            raise ValueError("tp_decode_step: the caches name no kv cache "
+                             "layout; pass the CacheSlices that tp_prefill "
+                             "returned")
         dev = parts[0]["embed"].device
         token = torch.as_tensor(token, device=dev).long()
         x = self._tp_embed(parts, token, group)
         ctx = dict(cfg=cfg, group=group, pos=int(pos), force=force,
-                   shared=[p.get("shared") for p in parts])
+                   shared=[p.get("shared") for p in parts],
+                   cache_mode=caches.mode, cache_len=caches.length)
         for si, (kind, count) in enumerate(self.plan):
             for i in range(count):
                 ps = [_index(p[f"seg{si}"], i) for p in parts]
@@ -1245,20 +1407,18 @@ class LM:
 
     def init_caches(self, batch: int, seq_len: int, *,
                     device: DeviceLike = CUDA, tp: int = 1,
-                    j: int = 0) -> list:
+                    j: int = 0, mode: str = "heads") -> list:
         """Zeroed caches for ``seq_len`` positions, in the reference's
         tree, shapes and dtypes; a vlm's cross-attention cache holds
         ``n_img_tokens`` positions. With ``tp > 1``: the caches that
-        position ``j`` of a model axis of ``tp`` holds
-        (``models.sharding.cache_slice``'s shapes)."""
+        position ``j`` of a model axis of ``tp`` holds in the kv cache
+        layout ``mode`` (``models.sharding.cache_slice``'s shapes)."""
         dev = resolve_device(device)
         if tp > 1:
-            from .sharding import cache_slice
-
             whole = self.init_caches(batch, seq_len, device="meta")
             return _map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
                                               device=dev),
-                        cache_slice(self, whole, tp, j))
+                        cache_slice(self, whole, tp, j, mode))
         cfg = self.cfg
         d_inner, H, N = mamba_dims(cfg) if cfg.ssm_state else (0, 0, 0)
         P = cfg.ssm_head_dim
@@ -1311,6 +1471,6 @@ def tree_map(fn, *trees):
     return _map(fn, *trees)
 
 
-__all__ = ["LM", "layer_plan", "block_init", "block_apply_full",
-           "block_apply_decode", "check_cache_mode", "check_tensor_parallel",
-           "head_range", "kv_range", "tree_leaves", "tree_map"]
+__all__ = ["CacheSlices", "LM", "layer_plan", "block_init",
+           "block_apply_full", "block_apply_decode", "check_tensor_parallel",
+           "head_range", "kv_owned", "kv_range", "tree_leaves", "tree_map"]

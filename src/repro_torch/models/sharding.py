@@ -25,7 +25,10 @@ position of a ("data", "model") mesh needs for tensor-parallel training
 data axes. ``split_dims`` names the dim of a spec that the data axes split
 and the one that the model axis splits. ``cache_slice`` gives the caches
 that a position of a model axis holds when serving (ROADMAP.md step
-13.12), and ``assemble_caches`` the whole tree back from them.
+13.12), in the kv cache layout named by ``mode`` (the port's "heads", or
+the reference's "hd" and "seq", step 13.13; "auto" picks as the
+reference's ``cache_specs``), and ``assemble_caches`` the whole tree
+back from them.
 
 The activation mesh is kept for the reference's API only:
 ``set_activation_mesh(dp, tp)`` records the axes and ``activation_mesh``
@@ -265,12 +268,14 @@ def cache_specs(lm, fsdp: Sequence[str] = FSDP, tp: str = TP,
 # ---------------------------------------------------------------------------
 
 
-def _cache_tags(lm) -> list:
+def _cache_tags(lm, cross: bool = False) -> list:
     """``LM.init_caches``' tree with each leaf's kind: "kv" (attention
-    keys or values, (..., B, S, KV, hd), a vlm's image ones included),
-    "ssm" (a Mamba2 state, (..., B, H, P, N)) or "conv" (its conv window,
-    (..., B, d_conv - 1, d_inner + 2N))."""
+    keys or values, (..., B, S, KV, hd), a vlm's image ones included;
+    with ``cross`` those are "img"), "ssm" (a Mamba2 state, (..., B, H,
+    P, N)) or "conv" (its conv window, (..., B, d_conv - 1, d_inner +
+    2N))."""
     kv, mb = ("kv", "kv"), ("ssm", "conv")
+    img = ("img", "img") if cross else kv
     out = []
     for kind, _count in lm.plan:
         if kind in ("dense", "moe"):
@@ -282,27 +287,85 @@ def _cache_tags(lm) -> list:
         elif kind == "zamba_super":
             out.append({"mamba": mb, "attn": kv})
         elif kind == "vlm_super":
-            out.append({"dense": kv, "cross": kv})
+            out.append({"dense": kv, "cross": img})
         else:
             raise ValueError(kind)
     return out
 
 
-def cache_slice(lm, caches: list, tp: int, j: int) -> list:
-    """Model index ``j``'s slice of a whole cache tree (``LM.init_caches``
-    layout, any rows) on a model axis of ``tp``: what ``LM.tp_prefill``
-    writes on that position and ``LM.tp_decode_step`` reads.
+CACHE_MODES = ("heads", "hd", "seq", "auto")
 
-    * Attention (and a vlm's image) keys and values: the kv heads
-      ``[g0, g1)`` of ``model.kv_range``. Where ``tp`` divides ``n_kv``
-      that is ``cache_specs(..., mode="heads")``'s model slice, byte for
-      byte. Where it does not, the reference's ``mode="auto"`` picks "hd"
-      or "seq"; the port caches whole kv heads instead (its parameters
+
+def reference_cache_mode(cfg, tp: int) -> str:
+    """The layout the reference's ``cache_specs(mode="auto")`` picks."""
+    if cfg.n_kv and cfg.n_kv % tp == 0:
+        return "heads"
+    return "hd" if cfg.hd % tp == 0 else "seq"
+
+
+def resolve_cache_mode(cfg, tp: int, mode: str) -> str:
+    """The kv cache layout ``mode`` names on a model axis of ``tp``:
+    "heads", "hd" or "seq" as given, "auto" the reference's pick
+    (``reference_cache_mode``)."""
+    if mode not in CACHE_MODES:
+        raise ValueError(f"cache layout {mode!r}: one of {CACHE_MODES}")
+    return reference_cache_mode(cfg, tp) if mode == "auto" else mode
+
+
+def check_cache_layout(cfg, tp: int, mode: str, length: int) -> None:
+    """Raise ``ValueError``, naming the rule, where the reference's
+    ``cache_specs(mode=)`` cannot split a self-attention cache of
+    ``length`` slots over a model axis of ``tp`` (``mode`` resolved):
+    "hd" splits the head dim evenly, "seq" the slots."""
+    if tp <= 1 or not cfg.n_kv:
+        return
+    if mode == "hd" and cfg.hd % tp:
+        raise ValueError(
+            f"{cfg.name}: the 'hd' kv cache layout on a model axis of {tp}: "
+            f"{tp} does not divide the head dim {cfg.hd}, which it splits "
+            f"evenly")
+    if mode == "seq" and length % tp:
+        raise ValueError(
+            f"{cfg.name}: the 'seq' kv cache layout on a model axis of "
+            f"{tp}: {tp} does not divide the cache length {length}, whose "
+            f"slots it splits evenly")
+
+
+def kv_cache_slice(mode: str, tp: int, j: int, hd: int,
+                   length: int) -> tuple[slice, slice]:
+    """Position ``j``'s part of a self-attention kv cache of ``length``
+    slots and head dim ``hd`` on a model axis of ``tp`` in the reference's
+    layout ``mode`` ("hd" or "seq", resolved): ``(slots, columns)``, of
+    every kv head. "hd": all slots, columns ``[j hd/tp, (j+1) hd/tp)``;
+    "seq": slots ``[j L/tp, (j+1) L/tp)``, all columns."""
+    if mode == "hd":
+        c = hd // tp
+        return slice(0, length), slice(j * c, (j + 1) * c)
+    n = length // tp
+    return slice(j * n, (j + 1) * n), slice(0, hd)
+
+
+def cache_slice(lm, caches: list, tp: int, j: int,
+                mode: str = "heads") -> list:
+    """Model index ``j``'s slice of a whole cache tree (``LM.init_caches``
+    layout, any rows) on a model axis of ``tp`` in the kv cache layout
+    ``mode`` (``CACHE_MODES``): what ``LM.tp_prefill`` writes on that
+    position and ``LM.tp_decode_step`` reads.
+
+    * Self-attention keys and values, "heads": the kv heads ``[g0, g1)``
+      of ``model.kv_range``. Where ``tp`` divides ``n_kv`` that is
+      ``cache_specs(..., mode="heads")``'s model slice, byte for byte.
+      Where it does not, the port caches whole kv heads (its parameters
       split by heads, ROADMAP.md step 13.11), so a kv head that two
       positions' query heads read is cached on both, and a position
-      without a query head caches none. The reference's "hd" and "seq"
-      layouts are step 13.13. The reference keeps the image cache whole
-      on every model position; the port holds its kv heads only.
+      without a query head caches none.
+    * Self-attention keys and values, "hd": columns ``[j hd/tp, (j+1)
+      hd/tp)`` of every kv head; "seq": slots ``[j L/tp, (j+1) L/tp)`` of
+      every kv head, ``L`` the cache length. Each is
+      ``cache_specs(..., mode=)``'s model slice, byte for byte; an axis
+      that does not divide ``hd`` or ``L`` raises (``check_cache_layout``).
+    * A vlm's image keys and values: the kv heads of ``kv_range`` in every
+      layout (the reference keeps them whole on every model position).
     * A Mamba2 state: heads ``[j H/tp, (j+1) H/tp)``, as the reference's.
     * A Mamba2 conv window: the x channels of those heads and the B and C
       channels whole (``d_inner/tp + 2N``), the conv columns its heads
@@ -313,9 +376,14 @@ def cache_slice(lm, caches: list, tp: int, j: int) -> list:
     from .model import kv_range, tree_map
 
     cfg = lm.cfg
+    mode = resolve_cache_mode(cfg, tp, mode)
 
     def take(tag, t):
-        if tag == "kv":
+        if tag == "kv" and mode != "heads":
+            check_cache_layout(cfg, tp, mode, t.shape[-3])
+            slots, cols = kv_cache_slice(mode, tp, j, cfg.hd, t.shape[-3])
+            return t[..., slots, :, cols]
+        if tag in ("kv", "img"):
             g0, g1 = kv_range(cfg.n_heads, cfg.n_kv, tp, j)
             return t[..., g0:g1, :]
         d_inner, H, _N = mamba_dims(cfg)
@@ -325,21 +393,25 @@ def cache_slice(lm, caches: list, tp: int, j: int) -> list:
         n = d_inner // tp
         return torch.cat([t[..., j * n:(j + 1) * n], t[..., d_inner:]], -1)
 
-    return tree_map(take, _cache_tags(lm), caches)
+    return tree_map(take, _cache_tags(lm, cross=True), caches)
 
 
-def assemble_caches(lm, slices: Sequence[list], tp: int) -> list:
+def assemble_caches(lm, slices: Sequence[list], tp: int,
+                    mode: str = "heads") -> list:
     """The whole cache tree from every model index's slice (``slices[j]``
-    index j's, ``cache_slice``'s layout): the reverse of ``cache_slice``.
-    A kv head cached on several positions is taken from the first, the B
-    and C conv channels from index 0."""
+    index j's, ``cache_slice``'s layout ``mode``): the reverse of
+    ``cache_slice``. A kv head cached on several positions is taken from
+    the first, the B and C conv channels from index 0."""
     from .mamba import mamba_dims
     from .model import kv_range, tree_map
 
     cfg = lm.cfg
+    mode = resolve_cache_mode(cfg, tp, mode)
 
     def join(tag, *parts):
-        if tag == "kv":
+        if tag == "kv" and mode != "heads":
+            return torch.cat(parts, -1 if mode == "hd" else -3)
+        if tag in ("kv", "img"):
             pieces, have = [], 0
             for j, t in enumerate(parts):
                 g0, g1 = kv_range(cfg.n_heads, cfg.n_kv, tp, j)
@@ -353,23 +425,20 @@ def assemble_caches(lm, slices: Sequence[list], tp: int) -> list:
         return torch.cat([t[..., :n] for t in parts] + [parts[0][..., n:]],
                          -1)
 
-    return tree_map(join, _cache_tags(lm), *slices)
+    return tree_map(join, _cache_tags(lm, cross=True), *slices)
 
 
-def cache_mode(cfg, tp: int) -> str:
-    """The port's kv cache layout on a model axis of ``tp``: "heads" where
-    ``tp`` divides ``n_kv`` (the reference's), "kv-heads-regrouped" where
-    it does not (whole kv heads by ``model.kv_range``, see
-    ``cache_slice``)."""
+def cache_mode(cfg, tp: int, mode: str = "heads") -> str:
+    """The name of the port's kv cache layout ``mode`` on a model axis of
+    ``tp``: "hd" or "seq" as resolved (``resolve_cache_mode``); for
+    "heads", "heads" where ``tp`` divides ``n_kv`` (the reference's) and
+    "kv-heads-regrouped" where it does not (whole kv heads by
+    ``model.kv_range``, see ``cache_slice``)."""
+    mode = resolve_cache_mode(cfg, tp, mode)
+    if mode != "heads":
+        return mode
     return "heads" if not cfg.n_kv or cfg.n_kv % tp == 0 \
         else "kv-heads-regrouped"
-
-
-def reference_cache_mode(cfg, tp: int) -> str:
-    """The layout the reference's ``cache_specs(mode="auto")`` picks."""
-    if cfg.n_kv and cfg.n_kv % tp == 0:
-        return "heads"
-    return "hd" if cfg.hd % tp == 0 else "seq"
 
 
 # ---------------------------------------------------------------------------
@@ -617,9 +686,12 @@ def local_bytes(tree: Any, specs: Any, mesh) -> int:
 
 
 __all__ = ["FSDP", "P", "ShardedTree", "TP", "activation_mesh",
-           "assemble_caches", "batch_spec", "cache_mode", "cache_slice",
-           "cache_specs", "clear_activation_mesh", "constrain",
-           "entry_axes", "gather_over", "gather_tree", "local_bytes",
-           "param_specs", "reference_cache_mode", "set_activation_mesh",
+           "CACHE_MODES", "assemble_caches", "batch_spec", "cache_mode",
+           "cache_slice", "cache_specs", "check_cache_layout",
+           "clear_activation_mesh", "constrain",
+           "entry_axes", "gather_over", "gather_tree", "kv_cache_slice",
+           "local_bytes",
+           "param_specs", "reference_cache_mode", "resolve_cache_mode",
+           "set_activation_mesh",
            "shard_shape", "shard_tree", "slices_of", "spec_leaves",
            "split_dims"]

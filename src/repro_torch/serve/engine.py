@@ -21,7 +21,9 @@ splits the prompt rows over the data axes by ``batch_spec``'s rule (every
 row takes the whole batch where they do not divide it), and each data
 row runs its positions of the model axis (a ``launch.mesh.ModelGroup``)
 through ``LM.tp_prefill`` and ``LM.tp_decode_step``, each position
-holding its own slices of the caches. The collectives of a ``generate``
+holding its own slices of the caches, in the kv cache layout
+``cache_mode`` (the port's "heads" by default; the reference's "hd" or
+"seq", or "auto", ROADMAP.md step 13.13). The collectives of a ``generate``
 are one row's, those of one position (``launch.mesh.collective_bytes``);
 the engine's build counts its all-gather of the slices. An in-process mesh
 with a "model" axis only: a multi-rank mesh is refused.
@@ -60,15 +62,19 @@ def pad_caches(lm: LM, caches, cur_len: int, target_len: int):
 
 class Engine:
     def __init__(self, lm: LM, params, max_len: int, *, mesh=None,
-                 force: Optional[str] = None, device: DeviceLike = CUDA):
+                 force: Optional[str] = None, device: DeviceLike = CUDA,
+                 cache_mode: str = "heads"):
         """``params``: the whole tree, or on a ``mesh`` also a
         ``ShardedTree`` placed by ``param_specs(..., tp="model")``
-        (``device`` is then where the tokens come back)."""
+        (``device`` is then where the tokens come back). ``cache_mode``:
+        the kv cache layout on a mesh's model axis (``LM.tp_prefill``'s:
+        "heads", the reference's "hd" or "seq", or "auto")."""
         self.device = resolve_device(device)
         self.lm = lm
         self.max_len = max_len
         self.force = force
         self.mesh = mesh
+        self.cache_mode = cache_mode
         self.timings: dict = {}  # of the last generate
         if mesh is None:
             self.params = params
@@ -127,7 +133,8 @@ class Engine:
             out.append((sl, split or r == 0,
                         partial(lm.tp_prefill, parts, tokens[sl], group,
                                 None if img is None else img[sl],
-                                cache_len=L, force=force),
+                                cache_len=L, force=force,
+                                cache_mode=self.cache_mode),
                         partial(lm.tp_decode_step, parts, group=group,
                                 force=force)))
         return out

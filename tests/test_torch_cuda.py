@@ -1839,3 +1839,73 @@ def test_serve_tp_on_card_positions_equals_unsharded(cuda, arch, shape,
     for k, v in dryrun.serve_collectives(lm, tp, rows, P, "decode").items():
         dry[k] = dry.get(k, 0) + (steps - 1) * v
     assert moved == dry
+
+
+@pytest.mark.parametrize("arch,shape,over,mode", [
+    ("smollm-135m", (1, 4), {"n_heads": 9, "n_kv": 3}, "auto"),  # "hd"
+    ("smollm-135m", (1, 4), {"n_heads": 9, "n_kv": 3}, "seq"),
+    ("zamba2-7b", (2, 2), {}, "hd"),  # beside the Mamba2 states
+    ("llama-3.2-vision-90b", (1, 4), {}, "seq"),  # the image cache's heads
+])
+def test_serve_tp_layouts_on_card_positions_equals_unsharded(
+        cuda, arch, shape, over, mode):
+    """Serving on a ("data", "model") mesh of card positions in the
+    reference's "hd" and "seq" kv cache layouts (ROADMAP.md step 13.13),
+    f32 reduced config, 4 x 64 prompts and 4 new tokens into caches of
+    ``tp x 65`` slots (under "seq" the first decode write is position 0's
+    last slot, the second position 1's first): ``Engine(mesh=,
+    cache_mode=)`` gives the unsharded engine's tokens, every step's
+    logits within 1e-5 of its largest; K4 once an attention layer per
+    position that holds heads and data row; the collective bytes are the
+    dry run's ``serve_collectives(..., mode)``."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, make_mesh
+    from repro_torch.launch.mesh import (collective_bytes,
+                                         reset_collective_bytes)
+    from repro_torch.models import LM
+    from repro_torch.models.model import head_range
+    from repro_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              **over)
+    lm = LM(cfg)
+    params = lm.init(0, device=cuda)
+    rng = np.random.default_rng(3)
+    B, P, steps = 4, 64, 4
+    n_dp, tp = shape
+    L = tp * (P + 1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)), device=cuda)
+    img = (torch.as_tensor(rng.standard_normal(
+        (B, cfg.n_img_tokens, cfg.d_model)) * 0.1, dtype=torch.float32,
+        device=cuda) if cfg.family == "vlm" else None)
+    ops.reset_launches()
+    tok0, lg0 = Engine(lm, params, L, device=cuda).generate(
+        tokens, steps, img, return_logits=True)
+    want = ops.launch_counts()
+    mesh = make_mesh(shape, ("data", "model"),
+                     devices=[cuda] * math.prod(shape))
+    eng = Engine(lm, params, L, mesh=mesh, device=cuda, cache_mode=mode)
+    ops.reset_launches()
+    reset_collective_bytes()
+    tok1, lg1 = eng.generate(tokens, steps, img, return_logits=True)
+    got, moved = ops.launch_counts(), collective_bytes()
+    torch.cuda.synchronize()
+    assert torch.equal(tok1, tok0)
+    scale = float(lg0.abs().max())
+    assert float((lg1 - lg0).abs().max()) <= 1e-5 * scale
+    with_heads = sum(1 for j in range(tp)
+                     if head_range(cfg.n_heads, tp, j)[1]
+                     > head_range(cfg.n_heads, tp, j)[0])
+    assert got["flash_attention_fwd"] == \
+        n_dp * with_heads * want["flash_attention_fwd"]
+    assert got["ssd_intra_chunk"] == n_dp * tp * want["ssd_intra_chunk"]
+    rows = B // n_dp
+    dry = dict(dryrun.serve_collectives(lm, tp, rows, P, "prefill", mode, L))
+    for k, v in dryrun.serve_collectives(lm, tp, rows, P, "decode", mode,
+                                         L).items():
+        dry[k] = dry.get(k, 0) + (steps - 1) * v
+    assert moved == dry
+    assert moved["all-to-all"] and moved["all-reduce"]

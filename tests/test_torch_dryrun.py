@@ -474,6 +474,57 @@ def test_tp_collectives_equal_what_a_tp_step_moves(n, tp, M):
     assert c["per_device"]["collective_bytes"] == sum(moved.values())
 
 
+@pytest.mark.parametrize("mode", ["hd", "seq"])
+def test_hd_and_seq_decode_cells_count_what_a_tp_decode_moves(mode):
+    """A decode cell with ``--cache-shard hd`` or ``seq`` (the reference's
+    kv cache layouts, ROADMAP.md step 13.13) on (1, 4), reduced
+    smollm-135m with 9 heads and 3 kv heads: its ``tp_collectives`` are
+    the model axis's bytes of one ``LM.tp_decode_step`` in that layout, by
+    kind (the all-to-alls and all-reduces, and for "seq" the max, beside
+    the "heads" layout's kinds); the record names the layout; its
+    argument bytes exceed the "heads" cell's by what
+    ``init_caches(tp=, j=, mode=)`` allocates beyond the "heads" layout's
+    on the largest position."""
+    from repro_torch.launch.mesh import ModelGroup
+    from repro_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              n_heads=9, n_kv=3)
+    lm = LM(cfg)
+    tp, batch, seq = 4, 4, 16
+    mesh = make_mesh((1, tp), ("data", "model"), devices=["cpu"] * tp)
+    eng = Engine(lm, lm.init(0, device="cpu"), seq, mesh=mesh,
+                 device="cpu")
+    ((_d, members),) = eng.rows.items()
+    group = ModelGroup(mesh, "model", [p for p, _t in members])
+    parts = [t for _p, t in members]
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, seq - 1)))
+    logits, caches = lm.tp_prefill(parts, tokens, group, cache_len=seq,
+                                   force="ref", cache_mode=mode)
+    reset_collective_bytes()
+    lm.tp_decode_step(parts, logits.argmax(-1)[:, None], caches, seq - 1,
+                      group)
+    moved = collective_bytes()
+    shape = ShapeConfig("d", "decode", seq, batch)
+    meta = meta_mesh((1, tp), ("data", "model"))
+    c = count_cell(cfg, shape, meta, {"cache_shard": mode})
+    assert c["tp_collectives"] == moved
+    assert c["tp_collectives_reason"] is None
+    assert {"all-to-all", "all-reduce"} <= set(moved)
+    assert ("max" in moved) == (mode == "seq")
+    assert c["extra"]["cache_mode"] == mode
+    heads = count_cell(cfg, shape, meta)
+
+    def most(m):
+        return max(sum(t.numel() * t.element_size() for t in tree_leaves(
+            lm.init_caches(batch, seq, device="meta", tp=tp, j=j, mode=m)))
+            for j in range(tp))
+
+    assert (c["memory"]["argument_bytes"]
+            - heads["memory"]["argument_bytes"]) == most(mode) - most("heads")
+
+
 # --------------------------------------------------------------------------
 # the CLI record
 # --------------------------------------------------------------------------

@@ -31,8 +31,9 @@ within twice a one-ulp embedding nudge's move, the nudge rule) and the
 same tokens; ``Engine.generate``'s collective bytes equal to the dry
 run's count by kind (``serve_collectives``), to the byte. Then the cache
 layout against the reference's ``cache_specs(..., mode="heads")``, its
-assembly, the refusal of the reference's "hd" and "seq" layouts (step
-13.13), and every LM config on the production mesh's model axis of 16.
+assembly, and every LM config on the production mesh's model axis of 16
+(the reference's "hd" and "seq" layouts, step 13.13, are
+tests/test_torch_serve_tp_layouts.py's).
 """
 import dataclasses
 import json
@@ -376,28 +377,15 @@ def test_assembled_slices_give_the_whole_tree(heads, kv, tp):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("mode", ["hd", "seq"])
-def test_the_reference_hd_and_seq_layouts_are_refused(mode):
-    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
-                              dtype="float32")
-    lm = LM(cfg)
-    params = lm.init(0, device="cpu")
-    mesh = _mesh((1, 2))
-    slices = sh.gather_over(sh.shard_tree(params, sh.param_specs(
-        lm.abstract_params(), ("data",), tp="model"), mesh), ("data",))
-    group = ModelGroup(mesh, "model", [0, 1])
-    with pytest.raises(NotImplementedError, match="13.13"):
-        lm.tp_prefill([slices[0], slices[1]], torch.zeros((1, 4),
-                                                          dtype=torch.long),
-                      group, cache_mode=mode)
-
-
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_every_config_on_a_model_axis_of_16(arch):
     """Each LM config on the production mesh's model axis: accepted by
     ``check_tensor_parallel``, its caches split into 16 positions' slices
     that assemble back whole (on meta), and a decode step's model-axis
-    bytes counted; or refused, naming the rule."""
+    bytes counted, in the port's "heads" layout and in the reference's
+    ``auto`` pick (``cache_specs(mode="auto")``, "hd" or "seq" where 16
+    does not divide the kv heads: their all-to-alls and all-reduces); or
+    refused, naming the rule."""
     cfg = get_config(arch)
     lm = LM(cfg)
     try:
@@ -406,9 +394,14 @@ def test_every_config_on_a_model_axis_of_16(arch):
         assert "does not divide" in str(e)
         return
     whole = lm.init_caches(2, 64, device="meta")
-    slices = [sh.cache_slice(lm, whole, 16, j) for j in range(16)]
-    back = sh.assemble_caches(lm, slices, 16)
-    assert [t.shape for t in tree_leaves(back)] == \
-        [t.shape for t in tree_leaves(whole)]
-    colls = serve_collectives(lm, 16, 1, 64, "decode")
-    assert colls["reduce-out"] > 0 and colls["gather-out"] > 0
+    for mode in ("heads", "auto"):
+        slices = [sh.cache_slice(lm, whole, 16, j, mode) for j in range(16)]
+        back = sh.assemble_caches(lm, slices, 16, mode)
+        assert [t.shape for t in tree_leaves(back)] == \
+            [t.shape for t in tree_leaves(whole)]
+        colls = serve_collectives(lm, 16, 1, 64, "decode", mode)
+        assert colls["reduce-out"] > 0 and colls["gather-out"] > 0
+        split = (cfg.n_kv and sh.resolve_cache_mode(cfg, 16, mode)
+                 != "heads")
+        assert bool(colls.get("all-to-all")) == bool(split)
+        assert bool(colls.get("all-reduce")) == bool(split)
